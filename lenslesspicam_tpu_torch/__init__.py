@@ -1,0 +1,13 @@
+"""lenslesspicam_tpu_torch: the PyTorch/CUDA port of lenslesspicam_tpu.
+
+The single-image ADMM reconstruction of a lensless measurement on an
+NVIDIA H100: the exact solver (``recon.admm``, ``torch.fft``) and the
+fused half-spectrum solver (``recon.admm_split``) whose kernels are
+hand-written CUDA C++ for ``sm_90a`` (``ops/csrc``).  Entry points run on
+the CUDA card unless the caller asks for ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from .ops.fft_conv import FFTConvolver  # noqa: F401
+from .recon.base import ADMM, ReconstructionAlgorithm, apply_admm  # noqa: F401

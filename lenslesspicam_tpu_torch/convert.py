@@ -1,0 +1,63 @@
+"""Carry solver constants and state across from the JAX package.
+
+The single-image solvers have no learned weights: what stands in for
+them is the loop-invariant operator set and the solver state.  These
+functions take plain numpy arrays (``np.asarray`` of the JAX arrays,
+keyed by the JAX field names) and build the port's structures on a
+device; nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .ops.fft_conv import FFTConvolver
+from .recon.admm import ADMMParams, ADMMPrecomp, ADMMState
+from .recon.admm_split import ARRAY_FIELDS, RSplitPrecomp
+
+
+def _t(x, device, dtype=None):
+    return torch.from_numpy(np.array(x, dtype)).to(device)
+
+
+def admm_params(params) -> ADMMParams:
+    """The port's ADMMParams from any (mu1, mu2, mu3, tau) record."""
+    return ADMMParams(*(float(getattr(params, f)) for f in ADMMParams._fields))
+
+
+def rsplit_precomp(arrays: dict, psf_shape, padded_shape, start,
+                   device=None) -> RSplitPrecomp:
+    """The port's RSplitPrecomp from the JAX RSplitPrecomp's arrays."""
+    device = resolve_device(device)
+    return RSplitPrecomp(
+        *[_t(arrays[f], device, np.float32) for f in ARRAY_FIELDS],
+        psf_shape=tuple(psf_shape), padded_shape=tuple(padded_shape),
+        start=tuple(start))
+
+
+def convolver(H, psf_shape, padded_shape, start, pad, norm, shift_folded,
+              device=None) -> FFTConvolver:
+    """The port's FFTConvolver from the JAX FFTConvolver's spectrum and
+    geometry."""
+    device = resolve_device(device)
+    return FFTConvolver(H=_t(H, device, np.complex64),
+                        psf_shape=tuple(psf_shape),
+                        padded_shape=tuple(padded_shape), start=tuple(start),
+                        pad=bool(pad), norm=norm,
+                        shift_folded=bool(shift_folded))
+
+
+def admm_precomp(arrays: dict, device=None) -> ADMMPrecomp:
+    """The exact solver's ADMMPrecomp from the JAX one's arrays."""
+    device = resolve_device(device)
+    return ADMMPrecomp(*[_t(arrays[f], device, np.float32)
+                         for f in ADMMPrecomp._fields])
+
+
+def admm_state(arrays: dict, device=None) -> ADMMState:
+    """The exact solver's ADMMState from the JAX one's arrays."""
+    device = resolve_device(device)
+    return ADMMState(*[_t(arrays[f], device, np.float32)
+                       for f in ADMMState._fields])

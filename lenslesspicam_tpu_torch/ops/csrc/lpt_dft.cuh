@@ -1,0 +1,269 @@
+// Shared device code of the port's kernels: the batched DFT stages on
+// shared memory and the packed-real W-axis cores.
+//
+// A length-n axis is factored n = n1 * n2.  The forward two-stage DFT
+// contracts j1 with F1[k1, j1] = r1[(k1 j1) mod n1], multiplies by the
+// twiddle T[k1, j2], then contracts j2 with F2[j2, k2] = r2[(j2 k2) mod n2];
+// frequency k1 + n1 k2 lands at split position (k1, k2).  The inverse runs
+// the stages in reverse with the conjugate roots and scales by 1/n.  The
+// roots, twiddles and unpack factors come from one f32 table per length
+// (built on the host in float64, as the JAX package builds its plans):
+//   [r1f (n1) | r2f (n2) | r1i (n1) | r2i (n2) | Tf (n) | Ti (n) | E (n)]
+//
+// Each stage is a DFT in FFMA.  A stage of length L >= 16 runs as two
+// direct passes of lengths a and b (L = a*b, Cooley-Tukey, `dft`), so a
+// point costs a + b complex multiply-adds instead of L: 36 instead of 160
+// for a 12 MP W core (32 = 4*8, 128 = 8*16), 16 instead of 48 along H.
+// The design keeps every intermediate of a row or column tile in shared
+// memory (one HBM read and write per plane) and register-tiles each pass
+// 4 outputs x 4 vectors per thread, so one shared load feeds four complex
+// multiply-adds.  Shared layouts are padded to odd strides where a pass's
+// threads would otherwise hit one bank.
+
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lpt {
+
+struct Plan {
+  const float2 *r1f, *r2f, *r1i, *r2i, *tf, *ti, *e;
+  int n1, n2, n;
+};
+
+__host__ __device__ inline Plan make_plan(const float2* tab, int n1, int n2) {
+  Plan p;
+  p.n1 = n1;
+  p.n2 = n2;
+  p.n = n1 * n2;
+  p.r1f = tab;
+  p.r2f = tab + n1;
+  p.r1i = tab + n1 + n2;
+  p.r2i = tab + 2 * n1 + n2;
+  p.tf = tab + 2 * (n1 + n2);
+  p.ti = p.tf + p.n;
+  p.e = p.ti + p.n;
+  return p;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// Copy the four root tables (2 (n1 + n2) entries) of a plan to shared memory.
+__device__ __forceinline__ void load_roots(float2* dst, const Plan& p) {
+  for (int i = threadIdx.x; i < 2 * (p.n1 + p.n2); i += blockDim.x) dst[i] = p.r1f[i];
+}
+
+constexpr int KT = 4;  // outputs per thread tile
+constexpr int VT = 4;  // vectors per thread tile
+
+// One batched direct DFT pass.  Vector g < nvec splits as g1 = g % ninner,
+// g2 = g / ninner; for k < L:
+//   out[g1*os1 + g2*os2 + k*oks] = scale * tw * sum_{j<L} in[g1*is1 + g2*is2 + j*iks]
+//                                               * roots[((j*k) mod L) * rs]
+// with tw = tg[g1*ts1 + g2*ts2 + k*tks] (global table, if tg) times
+// roots[(g2*k) mod (L*rs)] (if ct).  L and nvec are multiples of 4.
+// Threads of a warp take consecutive vectors of one k tile, so a root load
+// is a broadcast and unit-stride vectors load without bank conflicts.
+struct Pass {
+  const float2* in;
+  int is1, is2, iks;
+  float2* out;
+  int os1, os2, oks;
+  int ninner, nvec, L, rs;
+  const float2* roots;
+  const float2* tg;
+  int ts1, ts2, tks;
+  bool ct;
+  float scale;
+};
+
+__device__ __forceinline__ void dft_pass(const Pass& q) {
+  const int ktiles = q.L / KT, vtiles = q.nvec / VT, mod = q.L * q.rs;
+  for (int t = threadIdx.x; t < ktiles * vtiles; t += blockDim.x) {
+    const int tv = t % vtiles, k0 = (t / vtiles) * KT;
+    int off[VT];
+#pragma unroll
+    for (int b = 0; b < VT; ++b) {
+      const int g = tv + b * vtiles;
+      off[b] = (g % q.ninner) * q.is1 + (g / q.ninner) * q.is2;
+    }
+    float2 acc[KT][VT];
+    int idx[KT];
+#pragma unroll
+    for (int a = 0; a < KT; ++a) {
+      idx[a] = 0;
+#pragma unroll
+      for (int b = 0; b < VT; ++b) acc[a][b] = make_float2(0.f, 0.f);
+    }
+    for (int j = 0; j < q.L; ++j) {
+      float2 x[VT];
+#pragma unroll
+      for (int b = 0; b < VT; ++b) x[b] = q.in[off[b] + j * q.iks];
+#pragma unroll
+      for (int a = 0; a < KT; ++a) {
+        const float2 w = q.roots[idx[a]];
+#pragma unroll
+        for (int b = 0; b < VT; ++b) {
+          acc[a][b].x = fmaf(x[b].x, w.x, fmaf(-x[b].y, w.y, acc[a][b].x));
+          acc[a][b].y = fmaf(x[b].x, w.y, fmaf(x[b].y, w.x, acc[a][b].y));
+        }
+        idx[a] += (k0 + a) * q.rs;
+        if (idx[a] >= mod) idx[a] -= mod;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < KT; ++a) {
+      const int k = k0 + a;
+#pragma unroll
+      for (int b = 0; b < VT; ++b) {
+        const int g = tv + b * vtiles, g1 = g % q.ninner, g2 = g / q.ninner;
+        float2 r = make_float2(acc[a][b].x * q.scale, acc[a][b].y * q.scale);
+        if (q.tg) r = cmul(r, __ldg(q.tg + g1 * q.ts1 + g2 * q.ts2 + k * q.tks));
+        if (q.ct) r = cmul(r, q.roots[(g2 * k) % mod]);
+        q.out[g1 * q.os1 + g2 * q.os2 + k * q.oks] = r;
+      }
+    }
+  }
+}
+
+// Split of a DFT length into two passes, L = a * b with a, b multiples of
+// 4 and a + b least; 0 when L is too short to gain (direct pass).
+__host__ __device__ inline int dft_split(int L) {
+  int best = 0;
+  for (int a = 4; a * a <= L; a += 4)
+    if (L % a == 0 && (L / a) % 4 == 0) best = a;
+  return best;
+}
+
+// Scratch a split stage needs beyond L * nvec in the buffer it borrows.
+__host__ __device__ inline int dft_slack(int L) {
+  const int a = dft_split(L);
+  return a ? L / a : 0;
+}
+
+// A DFT stage of length L over nvec vectors (vector v at in + v*ivs,
+// element j at j*iks), written as out[v*ovs + k*oks] = scale * tw[v*tw_vs
+// + k*tw_ks] * sum_j in[..j..] * roots[(j*k) mod L], roots (shared) holding
+// exp(-+2 pi i m / L).  `src` holds the input; `spare` is a second buffer
+// of the same capacity.  A direct stage writes the result into `spare`;
+// a split stage (L = a*b, Cooley-Tukey: length-a DFTs over j_a, the twiddle
+// roots[j_b*k_a], length-b DFTs over j_b, k = k_a + a*k_b) runs its first
+// pass into `spare` and its second back into `src`.  Returns the buffer
+// holding the result; the caller synchronises before reading it.
+__device__ float2* dft(float2* src, float2* spare, int ivs, int iks, int ovs, int oks, int L,
+                       int nvec, const float2* roots, const float2* tw, int tw_vs, int tw_ks,
+                       float scale) {
+  const int a = dft_split(L);
+  if (!a) {
+    dft_pass(Pass{src, ivs, 0, iks, spare, ovs, 0, oks, nvec, nvec, L, 1, roots, tw, tw_vs, 0,
+                  tw_ks, false, scale});
+    return spare;
+  }
+  const int b = L / a, sb = a * nvec + 1;
+  // pass 1: vectors (v, j_b), length a over j_a; out spare[j_b*sb + k_a*nvec + v]
+  dft_pass(Pass{src, ivs, iks, b * iks, spare, 1, sb, nvec, nvec, nvec * b, a, b, roots, nullptr,
+                0, 0, 0, true, 1.f});
+  __syncthreads();
+  // pass 2: vectors (v, k_a), length b over j_b; out src[v*ovs + (k_a + a*k_b)*oks]
+  dft_pass(Pass{spare, 1, nvec, sb, src, ovs, oks, a * oks, nvec, nvec * a, b, a, roots, tw,
+                tw_vs, tw_ks, a * tw_ks, false, scale});
+  return src;
+}
+
+// Shared memory of one W-core row: two padded buffers and the roots.
+__host__ __device__ inline int w_buf_len(int n1, int n2) { return (n1 + 1) * (n2 + 1); }
+__host__ inline size_t w_smem_bytes(int n1, int n2) {
+  return sizeof(float2) * (2 * (size_t)w_buf_len(n1, n2) + 2 * (n1 + n2));
+}
+
+__device__ __forceinline__ int mirror_pos(int k1, int k2, int n1, int n2) {
+  const int s1 = k1 ? n1 - k1 : 0;
+  const int s2 = k1 ? n2 - 1 - k2 : (k2 ? n2 - k2 : 0);
+  return s1 * n2 + s2;
+}
+
+// Forward packed-real W core.  On entry A[j] = x_even[j] + i x_odd[j] for
+// natural j = j1*n2 + j2 (j < m); B is the second row buffer; R the shared
+// roots.  Writes the half spectrum of the row, split order, Z[m] in Im of
+// lane 0.
+__device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R, float* zr,
+                           float* zi) {
+  const int n1 = p.n1, n2 = p.n2, m = p.n;
+  // stage 1: vectors j2, contract j1 -> [j2*(n1+1) + k1], twiddle Tf[k1, j2]
+  float2* Y = dft(A, B, 1, n2, n1 + 1, 1, n1, n2, R, p.tf, 1, n2, 1.f);
+  __syncthreads();
+  // stage 2: vectors k1, contract j2 -> P at [k1*(n2+1) + k2]
+  const float2* P = dft(Y, Y == A ? B : A, 1, n1 + 1, n2 + 1, 1, n2, n1, R + n1, nullptr, 0, 0,
+                        1.f);
+  __syncthreads();
+#pragma unroll 4
+  for (int pos = threadIdx.x; pos < m; pos += blockDim.x) {
+    const int k1 = pos / n2, k2 = pos - k1 * n2;
+    const int mp = mirror_pos(k1, k2, n1, n2);
+    const int m1 = mp / n2, m2 = mp - m1 * n2;
+    const float2 Pk = P[k1 * (n2 + 1) + k2], Rm = P[m1 * (n2 + 1) + m2];
+    const float2 e = __ldg(p.e + pos);
+    const float Sr = Pk.x + Rm.x, Si = Pk.y - Rm.y;
+    const float Dr = Pk.x - Rm.x, Di = Pk.y + Rm.y;
+    zr[pos] = 0.5f * (Sr + e.x * Di + e.y * Dr);
+    zi[pos] = pos ? 0.5f * (Si - (e.x * Dr - e.y * Di)) : Pk.x - Pk.y;
+  }
+  __syncthreads();
+}
+
+// Inverse packed-real W core.  Reads the row's half spectrum (lane 0
+// replaced by z0) into the row buffers A and B and returns the one that
+// holds x_even[j] + i x_odd[j] at natural j = j1*n2 + j2, scaled by 1/m.
+__device__ float2* w_inv_core(const float* zr, const float* zi, float2 z0, float2* A, float2* B,
+                           const Plan& p, const float2* R) {
+  const int n1 = p.n1, n2 = p.n2, m = p.n;
+#pragma unroll 4
+  for (int pos = threadIdx.x; pos < m; pos += blockDim.x)
+    B[pos] = pos ? make_float2(zr[pos], zi[pos]) : z0;
+  __syncthreads();
+#pragma unroll 4
+  for (int pos = threadIdx.x; pos < m; pos += blockDim.x) {
+    const int k1 = pos / n2, k2 = pos - k1 * n2;
+    const float2 z = B[pos];
+    float Er, Ei, Or, Oi;
+    if (pos == 0) {
+      Er = 0.5f * (z.x + z.y);
+      Ei = 0.f;
+      Or = 0.5f * (z.x - z.y);
+      Oi = 0.f;
+    } else {
+      const float2 r = B[mirror_pos(k1, k2, n1, n2)];
+      const float2 e = __ldg(p.e + pos);
+      const float wr = e.x, wi = -e.y;
+      Er = 0.5f * (z.x + r.x);
+      Ei = 0.5f * (z.y - r.y);
+      const float Dr = 0.5f * (z.x - r.x), Di = 0.5f * (z.y + r.y);
+      Or = wr * Dr - wi * Di;
+      Oi = wr * Di + wi * Dr;
+    }
+    A[k2 * (n1 + 1) + k1] = make_float2(Er - Oi, Ei + Or);
+  }
+  __syncthreads();
+  // inner: vectors k1, contract k2 -> [k1*(n2+1) + j2], twiddle Ti[k1, j2]
+  float2* Y = dft(A, B, 1, n1 + 1, n2 + 1, 1, n2, n1, R + 2 * n1 + n2, p.ti, n2, 1, 1.f);
+  __syncthreads();
+  // outer: vectors j2, contract k1 -> [j1*n2 + j2], scale 1/m
+  float2* X = dft(Y, Y == A ? B : A, 1, n2 + 1, 1, n2, n1, n2, R + n1 + n2, nullptr, 0, 0,
+                  1.f / (float)m);
+  __syncthreads();
+  return X;
+}
+
+// Launch helper: opt in to the dynamic shared memory, launch, report.
+template <typename K, typename... Args>
+inline int launch(K kernel, dim3 grid, dim3 block, size_t smem, void* stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace lpt
