@@ -1,0 +1,79 @@
+"""Times the port's kernels built from two source trees on one card.
+
+    python3 ab_kernels.py OTHER_CSRC [--modes headline,f32] [--rounds 2]
+
+A is ``lenslesspicam_tpu_torch/ops/csrc`` of this checkout, B the
+directory OTHER_CSRC holding the same sources changed (the same C
+entries).  Both are built with ``nvcc``, then every kernel of
+``chip_smoke.kernel_cases`` is timed at 12 MP in each mode, in the order
+A, B, B, A per round (CUDA events, median of 7 after a warm-up, as
+``chip_smoke.time_ms``), and its output is checked against the plain
+version as ``chip_smoke.check_kernels`` checks it.  Prints one JSON line
+per kernel and mode with both medians and B / A, then the card's name
+and power limit.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from lenslesspicam_tpu_torch.ops import _build, kernels as K
+
+
+def use(csrc: Path):
+    """Point the wrappers at the libraries built from ``csrc``."""
+    _build.CSRC = csrc
+    _build._libs.clear()
+    K._entry.cache_clear()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other_csrc", type=Path)
+    ap.add_argument("--modes", default="headline,f32")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    trees = {"A": _build.CSRC, "B": args.other_csrc.resolve()}
+    for tree in trees.values():
+        use(tree)
+        _build.build_all()
+    ph, pw = 6144, 8192
+    for mode in args.modes.split(","):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(ph)
+        cases = cs.kernel_cases(ph, pw, gen, *cs.MODES[mode])
+        for name, (inputs, _) in cases.items():
+            wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
+            ref = plain(*inputs)
+            times = {"A": [], "B": []}
+            for _ in range(args.rounds):
+                for label in ("A", "B", "B", "A"):
+                    use(trees[label])
+                    errs = [cs.out_err(a, b) for a, b in
+                            zip(cs.flatten(wrapper(*inputs)), cs.flatten(ref))]
+                    if not all(e[3] for e in errs):
+                        raise AssertionError(f"{name} ({mode}, {label}): errors {errs}")
+                    times[label].append(cs.time_ms(lambda: wrapper(*inputs)))
+            a, b = statistics.median(times["A"]), statistics.median(times["B"])
+            print(json.dumps({"kernel": name, "mode": mode, "grid": [ph, pw],
+                              "a_ms": a, "b_ms": b, "b_over_a": b / a, "times": times}),
+                  flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

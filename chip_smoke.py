@@ -3,18 +3,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card (at the 12 MP
-grid and at a small one), reconstructs a 12 MP measurement with the exact
-solver and with the fused solver through the kernels, checks that the
-fused run went through every kernel, measures both solvers' rates, and
-prints one JSON line per phase.  The last line is
-``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
-Without a CUDA device it exits non-zero before printing any result.
+each kernel against its plain PyTorch version on the card (at a small
+grid in every storage-dtype combination the kernels are built for, at
+the 12 MP grid in the f32 mode and in the JAX bench's headline storage
+mode: bf16 spectra, int16 carries), runs the small-grid fused loop
+through the kernels against the plain loop in every storage mode, runs
+K1 -> K2 round trips at 12 MP, reconstructs a 12 MP measurement with the
+exact solver and with the fused solver through the kernels in both
+modes, passes the JAX bench's gates (bench.py:376-435) in the headline
+mode, checks that each counted run went through every kernel of its
+path, measures the solvers' rates, and prints one JSON line per phase.  The last line is ``{"ok": true, "device": {...}}``; any
+failure raises and exits non-zero.  Without a CUDA device it exits
+non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -30,16 +36,50 @@ from lenslesspicam_tpu_torch.recon.admm import ADMMParams
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
-TOL_KERNEL = 1e-4            # max |kernel - plain| / max |plain|
+TOL_KERNEL = 1e-4            # f32 outputs: max |kernel - plain| / max |plain|
 TOL_PSNR_DB = 0.1            # |PSNR exact - PSNR fused| at n = 10
 TOL_SMALL = 1e-5             # fused vs exact, normalized, small grid, n = 10
 TOL_LOOP = 1e-4              # fused loop, kernels vs plain versions, n = 3
+# headline mode (io bf16, int16 carries): a bf16 output may differ from the
+# plain version's by one bf16 ulp where the two f32 pre-images straddle a
+# rounding boundary, an int16 output by one LSB, and at most 1 % of a
+# bf16 or int16 plane may differ at all (a store that truncates instead of
+# rounding to nearest even is off by one on about half of it);
+# saturation values 1e-5
+BF16_ULP = 2.0 ** -7
+TOL_BF16_FLOOR = 1e-5        # times max |plain|, for values near zero
+TOL_FLIP_SHARE = 1e-2
+TOL_SAT = 1e-5
+# K1 -> K2 round trip, max |x - x'| / max |x|: exact at f32; at bf16 the
+# spectra are rounded to 8 bits
+TOL_ROUND_TRIP = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the quantized loop amplifies rounding flips along its trajectory (a
+# 3e-7 relative change of the data alone moves the JAX package's own
+# headline loop by 5e-3 at n = 3): kernels vs plain versions, n = 3
+TOL_LOOP_HEADLINE = 2e-2
+TOL_PSNR_DEEP_DB = 1.2       # one-sided: headline >= exact - 1.2 dB at n = 100, 300
+TOL_COLLAPSE_DB = 0.5        # headline n = 300 >= headline n = 10 - 0.5 dB
+HEADLINE = dict(io="bf16", carry_tv="i16", carry_v="i16")
+F32, BF16, I16 = torch.float32, torch.bfloat16, torch.int16
+NAME = {F32: "f32", BF16: "bf16", I16: "i16"}
+# (io, carry, K2 out dtype) of the timed 12 MP checks
+MODES = {"f32": (F32, F32, F32), "headline": (BF16, I16, F32)}
+# every (io, carry) the CUDA code is built for, K2's out dtype bf16 with
+# 2-byte carries so that all four (io, out) pairs run
+COMBOS = [(io, c, BF16 if c != F32 else F32) for io in (F32, BF16) for c in (F32, BF16, I16)]
+# (io, carry_tv, carry_v) of the small-grid loop: each knob alone, bf16
+# carries, the headline mode (as tests/test_torch_modes.py)
+LOOP_MODES = [("bf16", "f32", "f32"), ("f32", "i16", "f32"), ("f32", "f32", "i16"),
+              ("f32", "bf16", "bf16"), ("bf16", "i16", "i16")]
+TOL_LOOP_MODES = 5e-2        # normalized, n = 20 (tests/test_pallas_fft.py:249)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 
 KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
     "rfft_w": ("K1", "lenslesspicam_tpu_torch/ops/csrc/rfft_w.cu",
                "lenslesspicam_tpu/ops/pallas_kernels2.py:1810"),
+    "irfft_w": ("K2", "lenslesspicam_tpu_torch/ops/csrc/irfft_w.cu",
+                "lenslesspicam_tpu/ops/pallas_kernels2.py:1831"),
     "e1_rtv": ("K3", "lenslesspicam_tpu_torch/ops/csrc/e1_rtv.cu",
                "lenslesspicam_tpu/ops/pallas_kernels2.py:2224"),
     "h_passA_pair": ("K4", "lenslesspicam_tpu_torch/ops/csrc/h_pass_a.cu",
@@ -48,6 +88,8 @@ KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
                        "lenslesspicam_tpu/ops/pallas_kernels2.py:1096"),
     "irfft_w_dual_state": ("K6", "lenslesspicam_tpu_torch/ops/csrc/w_dual_state.cu",
                            "lenslesspicam_tpu/ops/pallas_kernels2.py:2090"),
+    "sat_scan_i16": ("K7", "lenslesspicam_tpu_torch/ops/csrc/sat_scan.cu",
+                     "lenslesspicam_tpu/ops/pallas_kernels2.py:313"),
 }
 
 
@@ -75,95 +117,185 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def rel_err(outs, refs):
-    """(max relative, max absolute) error over paired output tensors; the
-    relative error of each is max |a - b| / max |b|."""
-    errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-            for a, b in zip(outs, refs)]
-    abs_errs = [float((a - b).abs().max()) for a, b in zip(outs, refs)]
-    return max(errs), max(abs_errs)
+def out_err(a, b):
+    """(max abs, max relative, share not bit-equal, within tolerance) of
+    one kernel output against the plain version's: f32 within TOL_KERNEL
+    of max |plain|; bf16 elementwise within one ulp plus TOL_BF16_FLOOR of
+    max |plain|; int16 within one LSB (max abs counted in LSB, max
+    relative None); bf16 and int16 with at most TOL_FLIP_SHARE of the
+    elements not bit-equal; a saturation value within TOL_SAT relative."""
+    if not isinstance(a, torch.Tensor) or a.dim() == 0:
+        a, b = float(a), float(b)
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        return abs(a - b), rel, None, rel <= TOL_SAT
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return None, None, None, False
+    if a.dtype == torch.int16:
+        d = (a.int() - b.int()).abs()
+        share = float((d != 0).float().mean())
+        return float(d.max()), None, share, float(d.max()) <= 1.0 and share <= TOL_FLIP_SHARE
+    af, bf = a.float(), b.float()
+    d, scale = (af - bf).abs(), float(bf.abs().max().clamp_min(1e-30))
+    ab, rel = float(d.max()), float(d.max()) / scale
+    if a.dtype == torch.bfloat16:
+        share = float((d != 0).float().mean())
+        ok = bool((d <= BF16_ULP * bf.abs() + TOL_BF16_FLOOR * scale).all())
+        return ab, rel, share, ok and share <= TOL_FLIP_SHARE
+    return ab, rel, None, rel <= TOL_KERNEL
 
 
 def flatten(x):
     if isinstance(x, (tuple, list)):
-        return [t for y in x for t in flatten(y) if isinstance(t, torch.Tensor)]
-    return [x] if isinstance(x, torch.Tensor) else []
+        return [t for y in x for t in flatten(y)]
+    return [x]
 
 
-def stage_flops(L):
-    """Flops per output point of one DFT stage of length L in the kernels'
-    design (``dft`` in ops/csrc/lpt_dft.cuh): L complex multiply-adds
-    (8 flops each), or a + b of them plus one twiddle (6 flops) when the
-    stage splits as L = a * b (a, b multiples of 4, a + b least)."""
-    a = max([a for a in range(4, L + 1, 4) if a * a <= L and L % a == 0
-             and (L // a) % 4 == 0] or [0])
-    return 8.0 * L if not a else 8.0 * (a + L // a) + 6.0
+def tensors(x):
+    return [t for t in flatten(x) if isinstance(t, torch.Tensor)]
 
 
-def kernel_cases(ph, pw, gen):
-    """Seeded inputs at the shapes the fused loop gives each kernel, with
-    the operation count of each kernel's DFT stages (the elementwise
-    algebra around them adds a few percent and is not counted)."""
+def fft_ops(n):
+    """Operations of one complex length-n FFT: 5 n log2 n, the radix-2
+    count."""
+    return 5.0 * n * math.log2(n)
+
+
+UNPACK_OPS = 14    # per bin, packing a real length-2m transform into a complex length-m one
+TV_OPS = 31        # per point, K3's TV and non-negativity update and rk (e1_rtv_plain)
+X_OPS = 9          # per point, K6's X and v update (irfft_w_dual_state_plain)
+COMBINE_OPS = 16   # per point, K5's F = R (A + conj(H) B) and H F
+SAT_OPS = 2        # per value scanned for the saturation max (abs, max)
+
+
+def kernel_cases(ph, pw, gen, io, carry, k2_out):
+    """Seeded inputs at the shapes the fused loop gives each kernel, the
+    spectra and static planes at ``io``, the TV and v carries at
+    ``carry``, K2's output at ``k2_out``; with the operations each
+    function needs, counted from the function and not from the kernels'
+    design: 5 n log2 n per complex length-n FFT, UNPACK_OPS per bin of a
+    packed real transform, and the elementwise algebra around them."""
     dev = "cuda"
     m = pw // 2
-    w1, w2 = K.factors(m, True)
     h1, h2 = K.factors(ph, True)
     p = ADMMParams()
+    i16 = carry == I16
 
-    def rn(*s, scale=1.0):
-        return torch.randn(*s, generator=gen, device=dev) * scale
+    def rn(*s, scale=1.0, dtype=io):
+        return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
 
-    w_core = ph * m * (stage_flops(w1) + stage_flops(w2))
-    x = rn(ph, pw)
+    w_row = ph * (fft_ops(m) + UNPACK_OPS * m)       # one packed-real W transform per row
+    sc_a, sc_b = K._tv_scales(p.mu2, p.mu3, p.tau)
     # K3's TV carries at their KKT scale (|a| ~ tau, |b| ~ mu3 |image|):
     # unit-scale carries make a' = mu2 u - eta cancel to ~1e-4 of its
     # operands and no f32 evaluation order can keep 1e-4 relative there
     img = rn(ph, pw)
-    a0, a1 = rn(ph, pw, scale=p.tau), rn(ph, pw, scale=p.tau)
-    b = rn(ph, pw, scale=p.mu3)
+    a0, a1 = (K._store_carry(rn(ph, pw, scale=p.tau, dtype=F32), carry, sc_a)
+              for _ in range(2))
+    b = K._store_carry(rn(ph, pw, scale=p.mu3, dtype=F32), carry, sc_b)
     q = [rn(h1, h2, m) for _ in range(4)]
     c = [rn(h1, h2, m) for _ in range(7)]
-    s = [rn(ph, m) for _ in range(4)] + [rn(ph) for _ in range(4)]
-    v, dp = rn(ph, pw, scale=p.mu1), rn(ph, pw)
-    mask = (torch.rand(ph, pw, generator=gen, device=dev) > 0.5).float()
+    # K6 at its loop scale: data only inside the support mask and v of
+    # order mu1, so v' stays inside the int16 full scale 256 mu1
+    s = [rn(ph, m) for _ in range(4)] + [rn(ph, dtype=F32) for _ in range(4)]
+    v = K.encode_v(rn(ph, pw, scale=p.mu1, dtype=F32), p.mu1, carry)
+    mask32 = (torch.rand(ph, pw, generator=gen, device=dev) > 0.5).float()
+    mask = mask32.to(io)
+    dp = (mask32 * torch.rand(ph, pw, generator=gen, device=dev)).to(io)
+    # an int16 plane reaching full scale both ways, and one -32768 (> 1)
+    x16 = torch.randint(-20000, 20001, (ph, pw), generator=gen, device=dev,
+                        dtype=torch.int16)
+    x16[1, 2], x16[3, 4], x16[ph // 2, pw // 3] = 32767, -32767, -32768
+    pts = ph * pw
     return {
-        "rfft_w": ((x,), w_core),
-        "e1_rtv": ((img, a0, a1, b, p.mu2, p.mu3, p.tau), w_core),
-        "h_passA_pair": ((*q, ph, False), 2 * ph * m * stage_flops(h1)),
-        "h_combine_dual": ((*c, ph), 4 * ph * m * stage_flops(h2)),
-        "irfft_w_dual_state": ((*s, v, mask, dp, p.mu1), 3 * w_core),
+        "rfft_w": ((rn(ph, pw),), w_row),
+        "irfft_w": ((rn(ph, m), rn(ph, m), k2_out), w_row),
+        "e1_rtv": ((img, a0, a1, b, p.mu2, p.mu3, p.tau),
+                   w_row + pts * (TV_OPS + (3 * SAT_OPS if i16 else 0))),
+        "h_passA_pair": ((*q, ph, False), 2 * ph * m * (5.0 * math.log2(h1) + 6)),
+        "h_combine_dual": ((*c, ph), ph * m * (4 * 5.0 * math.log2(h2) + COMBINE_OPS)),
+        "irfft_w_dual_state": ((*s, v, mask, dp, p.mu1),
+                               3 * w_row + pts * (X_OPS + (SAT_OPS if i16 else 0))),
+        "sat_scan_i16": ((x16,), SAT_OPS * pts),
     }
 
 
-def check_kernels(ph, pw, timed):
+def library_call(name, args):
+    """One PyTorch call computing the same function on the same inputs
+    (the yardstick of ``library_ms``), or None where there is none."""
+    if name == "rfft_w":      # rfft along W; torch.fft takes no bf16: f32 copy
+        x = args[0].float()
+        return lambda: torch.fft.rfft(x, dim=-1)
+    if name == "irfft_w":     # irfft along W of a half spectrum of the same size
+        z = torch.complex(args[0].float(), args[1].float())
+        return lambda: torch.fft.irfft(z, n=2 * z.shape[-1], dim=-1)
+    if name == "sat_scan_i16":
+        return lambda: torch.aminmax(args[0])
+    return None
+
+
+def check_kernels(ph, pw, timed, io, carry, k2_out, mode):
+    """Each kernel against its plain version on the inputs of
+    :func:`kernel_cases`; with ``timed`` also its time, the plain
+    version's, the library call's and the bound.  One JSON line per
+    kernel; returns the rows by kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(ph)
     rows = {}
-    for name, (args, flops) in kernel_cases(ph, pw, gen).items():
+    for name, (args, flops) in kernel_cases(ph, pw, gen, io, carry, k2_out).items():
         wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
         out = wrapper(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
-        rel, ab = rel_err(flatten(out), flatten(ref))
-        if not rel <= TOL_KERNEL:
-            raise AssertionError(f"{name} at {ph}x{pw}: rel err {rel:.3e} > {TOL_KERNEL}")
-        row = {"kernel": name, "grid": [ph, pw], "max_abs_err": ab,
-               "max_rel_err": rel, "tol_rel": TOL_KERNEL}
+        errs = [out_err(a, b) for a, b in zip(flatten(out), flatten(ref))]
+        if len(flatten(out)) != len(flatten(ref)) or not all(e[3] for e in errs):
+            raise AssertionError(f"{name} ({mode}) at {ph}x{pw}: errors {errs}")
+        lsb = [e[0] for e in errs if e[1] is None]     # int16 outputs, in LSB
+        val = [e for e in errs if e[1] is not None]
+        shares = [e[2] for e in errs if e[2] is not None]
+        row = {"kernel": name, "mode": mode, "grid": [ph, pw],
+               "dtypes": sorted({str(t.dtype) for t in tensors((args, out))}),
+               "max_abs_err": max(e[0] for e in val),
+               "max_rel_err": max(e[1] for e in val),
+               "max_lsb_err": max(lsb) if lsb else None,
+               "max_flip_share": max(shares) if shares else None}
         if timed:
-            byt = nbytes(*flatten(args), *flatten(out))
+            byt = nbytes(*tensors(args), *tensors(out))
             t_bytes = byt / HBM_BYTES_PER_S * 1e3
             t_ops = flops / F32_FLOP_PER_S * 1e3
+            lib = library_call(name, args)
             row.update(ms=time_ms(lambda: wrapper(*args)),
                        plain_ms=time_ms(lambda: plain(*args)),
                        bytes=byt, flops=flops, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       library_ms=None)
-            if name == "rfft_w":     # one library call, same function: rfft along W
-                xn = torch.randn(ph, pw, generator=gen, device="cuda")
-                row["library_ms"] = time_ms(lambda: torch.fft.rfft(xn, dim=-1))
+                       library_ms=time_ms(lib) if lib else None)
         emit(dict(phase="kernel", **row))
         rows[name] = row
     return rows
+
+
+def round_trip(ph, pw):
+    """K2's own path: ``irfft_w(rfft_w(x)) == x`` at 12 MP through the two
+    entry points, at f32 and at bf16 io, each run with the launch counts
+    set to 0 just before it and read just after.  Returns the counts of
+    the bf16 run."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    x0 = torch.randn(ph, pw, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x0.to(dtype)
+        K.reset_launches()
+        back = K.irfft_w(*K.rfft_w(x))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        want = {name: int(name in ("rfft_w", "irfft_w")) for name in counts}
+        if counts != want:
+            raise AssertionError(f"round trip launch counts {counts} != {want}")
+        err = float((back - x.float()).abs().max() / x.float().abs().max())
+        if not err <= TOL_ROUND_TRIP[dtype]:
+            raise AssertionError(f"K1 -> K2 round trip ({dtype}) at {ph}x{pw}: {err:.3e}")
+        emit({"phase": "round_trip", "grid": [ph, pw], "io": str(dtype),
+              "max_rel_err": err, "tol": TOL_ROUND_TRIP[dtype], "launches": counts})
+    return counts
 
 
 def chain_yardstick(ph, pw):
@@ -220,7 +352,10 @@ def psnr_db(out, scene_n):
 
 
 def small_end_to_end():
-    """Fused (kernels) against exact at 48 x 64, n = 10, on the card."""
+    """Fused (kernels) against exact at 48 x 64, n = 10, on the card; then
+    in every storage mode of LOOP_MODES the loop through the kernels
+    against the loop through the plain versions, n = 20, with both
+    saturation values in (0, 1) where a carry is int16."""
     rng = np.random.RandomState(12)
     psf = rng.rand(*SMALL).astype(np.float32)
     psf /= np.linalg.norm(psf)
@@ -231,8 +366,23 @@ def small_end_to_end():
     err = float((out - ref).abs().max() / ref.abs().max())
     if not err <= TOL_SMALL:
         raise AssertionError(f"small grid fused vs exact: {err:.3e} > {TOL_SMALL}")
+    pre = admm_split.precompute_rsplit(psf, data / data.max())
+    loops = []
+    for io, tv, v in LOOP_MODES:
+        modes = dict(io=io, carry_tv=tv, carry_v=v)
+        k, k_sat = admm_split.run_split_rfused(pre, n_iter=20, return_sat=True, **modes)
+        p, p_sat = admm_split.run_split_rfused(pre, n_iter=20, return_sat=True,
+                                               ops=K.PLAIN, **modes)
+        lerr = float((k - p).abs().max() / p.abs().max())
+        sats_ok = (0.0 < k_sat < 1.0 and 0.0 < p_sat < 1.0) if "i16" in (tv, v) else \
+            (k_sat == 0.0 and p_sat == 0.0)
+        if not (lerr <= TOL_LOOP_MODES and sats_ok and bool(torch.isfinite(k).all())):
+            raise AssertionError(f"small loop {modes} kernels vs plain: {lerr:.3e}, "
+                                 f"sat {k_sat} vs {p_sat}")
+        loops.append({**modes, "kernels_vs_plain": lerr, "sat": k_sat, "sat_plain": p_sat})
     emit({"phase": "small_end_to_end", "grid": list(SMALL), "n_iter": 10,
-          "fused_vs_exact": err, "tol": TOL_SMALL})
+          "fused_vs_exact": err, "tol": TOL_SMALL, "loop_n_iter": 20,
+          "loop_modes": loops, "tol_loop_modes": TOL_LOOP_MODES})
 
 
 def rate(fn, base=2, full=52, pairs=5):
@@ -258,6 +408,60 @@ def rate(fn, base=2, full=52, pairs=5):
             "pairs": len(rates), "rates": rates}
 
 
+def end_to_end_headline(pre, conv, data5, scene_n, p_exact10):
+    """The JAX bench's gate design (bench.py:376-435) in the headline mode
+    at 12 MP, on the f32 phase's scene, PSF and precompute: exactness at
+    n = 10, one-sided quality at n = 100 and 300, anti-collapse, carry
+    saturation below full scale; the launch counts of the n = 10 run and
+    the loop through the kernels against the loop through the plain
+    versions at n = 3."""
+    torch.cuda.reset_peak_memory_stats()
+    n = 10
+    K.reset_launches()
+    out10, sat10 = admm_split.run_rsplit(pre, n_iter=n, return_sat=True, **HEADLINE)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = {"rfft_w": 1, "irfft_w": 0, "e1_rtv": n, "h_passA_pair": 2 * n,
+            "h_combine_dual": n, "irfft_w_dual_state": n, "sat_scan_i16": 2}
+    if counts != want:
+        raise AssertionError(f"headline launch counts {counts} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out10.shape) != SENSOR or not bool(torch.isfinite(out10).all()):
+        raise AssertionError("headline output is not finite at the sensor shape")
+    p10 = psnr_db(out10, scene_n)
+    if not abs(p_exact10 - p10) <= TOL_PSNR_DB:
+        raise AssertionError(f"headline exactness gate (n=10): exact {p_exact10:.3f} "
+                             f"vs headline {p10:.3f} dB")
+    deep = {}
+    for nd in (100, 300):
+        pe = psnr_db(admm.run(conv, data5, n_iter=nd)[0, 0, :, :, 0], scene_n)
+        out, sat = admm_split.run_rsplit(pre, n_iter=nd, return_sat=True, **HEADLINE)
+        po = psnr_db(out, scene_n)
+        if not sat < 1.0:
+            raise AssertionError(f"headline carry saturation (n={nd}): {sat:.3f}")
+        if not po >= pe - TOL_PSNR_DEEP_DB:
+            raise AssertionError(f"headline quality gate (n={nd}): {po:.3f} dB more than "
+                                 f"{TOL_PSNR_DEEP_DB} dB below exact {pe:.3f} dB")
+        deep[nd] = {"psnr_exact_db": pe, "psnr_headline_db": po, "sat": sat}
+    if not deep[300]["psnr_headline_db"] >= p10 - TOL_COLLAPSE_DB:
+        raise AssertionError(f"headline anti-collapse gate: n=300 "
+                             f"{deep[300]['psnr_headline_db']:.3f} dB below n=10 {p10:.3f} dB")
+    if not sat10 < 1.0:
+        raise AssertionError(f"headline carry saturation (n=10): {sat10:.3f}")
+    k3 = admm_split.run_split_rfused(pre, n_iter=3, **HEADLINE)
+    p3 = admm_split.run_split_rfused(pre, n_iter=3, ops=K.PLAIN, **HEADLINE)
+    loop_err = float((k3 - p3).abs().max() / p3.abs().max())
+    if not loop_err <= TOL_LOOP_HEADLINE:
+        raise AssertionError(f"headline loop kernels vs plain: {loop_err:.3e}")
+    emit({"phase": "end_to_end_headline", "mode": HEADLINE, "grid": list(SENSOR),
+          "n_iter": n, "psnr_exact_db": p_exact10, "psnr_headline_db": p10,
+          "tol_db": TOL_PSNR_DB, "sat_n10": sat10, "deep": deep,
+          "tol_deep_db": TOL_PSNR_DEEP_DB, "tol_collapse_db": TOL_COLLAPSE_DB,
+          "loop_kernels_vs_plain_n3": loop_err, "tol_loop": TOL_LOOP_HEADLINE,
+          "launches": counts, "peak_mem_headline_bytes": peak})
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -280,9 +484,12 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs), "ptxas": regs})
 
-    check_kernels(2 * SMALL[0], 2 * SMALL[1], timed=False)
     ph, pw = 6144, 8192
-    krows = check_kernels(ph, pw, timed=True)
+    for io, carry, k2_out in COMBOS:
+        check_kernels(2 * SMALL[0], 2 * SMALL[1], False, io, carry, k2_out,
+                      f"io={NAME[io]},carry={NAME[carry]},k2_out={NAME[k2_out]}")
+    krows = {mode: check_kernels(ph, pw, True, *dts, mode) for mode, dts in MODES.items()}
+    counts_rt = round_trip(ph, pw)
     chain_yardstick(ph, pw)
     small_end_to_end()
 
@@ -307,11 +514,11 @@ def main():
     K.reset_launches()
     fused = admm_split.run_rsplit(pre, n_iter=n)
     torch.cuda.synchronize()
-    counts = K.launch_counts()
-    want = {"rfft_w": 1, "e1_rtv": n, "h_passA_pair": 2 * n,
-            "h_combine_dual": n, "irfft_w_dual_state": n}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
+    counts_f32 = K.launch_counts()
+    want = {"rfft_w": 1, "irfft_w": 0, "e1_rtv": n, "h_passA_pair": 2 * n,
+            "h_combine_dual": n, "irfft_w_dual_state": n, "sat_scan_i16": 0}
+    if counts_f32 != want:
+        raise AssertionError(f"launch counts {counts_f32} != {want}")
     peak_fused = torch.cuda.max_memory_allocated()
     exact = admm.run(conv, data5, n_iter=n)[0, 0, :, :, 0]
     if tuple(fused.shape) != SENSOR or not bool(torch.isfinite(fused).all()):
@@ -330,23 +537,34 @@ def main():
           "n_iter": n, "psnr_exact_db": p_exact, "psnr_fused_db": p_fused,
           "tol_db": TOL_PSNR_DB, "fused_vs_exact_normalized": diff,
           "loop_kernels_vs_plain_n3": loop_err, "tol_loop": TOL_LOOP,
-          "launches": counts, "precompute_s": t_pre,
+          "launches": counts_f32, "precompute_s": t_pre,
           "peak_mem_fused_bytes": peak_fused,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
 
+    counts = end_to_end_headline(pre, conv, data5, scene_n, p_exact)
+
     fused_rate = rate(lambda k: admm_split.run_rsplit(pre, n_iter=k))
+    headline_rate = rate(lambda k: admm_split.run_rsplit(pre, n_iter=k, **HEADLINE))
     exact_rate = rate(lambda k: admm.run(conv, data5, n_iter=k))
     emit({"phase": "rate", "grid": list(SENSOR), "method": "(n=52 - n=2) pairs",
-          "fused_it_per_s": fused_rate, "exact_it_per_s": exact_rate,
-          "card": smi})
+          "fused_it_per_s": fused_rate, "headline_it_per_s": headline_rate,
+          "exact_it_per_s": exact_rate, "card": smi})
 
+    # one entry per kernel: the headline mode's numbers, the f32 mode's
+    # beside them; launches from the headline solve, K2's from its own
+    # path (the round trip; no solver calls it)
+    keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "bytes", "flops")
+    path = {name: ("round_trip" if name == "irfft_w" else "end_to_end_headline")
+            for name in KERNEL_INFO}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][1],
          "replaces": KERNEL_INFO[name][2], "label": KERNEL_INFO[name][0],
-         "launches": counts[name], "max_abs_err": krows[name]["max_abs_err"],
-         "max_rel_err": krows[name]["max_rel_err"], "ms": krows[name]["ms"],
-         "plain_ms": krows[name]["plain_ms"], "bound_ms": krows[name]["bound_ms"],
-         "bound_by": krows[name]["bound_by"], "library_ms": krows[name]["library_ms"]}
+         "launches": (counts_rt if path[name] == "round_trip" else counts)[name],
+         "path": path[name],
+         **{k: krows["headline"][name][k] for k in keys},
+         "f32": {"launches": counts_f32[name],
+                 **{k: krows["f32"][name][k] for k in keys}}}
         for name in KERNEL_INFO]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -3,8 +3,10 @@
 The single-image ADMM reconstruction of a lensless measurement on an
 NVIDIA H100: the exact solver (``recon.admm``, ``torch.fft``) and the
 fused half-spectrum solver (``recon.admm_split``) whose kernels are
-hand-written CUDA C++ for ``sm_90a`` (``ops/csrc``).  Entry points run on
-the CUDA card unless the caller asks for ``device="cpu"``.
+hand-written CUDA C++ for ``sm_90a`` (``ops/csrc``), at every storage
+mode of the JAX package (f32 or bf16 spectra, f32, bf16 or int16
+carries).  Entry points run on the CUDA card unless the caller asks for
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -22,6 +22,18 @@ def _t(x, device, dtype=None):
     return torch.from_numpy(np.array(x, dtype)).to(device)
 
 
+def tensor(x, device=None) -> torch.Tensor:
+    """A numpy array (``np.asarray`` of a JAX array) as a tensor of the
+    same dtype on ``device``.  bfloat16 arrays (numpy dtype
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) travel
+    bit for bit as int16 and are viewed back as ``torch.bfloat16``."""
+    device = resolve_device(device)
+    a = np.array(x, order="C")          # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def admm_params(params) -> ADMMParams:
     """The port's ADMMParams from any (mu1, mu2, mu3, tau) record."""
     return ADMMParams(*(float(getattr(params, f)) for f in ADMMParams._fields))

@@ -8,25 +8,28 @@
 //   F  = R (a + conj(H) b),  F1 = H F          (elementwise, f32)
 //   a0 = F2inv F, a1 = F2inv F1                (inverse stage 2 over k2)
 // F and F1 never leave the block.  R reaches 1/mu3 = 2.5e4 at the default
-// mu; the combine is kept in f32 in the JAX kernel's order.
+// mu; the combine is kept in f32 in the JAX kernel's order.  All eleven
+// planes, the filter H and R included, are stored in the io type T (f32 or
+// bf16), as the JAX solver casts them.
 //
-// Bound on the H100: bytes (44 per point; the four length-128 DFTs run as
-// 8 x 16 split stages, 24 complex multiply-adds per point each).  A block
-// takes one k1 and 32 consecutive lanes of W: loads and stores are runs of
-// 32 contiguous floats; the three n2 x 32 tiles (96 KB at 12 MP) stay in
-// shared memory.
+// Bound on the H100: bytes (44 per point at f32, 22 at bf16; the four
+// length-128 DFTs run as 8 x 16 split stages, 24 complex multiply-adds per
+// point each).  A block takes one k1 and 32 consecutive lanes of W: loads
+// and stores are runs of 32 contiguous elements; the three n2 x 32 tiles
+// (96 KB at 12 MP) stay in shared memory.
 #include "lpt_dft.cuh"
 
 using namespace lpt;
 
 constexpr int TW = 32;
 
+template <typename T>
 __global__ void __launch_bounds__(256) h_combine_kernel(
-    const float* __restrict__ xar, const float* __restrict__ xai, const float* __restrict__ yar,
-    const float* __restrict__ yai, const float* __restrict__ hr, const float* __restrict__ hi,
-    const float* __restrict__ rr, float* __restrict__ a0r, float* __restrict__ a0i,
-    float* __restrict__ a1r, float* __restrict__ a1i, const float2* __restrict__ tab, int n1,
-    int n2, int w) {
+    const T* __restrict__ xar, const T* __restrict__ xai, const T* __restrict__ yar,
+    const T* __restrict__ yai, const T* __restrict__ hr, const T* __restrict__ hi,
+    const T* __restrict__ rr, T* __restrict__ a0r, T* __restrict__ a0i, T* __restrict__ a1r,
+    T* __restrict__ a1i, const float2* __restrict__ tab, int n1, int n2, int w) {
+  constexpr int V = vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   const int tile = n2 * TW, cap = tile + dft_slack(n2);
@@ -41,11 +44,25 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   const int wtiles = w / TW;
   const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const size_t base = (size_t)k1 * n2 * w + w0;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const size_t g = base + (size_t)(i / TW) * w + (i % TW);
-    S1[i] = make_float2(xar[g], xai[g]);
-    S2[i] = make_float2(yar[g], yai[g]);
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
+    const size_t g = base + (size_t)(i0 / TW) * w + (i0 % TW);
+    float xr[V], xi[V], yr[V], yi[V];
+    ldv<V>(xar + g, xr);
+    ldv<V>(xai + g, xi);
+    ldv<V>(yar + g, yr);
+    ldv<V>(yai + g, yi);
+    rot(xr, s);
+    rot(xi, s);
+    rot(yr, s);
+    rot(yi, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = i0 + ((k + s) & (V - 1));
+      S1[i] = make_float2(xr[k], xi[k]);
+      S2[i] = make_float2(yr[k], yi[k]);
+    }
   }
   __syncthreads();
   // each stage leaves its result in one of the three tiles (see `dft`)
@@ -54,42 +71,74 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   float2* b = dft(S2, a == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
   float2* t = (a != S1 && b != S1) ? S1 : ((a != S2 && b != S2) ? S2 : S3);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const size_t g = base + (size_t)(i / TW) * w + (i % TW);
-    const float h_r = hr[g], h_i = hi[g], rv = rr[g];
-    const float2 A = a[i], B = b[i];
-    const float fr = rv * (A.x + h_r * B.x + h_i * B.y);
-    const float fi = rv * (A.y + h_r * B.y - h_i * B.x);
-    a[i] = make_float2(fr, fi);                                  // F
-    b[i] = make_float2(fr * h_r - fi * h_i, fr * h_i + fi * h_r);  // H F
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
+    const size_t g = base + (size_t)(i0 / TW) * w + (i0 % TW);
+    float h_r[V], h_i[V], rv[V];
+    ldv<V>(hr + g, h_r);
+    ldv<V>(hi + g, h_i);
+    ldv<V>(rr + g, rv);
+    rot(h_r, s);
+    rot(h_i, s);
+    rot(rv, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = i0 + ((k + s) & (V - 1));
+      const float2 A = a[i], B = b[i];
+      const float fr = rv[k] * (A.x + h_r[k] * B.x + h_i[k] * B.y);
+      const float fi = rv[k] * (A.y + h_r[k] * B.y - h_i[k] * B.x);
+      a[i] = make_float2(fr, fi);                                          // F
+      b[i] = make_float2(fr * h_r[k] - fi * h_i[k], fr * h_i[k] + fi * h_r[k]);  // H F
+    }
   }
   __syncthreads();
   const float2* g0 = dft(a, t, 1, TW, 1, TW, n2, TW, R + n2, nullptr, 0, 0, 1.f);  // inverse F
   __syncthreads();
-#pragma unroll 4
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const size_t g = base + (size_t)(i / TW) * w + (i % TW);
-    a0r[g] = g0[i].x;
-    a0i[g] = g0[i].y;
-  }
+  auto store = [&](const float2* G, T* outr, T* outi) {
+#pragma unroll(V == 1 ? 4 : 1)
+    for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
+      const size_t g = base + (size_t)(i0 / TW) * w + (i0 % TW);
+      float re[V], im[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float2 z = G[i0 + ((k + s) & (V - 1))];
+        re[k] = z.x;
+        im[k] = z.y;
+      }
+      unrot(re, s);
+      unrot(im, s);
+      stv<V>(outr + g, re);
+      stv<V>(outi + g, im);
+    }
+  };
+  store(g0, a0r, a0i);
   // inverse H F, through the tile that is neither H F nor inverse F
   const float2* g1 = dft(b, g0 == a ? t : a, 1, TW, 1, TW, n2, TW, R + n2, nullptr, 0, 0, 1.f);
   __syncthreads();
-#pragma unroll 4
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const size_t g = base + (size_t)(i / TW) * w + (i % TW);
-    a1r[g] = g1[i].x;
-    a1i[g] = g1[i].y;
-  }
+  store(g1, a1r, a1i);
 }
 
-extern "C" int lpt_h_combine_dual(const float* xar, const float* xai, const float* yar,
-                                  const float* yai, const float* hr, const float* hi,
-                                  const float* rr, float* a0r, float* a0i, float* a1r,
-                                  float* a1i, const float2* tab, int n1, int n2, int w,
-                                  void* stream) {
+template <typename T>
+static int run(const void* const* in, void* const* out, const float2* tab, int n1, int n2, int w,
+               void* stream) {
   const size_t smem = sizeof(float2) * (3 * ((size_t)n2 * TW + dft_slack(n2)) + 2 * n2);
-  return launch(h_combine_kernel, dim3(n1 * (w / TW)), dim3(256), smem, stream, xar, xai, yar,
-                yai, hr, hi, rr, a0r, a0i, a1r, a1i, tab, n1, n2, w);
+  return launch(h_combine_kernel<T>, dim3(n1 * (w / TW)), dim3(256), smem, stream,
+                (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
+                (const T*)in[4], (const T*)in[5], (const T*)in[6], (T*)out[0], (T*)out[1],
+                (T*)out[2], (T*)out[3], tab, n1, n2, w);
+}
+
+// io: storage code of all eleven planes (F32 or BF16).
+extern "C" int lpt_h_combine_dual(const void* xar, const void* xai, const void* yar,
+                                  const void* yai, const void* hr, const void* hi,
+                                  const void* rr, void* a0r, void* a0i, void* a1r, void* a1i,
+                                  const float2* tab, int n1, int n2, int w, int io,
+                                  void* stream) {
+  const void* in[7] = {xar, xai, yar, yai, hr, hi, rr};
+  void* out[4] = {a0r, a0i, a1r, a1i};
+  switch (io) {
+    case F32: return run<float>(in, out, tab, n1, n2, w, stream);
+    case BF16: return run<__nv_bfloat16>(in, out, tab, n1, n2, w, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace lpt {
 
 struct Plan {
@@ -187,9 +189,9 @@ __device__ __forceinline__ int mirror_pos(int k1, int k2, int n1, int n2) {
 // Forward packed-real W core.  On entry A[j] = x_even[j] + i x_odd[j] for
 // natural j = j1*n2 + j2 (j < m); B is the second row buffer; R the shared
 // roots.  Writes the half spectrum of the row, split order, Z[m] in Im of
-// lane 0.
-__device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R, float* zr,
-                           float* zi) {
+// lane 0, as T, V positions per thread per trip (storage.cuh).
+template <typename T, int V>
+__device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R, T* zr, T* zi) {
   const int n1 = p.n1, n2 = p.n2, m = p.n;
   // stage 1: vectors j2, contract j1 -> [j2*(n1+1) + k1], twiddle Tf[k1, j2]
   float2* Y = dft(A, B, 1, n2, n1 + 1, 1, n1, n2, R, p.tf, 1, n2, 1.f);
@@ -198,30 +200,52 @@ __device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R,
   const float2* P = dft(Y, Y == A ? B : A, 1, n1 + 1, n2 + 1, 1, n2, n1, R + n1, nullptr, 0, 0,
                         1.f);
   __syncthreads();
-#pragma unroll 4
-  for (int pos = threadIdx.x; pos < m; pos += blockDim.x) {
-    const int k1 = pos / n2, k2 = pos - k1 * n2;
-    const int mp = mirror_pos(k1, k2, n1, n2);
-    const int m1 = mp / n2, m2 = mp - m1 * n2;
-    const float2 Pk = P[k1 * (n2 + 1) + k2], Rm = P[m1 * (n2 + 1) + m2];
-    const float2 e = __ldg(p.e + pos);
-    const float Sr = Pk.x + Rm.x, Si = Pk.y - Rm.y;
-    const float Dr = Pk.x - Rm.x, Di = Pk.y + Rm.y;
-    zr[pos] = 0.5f * (Sr + e.x * Di + e.y * Dr);
-    zi[pos] = pos ? 0.5f * (Si - (e.x * Dr - e.y * Di)) : Pk.x - Pk.y;
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int p0 = threadIdx.x * V; p0 < m; p0 += blockDim.x * V) {
+    float outr[V], outi[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int pos = p0 + ((k + s) & (V - 1));
+      const int k1 = pos / n2, k2 = pos - k1 * n2;
+      const int mp = mirror_pos(k1, k2, n1, n2);
+      const int m1 = mp / n2, m2 = mp - m1 * n2;
+      const float2 Pk = P[k1 * (n2 + 1) + k2], Rm = P[m1 * (n2 + 1) + m2];
+      const float2 e = __ldg(p.e + pos);
+      const float Sr = Pk.x + Rm.x, Si = Pk.y - Rm.y;
+      const float Dr = Pk.x - Rm.x, Di = Pk.y + Rm.y;
+      outr[k] = 0.5f * (Sr + e.x * Di + e.y * Dr);
+      outi[k] = pos ? 0.5f * (Si - (e.x * Dr - e.y * Di)) : Pk.x - Pk.y;
+    }
+    unrot(outr, s);
+    unrot(outi, s);
+    stv<V>(zr + p0, outr);
+    stv<V>(zi + p0, outi);
   }
   __syncthreads();
 }
 
-// Inverse packed-real W core.  Reads the row's half spectrum (lane 0
+// Inverse packed-real W core.  Reads the row's half spectrum (T; lane 0
 // replaced by z0) into the row buffers A and B and returns the one that
 // holds x_even[j] + i x_odd[j] at natural j = j1*n2 + j2, scaled by 1/m.
-__device__ float2* w_inv_core(const float* zr, const float* zi, float2 z0, float2* A, float2* B,
-                           const Plan& p, const float2* R) {
+template <typename T, int V>
+__device__ float2* w_inv_core(const T* zr, const T* zi, float2 z0, float2* A, float2* B,
+                              const Plan& p, const float2* R) {
   const int n1 = p.n1, n2 = p.n2, m = p.n;
-#pragma unroll 4
-  for (int pos = threadIdx.x; pos < m; pos += blockDim.x)
-    B[pos] = pos ? make_float2(zr[pos], zi[pos]) : z0;
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int p0 = threadIdx.x * V; p0 < m; p0 += blockDim.x * V) {
+    float re[V], im[V];
+    ldv<V>(zr + p0, re);
+    ldv<V>(zi + p0, im);
+    rot(re, s);
+    rot(im, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int pos = p0 + ((k + s) & (V - 1));
+      B[pos] = pos ? make_float2(re[k], im[k]) : z0;
+    }
+  }
   __syncthreads();
 #pragma unroll 4
   for (int pos = threadIdx.x; pos < m; pos += blockDim.x) {
@@ -254,6 +278,27 @@ __device__ float2* w_inv_core(const float* zr, const float* zi, float2 z0, float
                   1.f / (float)m);
   __syncthreads();
   return X;
+}
+
+// Store a row held as X[j] = x_even[j] + i x_odd[j] (j < m) to its split
+// layout [x_even | x_odd] in device memory, as T.
+template <typename T, int V>
+__device__ void store_row(const float2* X, T* out, int m) {
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int j0 = threadIdx.x * V; j0 < m; j0 += blockDim.x * V) {
+    float ev[V], od[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float2 x = X[j0 + ((k + s) & (V - 1))];
+      ev[k] = x.x;
+      od[k] = x.y;
+    }
+    unrot(ev, s);
+    unrot(od, s);
+    stv<V>(out + j0, ev);
+    stv<V>(out + m + j0, od);
+  }
 }
 
 // Launch helper: opt in to the dynamic shared memory, launch, report.

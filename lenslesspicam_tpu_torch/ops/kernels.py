@@ -1,14 +1,16 @@
-"""The fused solver's five kernels: CUDA C++ wrappers and their plain
-PyTorch versions (port of lenslesspicam_tpu/ops/pallas_kernels2.py,
-f32 io and f32 carries).
+"""The fused solver's kernels: CUDA C++ wrappers and their plain PyTorch
+versions (port of lenslesspicam_tpu/ops/pallas_kernels2.py at every
+storage mode of the JAX package).
 
 | wrapper | TPU kernel it replaces | CUDA source |
 |---|---|---|
 | ``rfft_w`` (K1) | ``rfft_w`` / ``_w_rfwd_kernel`` | ``csrc/rfft_w.cu`` |
+| ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu`` |
 | ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu`` |
 | ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu`` |
 | ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu`` |
 | ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu`` |
+| ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
 
 A wrapper given CPU tensors runs the plain version (``*_plain``).  Given
 CUDA tensors it launches its kernel on the current stream or raises: it
@@ -16,6 +18,16 @@ never falls back.  Each wrapper counts its kernel launches in its
 ``launches`` attribute.  The kernels take their DFT roots, twiddles and
 unpack factors from one constant table per transform length, built here
 in float64 and cast to f32 as the JAX package builds its plans.
+
+Storage modes.  Planes are stored as float32, bfloat16 or int16 and all
+arithmetic runs in f32 (``csrc/storage.cuh``).  The wrappers take no mode
+argument: each output's dtype follows an input's, as the JAX kernels'
+output dtypes follow the module's storage globals.  The spectra, image,
+mask and data planes ride at the io dtype (f32 or bf16); the carries
+a0, a1, b (TV) and v at their carry dtypes (f32, bf16 or int16 fixed
+point at the full scales ``_tv_scales`` and ``_v_scale``).  A dtype
+combination the CUDA code was not built for raises ``TypeError`` on a
+CUDA tensor; nothing is converted quietly.
 """
 
 from __future__ import annotations
@@ -61,20 +73,58 @@ def _split_roll_m1(x, mh):
     return torch.cat([od, torch.roll(ev, -1, dims=1)], dim=1)
 
 
+_BF16, _I16 = torch.bfloat16, torch.int16
+IO_DTYPES = (_F32, _BF16)
+CARRY_DTYPES = (_F32, _BF16, _I16)
+_CODE = {_F32: 0, _BF16: 1, _I16: 2}      # storage codes of the C entries
+_I16_FULL = 32767.0
+V_SCALE_MULT = 256.0
+_MODES = {"f32": _F32, "bf16": _BF16, "i16": _I16}
+
+
+def storage_dtype(mode: str, allowed=("f32", "bf16", "i16")) -> torch.dtype:
+    """The torch dtype of a storage mode name ("f32", "bf16", "i16")."""
+    if mode not in allowed:
+        raise ValueError(f"storage mode {mode!r} is not one of {allowed}")
+    return _MODES[mode]
+
+
 def _tv_scales(mu2, mu3, tau):
-    """Full scales of the int16 TV carries (not used at f32; kept for the
-    modes of later slices)."""
+    """Fixed-point full scales of the int16 TV carries (a0/a1, b), from
+    the KKT bounds for max-normalized measurements."""
     return 8.0 * tau, 32.0 * mu3
 
 
 def _v_scale(mu1):
-    """Full scale of the int16 v carry (not used at f32)."""
-    return 256.0 * mu1
+    """Fixed-point full scale of the int16 v carry."""
+    return V_SCALE_MULT * mu1
 
 
-def encode_v(x, mu1):
-    """The v carry in its storage dtype: f32 in this port."""
+def _load_carry(x, scale):
+    """A carry plane widened to f32 (int16: fixed point at ``scale``)."""
+    if x.dtype == _I16:
+        return x.to(_F32) * (scale / _I16_FULL)
     return x.to(_F32)
+
+
+def _store_carry(x, dtype, scale):
+    """An f32 carry plane in its storage dtype (int16: clamped to
+    +-32767 and rounded half to even, as ``jnp.round``)."""
+    if dtype == _I16:
+        s = _I16_FULL / scale
+        return torch.round(torch.clamp(x * s, -_I16_FULL, _I16_FULL)).to(_I16)
+    return x.to(dtype)
+
+
+def _fix(scale):
+    """(scale / 32767, 32767 / scale): the int16 load and store factors,
+    computed in float64 and passed to the kernels as f32."""
+    return scale / _I16_FULL, _I16_FULL / scale
+
+
+def encode_v(x, mu1, dtype=_F32):
+    """The f32 v plane in the v carry's storage dtype."""
+    return _store_carry(x, dtype, _v_scale(mu1))
 
 
 # ---------------------------------------------------------------------------
@@ -123,26 +173,44 @@ def _table(n: int, with_unpack: bool, device: torch.device):
     return torch.view_as_real(t).contiguous().to(device)
 
 
-def _check(name, tensors, shape=None):
+def _check(name, tensors, shape=None, dtypes=(_F32,)):
+    """Dtype and shape of a group of tensors, and that they share a
+    device; raises TypeError / ValueError."""
     for t in tensors:
-        if t.dtype != _F32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: expected one of {dtypes}, got {t.dtype}")
         if shape is not None and tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on different devices")
+
+
+def _on_card(name, tensors, combo, built, cols=()):
+    """False for CPU tensors (the plain version runs).  True for CUDA
+    tensors the kernel takes: ``combo``, the dtypes the kernel is
+    dispatched on, among those it was ``built`` for (else TypeError),
+    contiguous and, except the per-row ``cols``, 16-byte aligned (else
+    ValueError)."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in (*tensors, *cols)):
+        raise ValueError(f"{name}: tensors on different devices")
     if dev.type == "cpu":
         return False
+    if combo not in built:
+        raise TypeError(f"{name}: no CUDA kernel for dtypes {combo}; built for "
+                        f"{sorted(built, key=str)}")
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: CUDA tensors must be contiguous")
+    if (any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors)
+            or any(not t.is_contiguous() for t in cols)):
+        raise ValueError(f"{name}: CUDA tensors must be contiguous and 16-byte aligned")
     return True
 
 
-_ARG = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_ARG = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+        "L": ctypes.c_longlong}
 
 
 @lru_cache(maxsize=None)
@@ -163,40 +231,72 @@ def _launch(lib, fn, sig, *args):
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
 
 
-def _empty(shape, like):
-    return torch.empty(shape, dtype=_F32, device=like.device)
+def _empty(shape, like, dtype=None):
+    return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
+
+
+def _sat_zero(like):
+    """A zeroed f32 scalar on the card, for a kernel's atomicMax."""
+    return torch.zeros((), dtype=_F32, device=like.device)
 
 
 # ---------------------------------------------------------------------------
-# K1: packed-real forward W transform
+# K1 / K2: packed-real forward and inverse W transforms
 # ---------------------------------------------------------------------------
+
+_IO_BUILT = {(_F32,), (_BF16,)}
 
 
 def rfft_w_plain(x):
-    """(rows, N) split-layout real rows -> half-spectrum (rows, N/2) r/i."""
-    return rfft_w_split(x)
+    """(rows, N) split-layout real rows -> half-spectrum (rows, N/2) r/i,
+    computed in f32 and stored at the input's dtype."""
+    zr, zi = rfft_w_split(x.to(_F32))
+    return zr.to(x.dtype), zi.to(x.dtype)
 
 
 def rfft_w(x):
     """(rows, N) split-layout real rows -> half-spectrum (rows, N/2) r/i
-    pair in split order, Z[N/2] packed into Im of lane 0."""
+    pair in split order, Z[N/2] packed into Im of lane 0; io dtype (f32
+    or bf16) in and out."""
     rows, n_full = x.shape
     m = n_full // 2
-    cuda = _check("rfft_w", [x])
+    _check("rfft_w", [x], dtypes=IO_DTYPES)
+    cuda = _on_card("rfft_w", [x], (x.dtype,), _IO_BUILT)
     n1, n2 = factors(m, cuda)
     if not cuda:
         return rfft_w_plain(x)
     zr, zi = _empty((rows, m), x), _empty((rows, m), x)
-    _launch("rfft_w", "lpt_rfft_w", "ppppiiii", x, zr, zi,
-            _table(m, True, x.device), rows, m, n1, n2)
+    _launch("rfft_w", "lpt_rfft_w", "ppppiiiii", x, zr, zi,
+            _table(m, True, x.device), rows, m, n1, n2, _CODE[x.dtype])
     rfft_w.launches += 1
     return zr, zi
 
 
-def irfft_w_plain(zr, zi):
-    """Inverse of :func:`rfft_w_plain` (K2's function; its CUDA core runs
-    inside K6)."""
-    return irfft_w_split(zr, zi)
+def irfft_w_plain(zr, zi, out_dtype=_F32):
+    """Inverse of :func:`rfft_w_plain`, computed in f32, stored as
+    ``out_dtype``."""
+    return irfft_w_split(zr.to(_F32), zi.to(_F32)).to(out_dtype)
+
+
+def irfft_w(zr, zi, out_dtype=_F32):
+    """(rows, N/2) half-spectrum pair (io dtype, packed lane 0) -> (rows,
+    N) split-layout real rows as ``out_dtype`` (f32 or bf16): the exact
+    inverse of :func:`rfft_w`."""
+    rows, m = zr.shape
+    _check("irfft_w", [zr, zi], (rows, m), IO_DTYPES)
+    if out_dtype not in IO_DTYPES:
+        raise TypeError(f"irfft_w: out_dtype {out_dtype} is not one of {IO_DTYPES}")
+    cuda = _on_card("irfft_w", [zr, zi], (zr.dtype, zi.dtype, out_dtype),
+                    {(a, a, o) for a in IO_DTYPES for o in IO_DTYPES})
+    n1, n2 = factors(m, cuda)
+    if not cuda:
+        return irfft_w_plain(zr, zi, out_dtype)
+    out = _empty((rows, 2 * m), zr, out_dtype)
+    _launch("irfft_w", "lpt_irfft_w", "ppppiiiiii", zr, zi, out,
+            _table(m, True, zr.device), rows, m, n1, n2, _CODE[zr.dtype],
+            _CODE[out_dtype])
+    irfft_w.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -208,43 +308,66 @@ def e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau):
     rows, n_full = image.shape
     mh = n_full // 2
     thr = tau / mu2
+    sc_a, sc_b = _tv_scales(mu2, mu3, tau)
+    img = image.to(_F32)
     # H axis (periodic): a0 row r pairs with psi0 = img[r-1] - img[r];
     # the adjoint needs the new a0 of row r+1 as well
-    psi0 = torch.roll(image, 1, dims=0) - image
-    eta0 = mu2 * psi0 - a0
+    psi0 = torch.roll(img, 1, dims=0) - img
+    eta0 = mu2 * psi0 - _load_carry(a0, sc_a)
     a0n = mu2 * _soft(psi0 + eta0 / mu2, thr) - eta0
     adj0 = torch.roll(a0n, -1, dims=0) - a0n
-    psi1 = _split_roll_p1(image, mh) - image
-    eta1 = mu2 * psi1 - a1
+    psi1 = _split_roll_p1(img, mh) - img
+    eta1 = mu2 * psi1 - _load_carry(a1, sc_a)
     a1n = mu2 * _soft(psi1 + eta1 / mu2, thr) - eta1
     adj1 = _split_roll_m1(a1n, mh) - a1n
-    rho = mu3 * image - b
-    W = torch.clamp(rho / mu3 + image, min=0.0)
+    rho = mu3 * img - _load_carry(b, sc_b)
+    W = torch.clamp(rho / mu3 + img, min=0.0)
     bn = mu3 * W - rho
     rk = bn + adj0 + adj1
     rkr, rki = rfft_w_split(rk)
-    return rkr, rki, a0n, a1n, bn, 0.0
+    sat = 0.0
+    if a0.dtype == _I16:
+        # pre-quantization headroom of the carries just computed
+        sat = torch.maximum(
+            torch.maximum(a0n.abs().amax(), a1n.abs().amax()) * (1.0 / sc_a),
+            bn.abs().amax() * (1.0 / sc_b))
+    return (rkr.to(image.dtype), rki.to(image.dtype),
+            _store_carry(a0n, a0.dtype, sc_a), _store_carry(a1n, a1.dtype, sc_a),
+            _store_carry(bn, b.dtype, sc_b), sat)
 
 
 def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
     """v3 pre-transform step.  Returns (rk_wr, rk_wi, a0', a1', b', sat):
-    the rk half spectrum, the new TV/non-negativity carries, and the
-    carry-saturation value, 0.0 for f32 carries (nothing is launched for
-    it)."""
+    the rk half spectrum at ``image``'s dtype, the new TV/non-negativity
+    carries at the dtypes of a0, a1 and b, and the carry-saturation value.
+    With int16 carries sat is a 0-d f32 tensor, max(max |a0'|, |a1'|) /
+    (8 tau), max |b'| / (32 mu3)) over the f32 values before they are
+    quantized; >= 1 means a carry clipped.  Otherwise it is 0.0 and
+    nothing is launched for it."""
     rows, n_full = image.shape
     m = n_full // 2
-    cuda = _check("e1_rtv", [image, a0, a1, b], (rows, n_full))
+    _check("e1_rtv", [image], (rows, n_full), IO_DTYPES)
+    _check("e1_rtv", [a0, a1, b], (rows, n_full), CARRY_DTYPES)
+    planes = [image, a0, a1, b]
+    cuda = _on_card("e1_rtv", planes, tuple(t.dtype for t in planes),
+                    {(i, c, c, c) for i in IO_DTYPES for c in CARRY_DTYPES})
     n1, n2 = factors(m, cuda)
     if not cuda:
         return e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau)
+    sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     rkr, rki = _empty((rows, m), image), _empty((rows, m), image)
-    a0o, a1o, bo = (_empty((rows, n_full), image) for _ in range(3))
-    _launch("e1_rtv", "lpt_e1_rtv", "ppppppppppiiiifff",
+    a0o, a1o, bo = (_empty((rows, n_full), a0) for _ in range(3))
+    i16 = a0.dtype == _I16
+    sat = _sat_zero(image) if i16 else None
+    _launch("e1_rtv", "lpt_e1_rtv", "pppppppppp" + "iiii" + "fff" + "ffff"
+            + "ff" + "p" + "ii",
             image, a0, a1, b, rkr, rki, a0o, a1o, bo,
             _table(m, True, image.device), rows, m, n1, n2,
-            float(mu2), float(mu3), float(tau))
+            float(mu2), float(mu3), float(tau), *_fix(sc_a), *_fix(sc_b),
+            1.0 / sc_a, 1.0 / sc_b, sat.data_ptr() if i16 else None,
+            _CODE[image.dtype], _CODE[a0.dtype])
     e1_rtv.launches += 1
-    return rkr, rki, a0o, a1o, bo, 0.0
+    return rkr, rki, a0o, a1o, bo, (sat if i16 else 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -255,13 +378,13 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
 def _h_passA_plain_one(xr, xi, n, inverse):
     F1, _, T, scale = _plan_t(n, inverse, xr.device)
     n1, n2, w = xr.shape
-    x = torch.complex(xr, xi)
+    x = torch.complex(xr.to(_F32), xi.to(_F32))
     tw = T[:, :, None]
     if inverse:
         z = torch.matmul(F1, (x * tw).reshape(n1, n2 * w)).reshape(n1, n2, w) * scale
     else:
         z = torch.matmul(F1, x.reshape(n1, n2 * w)).reshape(n1, n2, w) * tw
-    return z.real.contiguous(), z.imag.contiguous()
+    return z.real.contiguous().to(xr.dtype), z.imag.contiguous().to(xr.dtype)
 
 
 def h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse):
@@ -272,10 +395,13 @@ def h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse):
 def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
     """H-axis stage 1 on two complex planes viewed (n1, n2, W).  Forward:
     contract j1 with F1, then twiddle.  Inverse: twiddle, contract with
-    the inverse F1, scale 1/n.  Returns ((z1r, z1i), (z2r, z2i))."""
+    the inverse F1, scale 1/n.  io dtype in and out.  Returns ((z1r,
+    z1i), (z2r, z2i))."""
     planes = [x1r, x1i, x2r, x2i]
     n1, n2, w = x1r.shape
-    cuda = _check("h_passA_pair", planes, (n1, n2, w))
+    _check("h_passA_pair", planes, (n1, n2, w), IO_DTYPES)
+    cuda = _on_card("h_passA_pair", planes, tuple(t.dtype for t in planes),
+                    {(d,) * 4 for d in IO_DTYPES})
     if (n1, n2) != factors(n, cuda):
         raise ValueError(f"h_passA_pair: planes {x1r.shape} do not view a "
                          f"length-{n} axis as {_factor(n)}")
@@ -285,9 +411,9 @@ def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
         raise ValueError(f"h_passA_pair: lane width {w} is not a multiple "
                          f"of {_K4_TW}")
     outs = [_empty((n1, n2, w), x1r) for _ in range(4)]
-    _launch("h_pass_a", "lpt_h_pass_a_pair", "ppppppppp" + "iiii",
+    _launch("h_pass_a", "lpt_h_pass_a_pair", "ppppppppp" + "iiiii",
             *planes, *outs, _table(n, False, x1r.device), n1, n2, w,
-            int(bool(inverse)))
+            int(bool(inverse)), _CODE[x1r.dtype])
     h_passA_pair.launches += 1
     return (outs[0], outs[1]), (outs[2], outs[3])
 
@@ -304,8 +430,12 @@ def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
     def stage2(x, F2):     # z[k1, q, w] = sum_p F2[q, p] x[k1, p, w]
         return torch.matmul(F2, x)
 
-    a = stage2(torch.complex(xar, xai), F2f)
-    b = stage2(torch.complex(yar, yai), F2f)
+    def c(r, i):
+        return torch.complex(r.to(_F32), i.to(_F32))
+
+    hr, hi, rr = hr.to(_F32), hi.to(_F32), rr.to(_F32)
+    a = stage2(c(xar, xai), F2f)
+    b = stage2(c(yar, yai), F2f)
     ar, ai, br, bi = a.real, a.imag, b.real, b.imag
     fr = rr * (ar + hr * br + hi * bi)
     fi = rr * (ai + hr * bi - hi * br)
@@ -313,16 +443,20 @@ def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
     f1i = fr * hi + fi * hr
     g0 = stage2(torch.complex(fr, fi), F2i)
     g1 = stage2(torch.complex(f1r, f1i), F2i)
-    return tuple(t.contiguous() for t in (g0.real, g0.imag, g1.real, g1.imag))
+    return tuple(t.contiguous().to(xar.dtype)
+                 for t in (g0.real, g0.imag, g1.real, g1.imag))
 
 
 def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
     """Forward stage 2 of the rk (x) and v (y) stage-1 planes, F = R(A +
     conj(H) B), F1 = H F, and the inverse stage 2 of F and F1; all planes
-    (n1, n2, W).  Returns (a0r, a0i, a1r, a1i)."""
+    (n1, n2, W) at the io dtype, the filter planes H and R included.
+    Returns (a0r, a0i, a1r, a1i)."""
     ins = [xar, xai, yar, yai, hr, hi, rr]
     n1, n2, w = xar.shape
-    cuda = _check("h_combine_dual", ins, (n1, n2, w))
+    _check("h_combine_dual", ins, (n1, n2, w), IO_DTYPES)
+    cuda = _on_card("h_combine_dual", ins, tuple(t.dtype for t in ins),
+                    {(d,) * 7 for d in IO_DTYPES})
     if (n1, n2) != factors(n, cuda):
         raise ValueError(f"h_combine_dual: planes {xar.shape} do not view "
                          f"a length-{n} axis as {_factor(n)}")
@@ -332,8 +466,9 @@ def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
         raise ValueError(f"h_combine_dual: lane width {w} is not a "
                          f"multiple of {_K5_TW}")
     outs = [_empty((n1, n2, w), xar) for _ in range(4)]
-    _launch("h_combine", "lpt_h_combine_dual", "pppppppppppp" + "iii",
-            *ins, *outs, _table(n, False, xar.device), n1, n2, w)
+    _launch("h_combine", "lpt_h_combine_dual", "pppppppppppp" + "iiii",
+            *ins, *outs, _table(n, False, xar.device), n1, n2, w,
+            _CODE[xar.dtype])
     h_combine_dual.launches += 1
     return tuple(outs)
 
@@ -364,66 +499,112 @@ def fft_h_combine_dual(rkr, rki, vr, vi, hr, hi, rr, h, ops=None):
 
 
 def irfft_w_dual_state_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i,
-                             v, mask, dp, mu1):
+                             v, mask, dp, mu1, with_sat=True):
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
+    vsc = _v_scale(mu1)
 
     def patch(z, col):
-        return torch.cat([col[:, None], z[:, 1:]], dim=1)
+        return torch.cat([col[:, None], z[:, 1:].to(_F32)], dim=1)
 
     image = irfft_w_split(patch(a0r, p0r), patch(a0i, p0i))
     fwd = irfft_w_split(patch(a1r, p1r), patch(a1i, p1i))
-    xi = mu1 * fwd - v
-    xdv = c_out + (c_in - c_out) * mask
-    X = xdv * (xi + mu1 * fwd + dp)
+    xi = mu1 * fwd - _load_carry(v, vsc)
+    xdv = c_out + (c_in - c_out) * mask.to(_F32)
+    X = xdv * (xi + mu1 * fwd + dp.to(_F32))
     vn = mu1 * X - xi
     vwr, vwi = rfft_w_split(vn)
-    return image, vn, vwr, vwi
+    sat = 0.0
+    if with_sat and v.dtype == _I16:
+        sat = vn.abs().amax() * (1.0 / vsc)
+    io = a0r.dtype
+    return (image.to(io), _store_carry(vn, v.dtype, vsc), vwr.to(io),
+            vwi.to(io), sat)
 
 
 def irfft_w_dual_state(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
-                       mu1):
+                       mu1, with_sat=True):
     """v3 post-transform step: lane 0 of the a0/a1 half spectra replaced by
-    the (rows,) DC/Nyquist patch columns p0*/p1*, both inverse W
+    the (rows,) f32 DC/Nyquist patch columns p0*/p1*, both inverse W
     transforms (image, fwd), xi = mu1 fwd - v, X = xdv (xi + mu1 fwd +
     dp), v' = mu1 X - xi, and the forward W transform of v'.  fwd never
-    reaches device memory.  Returns (image, v', v'_wr, v'_wi)."""
+    reaches device memory.  Returns (image, v', v'_wr, v'_wi, sat): image
+    and the v' spectrum at a0r's dtype, v' at v's.  With ``with_sat`` and
+    an int16 v, sat is a 0-d f32 tensor, max |v'| / (256 mu1) over the f32
+    values before they are quantized; otherwise 0.0 (the solver's form,
+    ``with_sat=False``, leaves the v scan to :func:`sat_scan_i16`)."""
     rows, m = a0r.shape
     n_full = 2 * m
-    cuda = _check("irfft_w_dual_state", [a0r, a0i, a1r, a1i], (rows, m))
+    _check("irfft_w_dual_state", [a0r, a0i, a1r, a1i], (rows, m), IO_DTYPES)
     _check("irfft_w_dual_state", [p0r, p0i, p1r, p1i], (rows,))
-    _check("irfft_w_dual_state", [v, mask, dp], (rows, n_full))
+    _check("irfft_w_dual_state", [mask, dp], (rows, n_full), IO_DTYPES)
+    _check("irfft_w_dual_state", [v], (rows, n_full), CARRY_DTYPES)
+    planes = [a0r, a0i, a1r, a1i, mask, dp, v]
+    cuda = _on_card("irfft_w_dual_state", planes, tuple(t.dtype for t in planes),
+                    {(i,) * 6 + (c,) for i in IO_DTYPES for c in CARRY_DTYPES},
+                    cols=(p0r, p0i, p1r, p1i))
     n1, n2 = factors(m, cuda)
-    if any(t.device != a0r.device for t in (p0r, v)):
-        raise ValueError("irfft_w_dual_state: tensors on different devices")
     if not cuda:
         return irfft_w_dual_state_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r,
-                                        p1i, v, mask, dp, mu1)
+                                        p1i, v, mask, dp, mu1, with_sat)
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
-    image, vo = _empty((rows, n_full), v), _empty((rows, n_full), v)
-    vwr, vwi = _empty((rows, m), v), _empty((rows, m), v)
+    vsc = _v_scale(mu1)
+    image = _empty((rows, n_full), a0r)
+    vo = _empty((rows, n_full), v)
+    vwr, vwi = _empty((rows, m), a0r), _empty((rows, m), a0r)
+    sat = _sat_zero(v) if with_sat and v.dtype == _I16 else None
     _launch("w_dual_state", "lpt_w_dual_state", "ppppppppppp" + "pppp" + "p"
-            + "iiii" + "fff",
+            + "iiii" + "fff" + "fff" + "p" + "ii",
             a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
             image, vo, vwr, vwi, _table(m, True, v.device), rows, m, n1, n2,
-            float(mu1), float(c_out), float(c_in - c_out))
+            float(mu1), float(c_out), float(c_in - c_out), *_fix(vsc),
+            1.0 / vsc, sat.data_ptr() if sat is not None else None,
+            _CODE[a0r.dtype], _CODE[v.dtype])
     irfft_w_dual_state.launches += 1
-    return image, vo, vwr, vwi
+    return image, vo, vwr, vwi, (0.0 if sat is None else sat)
 
 
-WRAPPERS = (rfft_w, e1_rtv, h_passA_pair, h_combine_dual, irfft_w_dual_state)
+# ---------------------------------------------------------------------------
+# K7: saturation fraction of a stored int16 carry plane
+# ---------------------------------------------------------------------------
+
+
+def sat_scan_i16_plain(x):
+    return x.to(torch.int32).abs().amax().to(_F32) * (1.0 / _I16_FULL)
+
+
+def sat_scan_i16(x):
+    """max |x| / 32767 over a stored int16 plane, as a 0-d f32 tensor on
+    x's device (the JAX kernel returns an (8, 128) block of equal entries
+    that its callers reduce with ``jnp.max``).  |x| is taken in int32, so
+    a plane holding -32768 reads 32768/32767 > 1."""
+    _check("sat_scan_i16", [x], dtypes=(_I16,))
+    if not _on_card("sat_scan_i16", [x], (x.dtype,), {(_I16,)}):
+        return sat_scan_i16_plain(x)
+    sat = _sat_zero(x)
+    _launch("sat_scan", "lpt_sat_scan_i16", "pLfp", x, x.numel(),
+            1.0 / _I16_FULL, sat)
+    sat_scan_i16.launches += 1
+    return sat
+
+
+WRAPPERS = (rfft_w, irfft_w, e1_rtv, h_passA_pair, h_combine_dual,
+            irfft_w_dual_state, sat_scan_i16)
 for _w in WRAPPERS:
     _w.launches = 0
 
 # the kernel set the solver runs, and the same functions in plain PyTorch
 # (for holding the kernels against it on the card)
-KERNELS = SimpleNamespace(rfft_w=rfft_w, e1_rtv=e1_rtv,
+KERNELS = SimpleNamespace(rfft_w=rfft_w, irfft_w=irfft_w, e1_rtv=e1_rtv,
                           h_passA_pair=h_passA_pair,
                           h_combine_dual=h_combine_dual,
-                          irfft_w_dual_state=irfft_w_dual_state)
-PLAIN = SimpleNamespace(rfft_w=rfft_w_plain, e1_rtv=e1_rtv_plain,
+                          irfft_w_dual_state=irfft_w_dual_state,
+                          sat_scan_i16=sat_scan_i16)
+PLAIN = SimpleNamespace(rfft_w=rfft_w_plain, irfft_w=irfft_w_plain,
+                        e1_rtv=e1_rtv_plain,
                         h_passA_pair=h_passA_pair_plain,
                         h_combine_dual=h_combine_dual_plain,
-                        irfft_w_dual_state=irfft_w_dual_state_plain)
+                        irfft_w_dual_state=irfft_w_dual_state_plain,
+                        sat_scan_i16=sat_scan_i16_plain)
 
 
 def reset_launches():

@@ -1,6 +1,6 @@
 """Fused half-spectrum ADMM: the system's hot path (port of
-lenslesspicam_tpu/recon/admm_split.py:205-442, v3 placement, f32 io
-and carries).
+lenslesspicam_tpu/recon/admm_split.py:205-442, v3 placement, at every
+storage mode of the JAX package).
 
 Spatial planes ride in the even/odd split lane layout; spectra, filter
 constants and all H-axis work are half width (``ops/split_fft.py``).
@@ -12,6 +12,15 @@ One iteration is K3 ``e1_rtv`` -> ``dc_patch`` -> K4/K5/K4
 once before the loop.  The state algebra is the exact solver's
 (``recon/admm.py``) with the TV dual update deferred to the next
 iteration's K3, which holds the new image and its halo rows.
+
+Storage modes are arguments, not globals: ``io`` (f32 or bf16) for the
+spectra, the image and the static planes handed between kernels,
+``carry_tv`` and ``carry_v`` (f32, bf16 or i16) for the TV carries a0,
+a1, b and the data-fidelity carry v.  The JAX bench's headline mode is
+``io="bf16", carry_tv="i16", carry_v="i16"``.  int16 carries are fixed
+point at parameter-derived full scales; the saturation channel (K3's, and
+K7 on the stored v every ``sat_every``-th iteration) reports the largest
+fraction of full scale reached, >= 1 meaning a carry clipped.
 """
 
 from __future__ import annotations
@@ -109,18 +118,36 @@ def precompute_rsplit(psf2d, data2d, params: ADMMParams = ADMMParams(),
 
 
 def run_split_rfused(pre: RSplitPrecomp, params: ADMMParams = ADMMParams(),
-                     n_iter: int = 100, return_sat: bool = False, ops=None):
+                     n_iter: int = 100, return_sat: bool = False, ops=None,
+                     io: str = "f32", carry_tv: str = "f32",
+                     carry_v: str = "f32", sat_every: int = 8):
     """Grayscale ADMM on the half-spectrum fused path; returns the cropped,
     clipped (H, W) image, and with ``return_sat`` also the running max of
-    the carry-saturation channel (0.0: f32 carries cannot clip).
+    the carry-saturation channel as a float (0.0 when no carry is int16:
+    such carries cannot clip, and nothing is launched for it).
+
+    ``io`` is "f32" or "bf16"; ``carry_tv`` and ``carry_v`` are "f32",
+    "bf16" or "i16".  The defaults are the exact f32 path.  With an int16
+    v, K7 scans the stored v every ``sat_every``-th iteration (from the
+    first).  The running max stays on the device; ``return_sat`` reads it
+    once, after the loop.
 
     ``ops`` is the kernel set, ``kernels.KERNELS`` by default;
     ``kernels.PLAIN`` runs the same loop through the plain PyTorch
     versions, against which the kernels are held on the card."""
     ops = ops or kernels.KERNELS
+    io_t = kernels.storage_dtype(io, ("f32", "bf16"))
+    tv_t, v_t = kernels.storage_dtype(carry_tv), kernels.storage_dtype(carry_v)
+    if sat_every < 1:
+        raise ValueError(f"sat_every must be >= 1, got {sat_every}")
     mu1, mu2, mu3, tau = params.mu1, params.mu2, params.mu3, params.tau
     ph, pw = pre.padded_shape
     dev = pre.Hr.device
+    f32 = torch.float32
+    # the filter planes and the static mask/data planes ride at io; the
+    # DC/Nyquist columns stay f32
+    Hr, Hi, R = pre.Hr.to(io_t), pre.Hi.to(io_t), pre.R.to(io_t)
+    mask, data_pad = pre.mask.to(io_t), pre.data_pad.to(io_t)
     H0 = torch.complex(pre.H0r, pre.H0i)
     HM = torch.complex(pre.HMr, pre.HMi)
 
@@ -128,7 +155,7 @@ def run_split_rfused(pre: RSplitPrecomp, params: ADMMParams = ADMMParams(),
         # exact DC (kw = 0) and Nyquist (kw = M) columns, convolved on the
         # side: one batched length-ph FFT for the four analysis columns
         # and one for the four synthesis columns
-        cols = torch.stack([rkr[:, 0], rki[:, 0], vr[:, 0], vi[:, 0]])
+        cols = torch.stack([rkr[:, 0], rki[:, 0], vr[:, 0], vi[:, 0]]).to(f32)
         A0, AM, B0, BM = torch.fft.fft(cols, dim=-1)
         F0 = pre.R0 * (A0 + torch.conj(H0) * B0)
         FM = pre.RM * (AM + torch.conj(HM) * BM)
@@ -137,34 +164,42 @@ def run_split_rfused(pre: RSplitPrecomp, params: ADMMParams = ADMMParams(),
         return outs[0], outs[1], outs[2], outs[3]
 
     # iteration-0 v carry: with all other state zero the first X update
-    # gives v = mu1 * X_divmat * data
+    # gives v = mu1 * X_divmat * data (f32, from the f32 planes)
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
     xdv = c_out + (c_in - c_out) * pre.mask
     v_init = mu1 * xdv * pre.data_pad
-    vwr, vwi = ops.rfft_w(v_init)
-    v = kernels.encode_v(v_init, mu1)
-    zeros = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
-    image, a0, a1, b = zeros, zeros, zeros, zeros
-    sat = 0.0
-    for _ in range(int(n_iter)):
+    vwr, vwi = ops.rfft_w(v_init.to(io_t))
+    v = kernels.encode_v(v_init, mu1, v_t)
+    image = torch.zeros((ph, pw), dtype=io_t, device=dev)
+    a0 = a1 = b = torch.zeros((ph, pw), dtype=tv_t, device=dev)
+    sat = None          # running max on the device; None: nothing can clip
+    for i in range(int(n_iter)):
         rkr, rki, a0, a1, b, sat_tv = ops.e1_rtv(image, a0, a1, b, mu2, mu3, tau)
         i0, iM, f0, fM = dc_patch(rkr, rki, vwr, vwi)
         (a0r, a0i), (a1r, a1i) = kernels.fft_h_combine_dual(
-            rkr, rki, vwr, vwi, pre.Hr, pre.Hi, pre.R, ph, ops=ops)
-        image, v, vwr, vwi = ops.irfft_w_dual_state(
-            a0r, a0i, a1r, a1i, i0, iM, f0, fM, v, pre.mask, pre.data_pad, mu1)
-        sat = max(sat, sat_tv)
-    img = sf.from_split_layout(image)
+            rkr, rki, vwr, vwi, Hr, Hi, R, ph, ops=ops)
+        image, v, vwr, vwi, _ = ops.irfft_w_dual_state(
+            a0r, a0i, a1r, a1i, i0, iM, f0, fM, v, mask, data_pad, mu1,
+            with_sat=False)
+        if tv_t == torch.int16:
+            sat = sat_tv if sat is None else torch.maximum(sat, sat_tv)
+        if v_t == torch.int16 and i % sat_every == 0:
+            sat_v = ops.sat_scan_i16(v)
+            sat = sat_v if sat is None else torch.maximum(sat, sat_v)
+    img = sf.from_split_layout(image.to(f32))
     sy, sx = pre.start
     nh, nw = pre.psf_shape
     out = torch.clamp(img[sy : sy + nh, sx : sx + nw], min=0.0)
     if return_sat:
-        return out, sat
+        return out, (0.0 if sat is None else float(sat))
     return out
 
 
 def run_rsplit(pre: RSplitPrecomp, params: ADMMParams = ADMMParams(),
-               n_iter: int = 100, return_sat: bool = False):
+               n_iter: int = 100, return_sat: bool = False, io: str = "f32",
+               carry_tv: str = "f32", carry_v: str = "f32", sat_every: int = 8):
     """Entry of the half-spectrum fused solver (the JAX package's
-    ``run_rsplit_jit``)."""
-    return run_split_rfused(pre, params, n_iter, return_sat=return_sat)
+    ``run_rsplit_jit``); the storage modes as in :func:`run_split_rfused`."""
+    return run_split_rfused(pre, params, n_iter, return_sat=return_sat,
+                            io=io, carry_tv=carry_tv, carry_v=carry_v,
+                            sat_every=sat_every)

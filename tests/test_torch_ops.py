@@ -207,7 +207,12 @@ def test_wrappers_on_cpu_use_plain_and_count_nothing():
     planes = [_t(rng.randn(12, 8, 64).astype(np.float32)) for _ in range(7)]
     K.h_passA_pair(*planes[:4], 96, False)
     K.h_combine_dual(*planes, 96)
+    zr, zi = K.rfft_w(x)
+    torch.testing.assert_close(K.irfft_w(zr, zi), K.irfft_w_plain(zr, zi), rtol=0, atol=0)
+    x16 = (x * 1000).to(torch.int16)
+    torch.testing.assert_close(K.sat_scan_i16(x16), K.sat_scan_i16_plain(x16), rtol=0, atol=0)
     assert K.launch_counts() == {name: 0 for name in K.launch_counts()}
+    assert {"irfft_w", "sat_scan_i16"} <= set(K.launch_counts())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
@@ -222,6 +227,33 @@ def test_wrappers_reject_bad_input(bad):
     else:
         with pytest.raises(ValueError):
             K.rfft_w(torch.zeros(8, 128, device="meta"))
+
+
+@pytest.mark.parametrize("case", ["mixed_carries", "mixed_io", "irfft_out"])
+def test_cuda_dtype_combination_not_built_raises(case):
+    """A dtype combination the plain versions take on the CPU but the CUDA
+    kernels were not built for raises TypeError on a non-CPU tensor
+    (checked on the meta device, without a card), before any launch."""
+    def z(*shape, dtype=torch.float32, device="meta"):
+        return torch.zeros(*shape, dtype=dtype, device=device)
+
+    bf, i16 = torch.bfloat16, torch.int16
+    if case == "mixed_carries":
+        args = (z(8, 128, dtype=bf), z(8, 128, dtype=i16), z(8, 128, dtype=bf),
+                z(8, 128), 1e-5, 4e-5, 1e-4)
+        fn = K.e1_rtv
+    elif case == "mixed_io":
+        args = (z(12, 8, 64, dtype=bf), z(12, 8, 64), z(12, 8, 64), z(12, 8, 64), 96, False)
+        fn = K.h_passA_pair
+    else:
+        args = (z(8, 64, dtype=bf), z(8, 64))
+        fn = K.irfft_w
+    cpu_args = [torch.zeros_like(a, device="cpu") if isinstance(a, torch.Tensor) else a
+                for a in args]
+    if case == "mixed_carries":
+        fn(*cpu_args)        # the plain version takes it
+    with pytest.raises(TypeError):
+        fn(*args)
 
 
 def test_cuda_factor_limits():

@@ -23,7 +23,7 @@ import importlib, pkgutil, re, sys
 import lenslesspicam_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, ab_kernels
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib") or re.match(r"^lenslesspicam_tpu(\.|$)", m)]
 print("BAD", bad)
@@ -79,6 +79,10 @@ def test_cpu_path_builds_nothing(monkeypatch):
     K.fft_h_combine_dual(*[r(96, 64) for _ in range(7)], 96)
     K.irfft_w_dual_state(*[r(96, 64) for _ in range(4)], *[r(96) for _ in range(4)],
                          r(96, 128), r(96, 128), r(96, 128), 1e-6)
+    K.irfft_w(*K.rfft_w(r(96, 128).to(torch.bfloat16)))
+    K.sat_scan_i16((r(96, 128) * 100).to(torch.int16))
+    tsplit.run_rsplit(tsplit.precompute_rsplit(r(48, 64).numpy(), r(48, 64).numpy(), device="cpu"),
+                      n_iter=2, io="bf16", carry_tv="i16", carry_v="i16")
     assert _build._libs == {}
     assert sum(K.launch_counts().values()) == 0
 
