@@ -4,17 +4,22 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
-grid in every storage-dtype combination the kernels are built for, at
+grid in every storage-dtype combination the kernels are built for; at
 the 12 MP grid in the f32 mode and in the JAX bench's headline storage
-mode: bf16 spectra, int16 carries), runs the small-grid fused loop
-through the kernels against the plain loop in every storage mode, runs
-K1 -> K2 round trips at 12 MP, reconstructs a 12 MP measurement with the
-exact solver and with the fused solver through the kernels in both
-modes, passes the JAX bench's gates (bench.py:376-435) in the headline
+mode, bf16 spectra with int16 carries; each kernel that takes a plane
+axis also on a stack of 6 planes over 3 constant planes at the small
+grid and on the RGB and batch=4 rungs' stacks at 12 MP), runs the small-grid
+fused loop through the kernels against the plain loop in every storage
+mode, runs K1 -> K2 round trips at 12 MP, reconstructs a 12 MP
+measurement with the exact solver and with the fused solver through the
+kernels in both modes and both kernel placements (v3, v2), passes the
+JAX bench's gates (bench.py:376-435) in the headline mode, runs its RGB
+and gray batch=4 rungs (bench.py:573-700) per plane in the headline
 mode, checks that each counted run went through every kernel of its
-path, measures the solvers' rates, and prints one JSON line per phase.  The last line is ``{"ok": true, "device": {...}}``; any
-failure raises and exits non-zero.  Without a CUDA device it exits
-non-zero before printing any result.
+path, measures the solvers' rates, and prints one JSON line per phase.
+The last line is ``{"ok": true, "device": {...}}``; any failure raises
+and exits non-zero.  Without a CUDA device it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -59,14 +64,31 @@ TOL_ROUND_TRIP = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 TOL_LOOP_HEADLINE = 2e-2
 TOL_PSNR_DEEP_DB = 1.2       # one-sided: headline >= exact - 1.2 dB at n = 100, 300
 TOL_COLLAPSE_DB = 0.5        # headline n = 300 >= headline n = 10 - 0.5 dB
+# the RGB and batch rungs' one-sided margin (bench.py:674-682): the
+# per-plane scaled scenes sit at other phases of ADMM's oscillating PSNR
+TOL_PSNR_DEEP_MODE_DB = 1.5
+# v2 against v3 at f32, normalized, n = 10: the same recurrence (2e-6 in
+# the JAX package at 40 x 56, tests/test_pallas_fft.py:212)
+TOL_V2_V3 = 1e-4
 HEADLINE = dict(io="bf16", carry_tv="i16", carry_v="i16")
 F32, BF16, I16 = torch.float32, torch.bfloat16, torch.int16
 NAME = {F32: "f32", BF16: "bf16", I16: "i16"}
-# (io, carry, K2 out dtype) of the timed 12 MP checks
-MODES = {"f32": (F32, F32, F32), "headline": (BF16, I16, F32)}
+# (io, carry_tv, carry_v, K2 out dtype) of the timed 12 MP checks
+MODES = {"f32": (F32, F32, F32, F32), "headline": (BF16, I16, I16, F32)}
 # every (io, carry) the CUDA code is built for, K2's out dtype bf16 with
 # 2-byte carries so that all four (io, out) pairs run
-COMBOS = [(io, c, BF16 if c != F32 else F32) for io in (F32, BF16) for c in (F32, BF16, I16)]
+COMBOS = [(io, c, c, BF16 if c != F32 else F32) for io in (F32, BF16)
+          for c in (F32, BF16, I16)]
+# K8 takes its TV and v carries independently: all 18 (io, tv, v)
+K8_COMBOS = [(io, tv, v, F32) for io in (F32, BF16) for tv in (F32, BF16, I16)
+             for v in (F32, BF16, I16)]
+PLANES = (6, 3)              # P planes over Pc constant planes, small-grid check
+# the stacks of the RGB (3 planes over 3 constant planes) and batch=4 (4
+# planes over 1) rungs, at 12 MP: every plane and constant plane seeded
+# apart, so a kernel that read the wrong plane would disagree
+PLANES_12MP = ((3, 3), (4, 1))
+PLANE_KERNELS = ("rfft_w", "e1_rtv", "h_passA_pair", "h_combine_dual",
+                 "irfft_w_dual_state", "e1_rcarry", "irfft_w_dual")
 # (io, carry_tv, carry_v) of the small-grid loop: each knob alone, bf16
 # carries, the headline mode (as tests/test_torch_modes.py)
 LOOP_MODES = [("bf16", "f32", "f32"), ("f32", "i16", "f32"), ("f32", "f32", "i16"),
@@ -90,6 +112,10 @@ KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
                            "lenslesspicam_tpu/ops/pallas_kernels2.py:2090"),
     "sat_scan_i16": ("K7", "lenslesspicam_tpu_torch/ops/csrc/sat_scan.cu",
                      "lenslesspicam_tpu/ops/pallas_kernels2.py:313"),
+    "e1_rcarry": ("K8", "lenslesspicam_tpu_torch/ops/csrc/e1_rcarry.cu",
+                  "lenslesspicam_tpu/ops/pallas_kernels2.py:1968"),
+    "irfft_w_dual": ("K9", "lenslesspicam_tpu_torch/ops/csrc/irfft_w_dual.cu",
+                     "lenslesspicam_tpu/ops/pallas_kernels2.py:2006"),
 }
 
 
@@ -167,10 +193,12 @@ COMBINE_OPS = 16   # per point, K5's F = R (A + conj(H) B) and H F
 SAT_OPS = 2        # per value scanned for the saturation max (abs, max)
 
 
-def kernel_cases(ph, pw, gen, io, carry, k2_out):
+def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
     """Seeded inputs at the shapes the fused loop gives each kernel, the
-    spectra and static planes at ``io``, the TV and v carries at
-    ``carry``, K2's output at ``k2_out``; with the operations each
+    spectra and static planes at ``io``, the TV carries at ``tv``, the v
+    carry at ``v``, K2's output at ``k2_out``; with ``planes`` = (P, Pc)
+    a stack of P planes and of Pc constant planes (filter planes, mask)
+    for each kernel that takes a plane axis.  With the operations each
     function needs, counted from the function and not from the kernels'
     design: 5 n log2 n per complex length-n FFT, UNPACK_OPS per bin of a
     packed real transform, and the elementwise algebra around them."""
@@ -178,44 +206,51 @@ def kernel_cases(ph, pw, gen, io, carry, k2_out):
     m = pw // 2
     h1, h2 = K.factors(ph, True)
     p = ADMMParams()
-    i16 = carry == I16
+    npl, npc = planes or (1, 1)
+    lp = (npl,) if planes else ()          # leading axis of the plane operands
+    lc = (npc,) if planes else ()          # and of the constants
 
     def rn(*s, scale=1.0, dtype=io):
         return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
 
-    w_row = ph * (fft_ops(m) + UNPACK_OPS * m)       # one packed-real W transform per row
+    rows = npl * ph
+    w_row = rows * (fft_ops(m) + UNPACK_OPS * m)     # one packed-real W transform per row
     sc_a, sc_b = K._tv_scales(p.mu2, p.mu3, p.tau)
-    # K3's TV carries at their KKT scale (|a| ~ tau, |b| ~ mu3 |image|):
-    # unit-scale carries make a' = mu2 u - eta cancel to ~1e-4 of its
-    # operands and no f32 evaluation order can keep 1e-4 relative there
-    img = rn(ph, pw)
-    a0, a1 = (K._store_carry(rn(ph, pw, scale=p.tau, dtype=F32), carry, sc_a)
+    # K3's and K8's TV carries at their KKT scale (|a| ~ tau, |b| ~ mu3
+    # |image|): unit-scale carries make a' = mu2 u - eta cancel to ~1e-4 of
+    # its operands and no f32 evaluation order can keep 1e-4 relative there
+    img = rn(*lp, ph, pw)
+    a0, a1 = (K._store_carry(rn(*lp, ph, pw, scale=p.tau, dtype=F32), tv, sc_a)
               for _ in range(2))
-    b = K._store_carry(rn(ph, pw, scale=p.mu3, dtype=F32), carry, sc_b)
-    q = [rn(h1, h2, m) for _ in range(4)]
-    c = [rn(h1, h2, m) for _ in range(7)]
-    # K6 at its loop scale: data only inside the support mask and v of
-    # order mu1, so v' stays inside the int16 full scale 256 mu1
-    s = [rn(ph, m) for _ in range(4)] + [rn(ph, dtype=F32) for _ in range(4)]
-    v = K.encode_v(rn(ph, pw, scale=p.mu1, dtype=F32), p.mu1, carry)
-    mask32 = (torch.rand(ph, pw, generator=gen, device=dev) > 0.5).float()
+    b = K._store_carry(rn(*lp, ph, pw, scale=p.mu3, dtype=F32), tv, sc_b)
+    q = [rn(*lp, h1, h2, m) for _ in range(4)]
+    c = [rn(*lp, h1, h2, m) for _ in range(4)] + [rn(*lc, h1, h2, m) for _ in range(3)]
+    # K6 and K8 at their loop scale: data only inside the support mask and
+    # v of order mu1, so v' stays inside the int16 full scale 256 mu1
+    s = [rn(*lp, ph, m) for _ in range(4)] + [rn(*lp, ph, dtype=F32) for _ in range(4)]
+    vc = K.encode_v(rn(*lp, ph, pw, scale=p.mu1, dtype=F32), p.mu1, v)
+    mask32 = (torch.rand(*lc, ph, pw, generator=gen, device=dev) > 0.5).float()
     mask = mask32.to(io)
-    dp = (mask32 * torch.rand(ph, pw, generator=gen, device=dev)).to(io)
+    dp = K.bmul(mask32, torch.rand(*lp, ph, pw, generator=gen, device=dev)).to(io)
     # an int16 plane reaching full scale both ways, and one -32768 (> 1)
     x16 = torch.randint(-20000, 20001, (ph, pw), generator=gen, device=dev,
                         dtype=torch.int16)
     x16[1, 2], x16[3, 4], x16[ph // 2, pw // 3] = 32767, -32767, -32768
-    pts = ph * pw
+    pts = rows * pw
     return {
-        "rfft_w": ((rn(ph, pw),), w_row),
-        "irfft_w": ((rn(ph, m), rn(ph, m), k2_out), w_row),
+        "rfft_w": ((rn(*lp, ph, pw),), w_row),
+        "irfft_w": ((rn(ph, m), rn(ph, m), k2_out), ph * (fft_ops(m) + UNPACK_OPS * m)),
         "e1_rtv": ((img, a0, a1, b, p.mu2, p.mu3, p.tau),
-                   w_row + pts * (TV_OPS + (3 * SAT_OPS if i16 else 0))),
-        "h_passA_pair": ((*q, ph, False), 2 * ph * m * (5.0 * math.log2(h1) + 6)),
-        "h_combine_dual": ((*c, ph), ph * m * (4 * 5.0 * math.log2(h2) + COMBINE_OPS)),
-        "irfft_w_dual_state": ((*s, v, mask, dp, p.mu1),
-                               3 * w_row + pts * (X_OPS + (SAT_OPS if i16 else 0))),
-        "sat_scan_i16": ((x16,), SAT_OPS * pts),
+                   w_row + pts * (TV_OPS + (3 * SAT_OPS if tv == I16 else 0))),
+        "h_passA_pair": ((*q, ph, False), 2 * rows * m * (5.0 * math.log2(h1) + 6)),
+        "h_combine_dual": ((*c, ph), rows * m * (4 * 5.0 * math.log2(h2) + COMBINE_OPS)),
+        "irfft_w_dual_state": ((*s, vc, mask, dp, p.mu1),
+                               3 * w_row + pts * (X_OPS + (SAT_OPS if v == I16 else 0))),
+        "sat_scan_i16": ((x16,), SAT_OPS * ph * pw),
+        "e1_rcarry": ((rn(*lp, ph, pw), rn(*lp, ph, pw), vc, b, a0, a1, mask, dp,
+                       p.mu1, p.mu2, p.mu3, p.tau),
+                      2 * w_row + pts * (TV_OPS + X_OPS)),
+        "irfft_w_dual": ((*s,), 2 * w_row),
     }
 
 
@@ -228,20 +263,26 @@ def library_call(name, args):
     if name == "irfft_w":     # irfft along W of a half spectrum of the same size
         z = torch.complex(args[0].float(), args[1].float())
         return lambda: torch.fft.irfft(z, n=2 * z.shape[-1], dim=-1)
+    if name == "irfft_w_dual":    # irfft along W of both half spectra, one call
+        z = torch.stack([torch.complex(args[0].float(), args[1].float()),
+                         torch.complex(args[2].float(), args[3].float())])
+        return lambda: torch.fft.irfft(z, n=2 * z.shape[-1], dim=-1)
     if name == "sat_scan_i16":
         return lambda: torch.aminmax(args[0])
     return None
 
 
-def check_kernels(ph, pw, timed, io, carry, k2_out, mode):
-    """Each kernel against its plain version on the inputs of
-    :func:`kernel_cases`; with ``timed`` also its time, the plain
-    version's, the library call's and the bound.  One JSON line per
+def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=None):
+    """Each kernel (of ``names``, default all) against its plain version on
+    the inputs of :func:`kernel_cases`; with ``timed`` also its time, the
+    plain version's, the library call's and the bound.  One JSON line per
     kernel; returns the rows by kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(ph)
     rows = {}
-    for name, (args, flops) in kernel_cases(ph, pw, gen, io, carry, k2_out).items():
+    for name, (args, flops) in kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes).items():
+        if names is not None and name not in names:
+            continue
         wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
         out = wrapper(*args)
         ref = plain(*args)
@@ -253,6 +294,7 @@ def check_kernels(ph, pw, timed, io, carry, k2_out, mode):
         val = [e for e in errs if e[1] is not None]
         shares = [e[2] for e in errs if e[2] is not None]
         row = {"kernel": name, "mode": mode, "grid": [ph, pw],
+               "planes": list(planes) if planes else None,
                "dtypes": sorted({str(t.dtype) for t in tensors((args, out))}),
                "max_abs_err": max(e[0] for e in val),
                "max_rel_err": max(e[1] for e in val),
@@ -408,6 +450,36 @@ def rate(fn, base=2, full=52, pairs=5):
             "pairs": len(rates), "rates": rates}
 
 
+def want_counts(n, placement="v3", sat_scans=0):
+    """Launches of one solve of n iterations through the kernels: v3 K1
+    once, K3, 2 K4, K5, K6 per iteration; v2 K8, 2 K4, K5, K9 per
+    iteration; and ``sat_scans`` K7 scans.  Whatever the number of
+    planes."""
+    counts = dict.fromkeys(K.launch_counts(), 0)
+    counts.update(h_passA_pair=2 * n, h_combine_dual=n, sat_scan_i16=sat_scans)
+    if placement == "v3":
+        counts.update(rfft_w=1, e1_rtv=n, irfft_w_dual_state=n)
+    else:
+        counts.update(e1_rcarry=n, irfft_w_dual=n)
+    return counts
+
+
+def counted(fn, want, label):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; raises unless the counts are ``want``."""
+    K.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if counts != want:
+        raise AssertionError(f"{label} launch counts {counts} != {want}")
+    return out, counts
+
+
+def nerr(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
 def end_to_end_headline(pre, conv, data5, scene_n, p_exact10):
     """The JAX bench's gate design (bench.py:376-435) in the headline mode
     at 12 MP, on the f32 phase's scene, PSF and precompute: exactness at
@@ -417,14 +489,9 @@ def end_to_end_headline(pre, conv, data5, scene_n, p_exact10):
     versions at n = 3."""
     torch.cuda.reset_peak_memory_stats()
     n = 10
-    K.reset_launches()
-    out10, sat10 = admm_split.run_rsplit(pre, n_iter=n, return_sat=True, **HEADLINE)
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-    want = {"rfft_w": 1, "irfft_w": 0, "e1_rtv": n, "h_passA_pair": 2 * n,
-            "h_combine_dual": n, "irfft_w_dual_state": n, "sat_scan_i16": 2}
-    if counts != want:
-        raise AssertionError(f"headline launch counts {counts} != {want}")
+    (out10, sat10), counts = counted(
+        lambda: admm_split.run_rsplit(pre, n_iter=n, return_sat=True, **HEADLINE),
+        want_counts(n, sat_scans=2), "headline")
     peak = torch.cuda.max_memory_allocated()
     if tuple(out10.shape) != SENSOR or not bool(torch.isfinite(out10).all()):
         raise AssertionError("headline output is not finite at the sensor shape")
@@ -450,7 +517,7 @@ def end_to_end_headline(pre, conv, data5, scene_n, p_exact10):
         raise AssertionError(f"headline carry saturation (n=10): {sat10:.3f}")
     k3 = admm_split.run_split_rfused(pre, n_iter=3, **HEADLINE)
     p3 = admm_split.run_split_rfused(pre, n_iter=3, ops=K.PLAIN, **HEADLINE)
-    loop_err = float((k3 - p3).abs().max() / p3.abs().max())
+    loop_err = nerr(k3, p3)
     if not loop_err <= TOL_LOOP_HEADLINE:
         raise AssertionError(f"headline loop kernels vs plain: {loop_err:.3e}")
     emit({"phase": "end_to_end_headline", "mode": HEADLINE, "grid": list(SENSOR),
@@ -460,6 +527,123 @@ def end_to_end_headline(pre, conv, data5, scene_n, p_exact10):
           "loop_kernels_vs_plain_n3": loop_err, "tol_loop": TOL_LOOP_HEADLINE,
           "launches": counts, "peak_mem_headline_bytes": peak})
     return counts
+
+
+def v2_phase(pre, fused_v3, scene_n, p_exact10):
+    """The v2 placement (K8, K4, K5, K4, K9; K7 on every int16 carry every
+    iteration) at 12 MP gray: f32 v2 against f32 v3 at n = 10 (the same
+    recurrence), the headline v2 within TOL_PSNR_DB of exact at n = 10
+    with saturation below 1, and the headline loop through the kernels
+    against the plain loop at n = 3.  Not held to headline v3: v2 stores
+    the forward plane at bf16 between kernels, v3 keeps it in
+    registers.  Returns the launch counts of both n = 10 runs."""
+    n = 10
+    v2, counts_f32 = counted(lambda: admm_split.run_rsplit(pre, n_iter=n, placement="v2"),
+                             want_counts(n, "v2"), "v2 f32")
+    ident = nerr(v2, fused_v3)
+    if not ident <= TOL_V2_V3:
+        raise AssertionError(f"f32 v2 vs v3 (n={n}): {ident:.3e} > {TOL_V2_V3}")
+    torch.cuda.reset_peak_memory_stats()
+    (out, sat), counts = counted(
+        lambda: admm_split.run_rsplit(pre, n_iter=n, return_sat=True, placement="v2",
+                                      **HEADLINE),
+        want_counts(n, "v2", sat_scans=4 * n), "v2 headline")
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != SENSOR or not bool(torch.isfinite(out).all()):
+        raise AssertionError("v2 headline output is not finite at the sensor shape")
+    p10 = psnr_db(out, scene_n)
+    if not (abs(p_exact10 - p10) <= TOL_PSNR_DB and sat < 1.0):
+        raise AssertionError(f"v2 headline gate (n={n}): exact {p_exact10:.3f} vs "
+                             f"{p10:.3f} dB, sat {sat:.3f}")
+    k3 = admm_split.run_split_rfused(pre, n_iter=3, placement="v2", **HEADLINE)
+    p3 = admm_split.run_split_rfused(pre, n_iter=3, placement="v2", ops=K.PLAIN, **HEADLINE)
+    loop_err = nerr(k3, p3)
+    if not loop_err <= TOL_LOOP_HEADLINE:
+        raise AssertionError(f"v2 headline loop kernels vs plain: {loop_err:.3e}")
+    emit({"phase": "v2", "grid": list(SENSOR), "n_iter": n,
+          "f32_v2_vs_v3_normalized": ident, "tol_v2_v3": TOL_V2_V3,
+          "psnr_exact_db": p_exact10, "psnr_v2_headline_db": p10, "tol_db": TOL_PSNR_DB,
+          "sat_n10": sat, "loop_kernels_vs_plain_n3": loop_err,
+          "tol_loop": TOL_LOOP_HEADLINE, "launches_f32": counts_f32,
+          "launches_headline": counts, "peak_mem_v2_headline_bytes": peak})
+    return counts, counts_f32
+
+
+def mode_phase(mode, scene, psf2d, conv):
+    """The JAX bench's RGB or gray batch=4 rung (``certify_and_time_mode``,
+    bench.py:573-700) at 12 MP in the headline mode: per-plane scaled
+    copies of the certification scene, the PSF repeated per channel,
+    measurements normalized per plane; the exact solver per plane with
+    the gray convolver ``conv``; per plane |dPSNR| <= TOL_PSNR_DB at
+    n = 10, fused >= exact - TOL_PSNR_DEEP_MODE_DB at n = 100 and 300,
+    anti-collapse and saturation below 1.  The n = 10 solve's launch
+    counts equal a gray solve's.  Returns the phase's record, with the
+    solver's rate."""
+    t0 = time.perf_counter()
+    ch, b = (3, 1) if mode == "rgb" else (1, 4)
+    nplanes = b * ch
+    scales = np.linspace(1.0, 0.55, nplanes).astype(np.float32)
+    scenes = np.stack([scene * s for s in scales]).reshape(b, ch, *SENSOR).transpose(0, 2, 3, 1)
+    psf = np.repeat(psf2d[None, :, :, None], ch, axis=-1)
+    fwd = FFTConvolver.from_psf(psf, pad=True, norm="backward")
+    meas = fwd.convolve(torch.from_numpy(np.ascontiguousarray(scenes[:, None])).to("cuda"))
+    meas = meas / meas.amax(dim=(-3, -2), keepdim=True).clamp_min(1e-9)
+    del fwd
+    scenes_n = torch.from_numpy(scenes / scenes.max(axis=(1, 2), keepdims=True)).to("cuda")
+    planes = [(i, c) for i in range(b) for c in range(ch)]
+    t1 = time.perf_counter()
+    pre, info = admm_split.precompute_rsplit_general(psf, meas.cpu().numpy())
+    t_pre = time.perf_counter() - t1
+
+    # exact per plane, continued from its state: n = 10, 100, 300
+    pe = {nd: [] for nd in (10, 100, 300)}
+    for i, c in planes:
+        d5 = meas[i, 0, :, :, c][None, None, :, :, None]
+        state, done = None, 0
+        for nd in (10, 100, 300):
+            img, state = admm.run_state(conv, d5, n_iter=nd - done, state=state)
+            done = nd
+            pe[nd].append(psnr_db(img[0, 0, :, :, 0], scenes_n[i, :, :, c]))
+        del state, img
+
+    def fused(nd):
+        out, sat = admm_split.run_rsplit_general(pre, info, meas, n_iter=nd, return_sat=True,
+                                                 **HEADLINE)
+        if tuple(out.shape) != (b, 1, *SENSOR, ch) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{mode} output is not finite at ({b}, 1, {SENSOR}, {ch})")
+        return [psnr_db(out[i, 0, :, :, c], scenes_n[i, :, :, c]) for i, c in planes], sat
+
+    torch.cuda.reset_peak_memory_stats()
+    (po10, sat10), counts = counted(lambda: fused(10), want_counts(10, sat_scans=2), mode)
+    peak = torch.cuda.max_memory_allocated()
+    po, sats = {10: po10}, {10: sat10}
+    for nd in (100, 300):
+        po[nd], sats[nd] = fused(nd)
+    for k in range(nplanes):
+        if not abs(pe[10][k] - po[10][k]) <= TOL_PSNR_DB:
+            raise AssertionError(f"{mode} exactness gate, plane {k} (n=10): exact "
+                                 f"{pe[10][k]:.3f} vs {po[10][k]:.3f} dB")
+        for nd in (100, 300):
+            if not po[nd][k] >= pe[nd][k] - TOL_PSNR_DEEP_MODE_DB:
+                raise AssertionError(f"{mode} quality gate, plane {k} (n={nd}): "
+                                     f"{po[nd][k]:.3f} vs exact {pe[nd][k]:.3f} dB")
+        if not po[300][k] >= po[10][k] - TOL_COLLAPSE_DB:
+            raise AssertionError(f"{mode} anti-collapse gate, plane {k}: n=300 "
+                                 f"{po[300][k]:.3f} vs n=10 {po[10][k]:.3f} dB")
+    if not all(s < 1.0 for s in sats.values()):
+        raise AssertionError(f"{mode} carry saturation {sats}")
+    it_rate = rate(lambda k: admm_split.run_rsplit_general(pre, info, meas, n_iter=k,
+                                                           **HEADLINE))
+    rec = {"phase": mode, "mode": HEADLINE, "grid": list(SENSOR), "batch": b, "channels": ch,
+           "planes": nplanes, "scales": scales.tolist(),
+           "psnr_exact_db": pe, "psnr_fused_db": po, "sat": sats,
+           "tol_db": TOL_PSNR_DB, "tol_deep_db": TOL_PSNR_DEEP_MODE_DB,
+           "tol_collapse_db": TOL_COLLAPSE_DB, "launches": counts,
+           "peak_mem_bytes": peak, "precompute_s": t_pre,
+           "it_per_s": it_rate, "plane_it_per_s": it_rate["median"] * nplanes,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
 
 
 def main():
@@ -476,61 +660,74 @@ def main():
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    t_start = time.perf_counter()
+    seconds = {}
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for n, log in logs.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs), "ptxas": regs})
+    regs = {n: [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
+            for n, r in logs.items()}
+    seconds["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": seconds["build"], "built": sorted(logs),
+          "seconds_by_library": {n: r["seconds"] for n, r in logs.items()}, "ptxas": regs})
 
+    t0 = time.perf_counter()
     ph, pw = 6144, 8192
-    for io, carry, k2_out in COMBOS:
-        check_kernels(2 * SMALL[0], 2 * SMALL[1], False, io, carry, k2_out,
-                      f"io={NAME[io]},carry={NAME[carry]},k2_out={NAME[k2_out]}")
+    sh, sw = 2 * SMALL[0], 2 * SMALL[1]
+    for io, tv, v, k2_out in COMBOS:
+        check_kernels(sh, sw, False, io, tv, v, k2_out,
+                      f"io={NAME[io]},carry={NAME[tv]},k2_out={NAME[k2_out]}")
+    for io, tv, v, k2_out in K8_COMBOS:
+        check_kernels(sh, sw, False, io, tv, v, k2_out,
+                      f"io={NAME[io]},tv={NAME[tv]},v={NAME[v]}", names=("e1_rcarry",))
+    for mode, dts in MODES.items():
+        check_kernels(sh, sw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
+                      planes=PLANES)
     krows = {mode: check_kernels(ph, pw, True, *dts, mode) for mode, dts in MODES.items()}
+    for mode, dts in MODES.items():
+        for planes in PLANES_12MP:
+            check_kernels(ph, pw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
+                          planes=planes)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     counts_rt = round_trip(ph, pw)
     chain_yardstick(ph, pw)
     small_end_to_end()
+    seconds["small_and_round_trip"] = time.perf_counter() - t0
 
     # end to end at 12 MP: scene, PSF and measurement from seed 0
+    t0 = time.perf_counter()
     rng = np.random.RandomState(0)
     scene, psf2d = cert_scene_psf(SENSOR, rng)
     fwd = FFTConvolver.from_psf(psf2d[None, :, :, None], pad=True,
-                                     norm="backward")
-    meas = fwd.convolve(torch.from_numpy(scene)[None, None, :, :, None].cuda())
+                                norm="backward")
+    meas = fwd.convolve(torch.from_numpy(scene)[None, None, :, :, None].to("cuda"))
     meas = (meas / meas.max().clamp_min(1e-9))[0, 0, :, :, 0]
-    scene_n = torch.from_numpy(scene / scene.max()).cuda()
+    scene_n = torch.from_numpy(scene / scene.max()).to("cuda")
     del fwd
 
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     pre = admm_split.precompute_rsplit(psf2d, meas.cpu().numpy())
-    t_pre = time.perf_counter() - t0
+    t_pre = time.perf_counter() - t1
     conv = admm.make_convolver(psf2d[None, :, :, None])
     data5 = meas[None, None, :, :, None]
 
     torch.cuda.reset_peak_memory_stats()
     n = 10
-    K.reset_launches()
-    fused = admm_split.run_rsplit(pre, n_iter=n)
-    torch.cuda.synchronize()
-    counts_f32 = K.launch_counts()
-    want = {"rfft_w": 1, "irfft_w": 0, "e1_rtv": n, "h_passA_pair": 2 * n,
-            "h_combine_dual": n, "irfft_w_dual_state": n, "sat_scan_i16": 0}
-    if counts_f32 != want:
-        raise AssertionError(f"launch counts {counts_f32} != {want}")
+    fused, counts_f32 = counted(lambda: admm_split.run_rsplit(pre, n_iter=n),
+                                want_counts(n), "f32")
     peak_fused = torch.cuda.max_memory_allocated()
     exact = admm.run(conv, data5, n_iter=n)[0, 0, :, :, 0]
     if tuple(fused.shape) != SENSOR or not bool(torch.isfinite(fused).all()):
         raise AssertionError("fused output is not finite at the sensor shape")
     p_exact, p_fused = psnr_db(exact, scene_n), psnr_db(fused, scene_n)
-    diff = float((fused - exact).abs().max() / exact.abs().max())
+    diff = nerr(fused, exact)
     if not abs(p_exact - p_fused) <= TOL_PSNR_DB:
         raise AssertionError(f"PSNR exact {p_exact:.3f} vs fused {p_fused:.3f} dB")
     n3 = 3
     k3 = admm_split.run_split_rfused(pre, n_iter=n3)
     p3 = admm_split.run_split_rfused(pre, n_iter=n3, ops=K.PLAIN)
-    loop_err = float((k3 - p3).abs().max() / p3.abs().max())
+    loop_err = nerr(k3, p3)
     if not loop_err <= TOL_LOOP:
         raise AssertionError(f"fused loop kernels vs plain: {loop_err:.3e}")
     emit({"phase": "end_to_end", "grid": list(SENSOR), "padded": [ph, pw],
@@ -542,28 +739,57 @@ def main():
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
 
     counts = end_to_end_headline(pre, conv, data5, scene_n, p_exact)
+    seconds["gray"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts_v2, counts_v2_f32 = v2_phase(pre, fused, scene_n, p_exact)
+    seconds["v2"] = time.perf_counter() - t0
+    del fused, exact, k3, p3
 
-    fused_rate = rate(lambda k: admm_split.run_rsplit(pre, n_iter=k))
-    headline_rate = rate(lambda k: admm_split.run_rsplit(pre, n_iter=k, **HEADLINE))
-    exact_rate = rate(lambda k: admm.run(conv, data5, n_iter=k))
+    t0 = time.perf_counter()
+    rates = {"fused_it_per_s": rate(lambda k: admm_split.run_rsplit(pre, n_iter=k)),
+             "headline_it_per_s": rate(lambda k: admm_split.run_rsplit(pre, n_iter=k,
+                                                                       **HEADLINE)),
+             "v2_fused_it_per_s": rate(lambda k: admm_split.run_rsplit(
+                 pre, n_iter=k, placement="v2")),
+             "v2_headline_it_per_s": rate(lambda k: admm_split.run_rsplit(
+                 pre, n_iter=k, placement="v2", **HEADLINE)),
+             "exact_it_per_s": rate(lambda k: admm.run(conv, data5, n_iter=k))}
+    seconds["rate_gray"] = time.perf_counter() - t0
+    del pre, data5, meas
+
+    modes = {}
+    for mode in ("rgb", "batch4"):
+        modes[mode] = mode_phase(mode, scene, psf2d, conv)
+        seconds[mode] = modes[mode]["seconds"]
+    for mode in modes:
+        rates[f"{mode}_it_per_s"] = modes[mode]["it_per_s"]
+        rates[f"{mode}_plane_it_per_s"] = modes[mode]["plane_it_per_s"]
     emit({"phase": "rate", "grid": list(SENSOR), "method": "(n=52 - n=2) pairs",
-          "fused_it_per_s": fused_rate, "headline_it_per_s": headline_rate,
-          "exact_it_per_s": exact_rate, "card": smi})
+          "unit": "solver iterations per second of the whole solve; plane_it_per_s: "
+                  "times the planes", **rates, "card": smi})
 
     # one entry per kernel: the headline mode's numbers, the f32 mode's
-    # beside them; launches from the headline solve, K2's from its own
-    # path (the round trip; no solver calls it)
+    # beside them; launches from the path named by "path" (K2: its round
+    # trip, no solver calls it), and those of every counted main path
+    paths = {"end_to_end_headline": counts, "v2_headline": counts_v2,
+             "rgb": modes["rgb"]["launches"], "batch4": modes["batch4"]["launches"],
+             "round_trip": counts_rt}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "bytes", "flops")
-    path = {name: ("round_trip" if name == "irfft_w" else "end_to_end_headline")
-            for name in KERNEL_INFO}
+    path = {name: ("round_trip" if name == "irfft_w" else
+                   "v2_headline" if name in ("e1_rcarry", "irfft_w_dual") else
+                   "end_to_end_headline") for name in KERNEL_INFO}
+    f32_launches = {**counts_f32, **{k: counts_v2_f32[k] for k in ("e1_rcarry", "irfft_w_dual")},
+                    "irfft_w": counts_rt["irfft_w"]}
+    seconds["total"] = time.perf_counter() - t_start
+    emit({"phase": "seconds", **seconds})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][1],
          "replaces": KERNEL_INFO[name][2], "label": KERNEL_INFO[name][0],
-         "launches": (counts_rt if path[name] == "round_trip" else counts)[name],
-         "path": path[name],
+         "launches": paths[path[name]][name], "path": path[name],
+         "launches_by_path": {p: c[name] for p, c in paths.items()},
          **{k: krows["headline"][name][k] for k in keys},
-         "f32": {"launches": counts_f32[name],
+         "f32": {"launches": f32_launches[name],
                  **{k: krows["f32"][name][k] for k in keys}}}
         for name in KERNEL_INFO]})
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """lenslesspicam_tpu_torch: the PyTorch/CUDA port of lenslesspicam_tpu.
 
-The single-image ADMM reconstruction of a lensless measurement on an
-NVIDIA H100: the exact solver (``recon.admm``, ``torch.fft``) and the
-fused half-spectrum solver (``recon.admm_split``) whose kernels are
+The ADMM reconstruction of lensless measurements on an NVIDIA H100,
+gray or RGB, one image or a batch: the exact solver (``recon.admm``,
+``torch.fft``) and the fused half-spectrum solver (``recon.admm_split``,
+both kernel placements of the JAX package) whose kernels are
 hand-written CUDA C++ for ``sm_90a`` (``ops/csrc``), at every storage
 mode of the JAX package (f32 or bf16 spectra, f32, bf16 or int16
 carries).  Entry points run on the CUDA card unless the caller asks for

@@ -49,6 +49,16 @@ def rsplit_precomp(arrays: dict, psf_shape, padded_shape, start,
         start=tuple(start))
 
 
+def rsplit_general_precomp(arrays: dict, info: dict, psf_shape, padded_shape, start,
+                           device=None):
+    """``(pre, info)`` of the port's batched solver (``run_rsplit_general``)
+    from the JAX ``precompute_rsplit_general`` result: its stacked
+    RSplitPrecomp's arrays (a leading axis over the D * C planes) and its
+    info dict."""
+    pre = rsplit_precomp(arrays, psf_shape, padded_shape, start, device)
+    return pre, {k: int(info[k]) for k in ("batch", "depth", "channels")}
+
+
 def convolver(H, psf_shape, padded_shape, start, pad, norm, shift_folded,
               device=None) -> FFTConvolver:
     """The port's FFTConvolver from the JAX FFTConvolver's spectrum and

@@ -5,8 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes``.  The
 library file name carries a hash of the flags and of every source and
 header, so a changed source is rebuilt and an unchanged one is reused.
 All missing libraries are compiled together, one ``nvcc`` process per
-source.  Importing this module runs nothing; ``nvcc`` starts only on the
-first :func:`load` or :func:`build_all`.
+source, each timed.  Importing this module runs nothing; ``nvcc`` starts
+only on the first :func:`load` or :func:`build_all`.
 """
 
 from __future__ import annotations
@@ -16,12 +16,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("rfft_w", "irfft_w", "e1_rtv", "h_pass_a", "h_combine", "w_dual_state",
-           "sat_scan")
+           "sat_scan", "e1_rcarry", "irfft_w_dual")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,40 +51,33 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compile(nvcc: str, name: str) -> dict:
+    tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {"seconds": time.perf_counter() - t0, "log": res.stdout, "ok": res.returncode == 0}
+    if out["ok"]:
+        os.replace(tmp, lib_path(name))
+    return out
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every library in ``names`` that is not built yet, all at
-    once.  Returns {name: compiler log} for the ones it compiled; raises
-    with the compiler's output if any fails."""
+    once.  Returns {name: {"seconds", "log", "ok"}} for the ones it
+    compiled; raises with the compiler's output if any fails."""
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    try:
-        for n in todo:
-            tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp)
-        logs, failed = {}, []
-        for n, (p, tmp) in procs.items():
-            out, _ = p.communicate()
-            logs[n] = out
-            if p.returncode != 0:
-                failed.append(n)
-            else:
-                os.replace(tmp, lib_path(n))
-    finally:
-        for p, _ in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        done = dict(zip(todo, pool.map(lambda n: _compile(nvcc, n), todo)))
+    failed = [n for n, r in done.items() if not r["ok"]]
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+                           + "\n".join(done[n]["log"] for n in failed))
+    return done
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,9 +8,13 @@
 //   a1' likewise along W, psi1 = roll(img, +1) - img
 //   b'  = mu3 max(rho/mu3 + img, 0) - rho, rho = mu3 img - b
 //   rk  = b' + (a0'[r+1] - a0'[r]) + (roll(a1', -1) - a1')
-// then the forward packed-real W transform of rk (K1's core).  The halo
-// rows (img r-1 and r+1, a0 r+1) are read straight from device memory, so
-// no block depends on another; a0' of row r+1 is recomputed here.
+// then the forward packed-real W transform of rk (K1's core); the step
+// itself is `tv_row` (admm_state.cuh), shared with K8.  The halo rows
+// (img r-1 and r+1, a0 r+1) are read straight from device memory, so no
+// block depends on another; a0' of row r+1 is recomputed here.  The
+// planes may be a stack of P planes of ph rows (grid P * ph): the halo
+// rows wrap within each plane, and the saturation channel is the max over
+// all of them.
 //
 // Storage: img and the rk spectrum in the io type TI (f32 or bf16); a0,
 // a1, b and their updates in the TV carry type TC (f32, bf16 or int16
@@ -27,19 +31,15 @@
 // other; rk stays in shared memory for the W core (see rfft_w.cu).
 #include <type_traits>
 
-#include "lpt_dft.cuh"
+#include "admm_state.cuh"
 
 using namespace lpt;
-
-__device__ __forceinline__ float soft(float x, float thr) {
-  return copysignf(fmaxf(fabsf(x) - thr, 0.f), x);
-}
 
 template <typename TI, typename TC>
 __global__ void __launch_bounds__(256, 3) e1_rtv_kernel(
     const TI* __restrict__ img, const TC* __restrict__ a0, const TC* __restrict__ a1,
     const TC* __restrict__ b, TI* __restrict__ rkr, TI* __restrict__ rki, TC* __restrict__ a0o,
-    TC* __restrict__ a1o, TC* __restrict__ bo, const float2* __restrict__ tab, int rows, int m,
+    TC* __restrict__ a1o, TC* __restrict__ bo, const float2* __restrict__ tab, int ph, int m,
     int n1, int n2, float mu2, float mu3, float tau, Fix fa, Fix fb, float ia, float ib,
     float* __restrict__ sat) {
   constexpr int V = vec_len<TI, TC>();
@@ -50,89 +50,11 @@ __global__ void __launch_bounds__(256, 3) e1_rtv_kernel(
   float2* B = A + w_buf_len(n1, n2);
   float2* R = B + w_buf_len(n1, n2);
   load_roots(R, p);
-  const int n = 2 * m;
   const int r = blockIdx.x;
-  const size_t rc = (size_t)r * n, rp = (size_t)((r + rows - 1) % rows) * n,
-               rn = (size_t)((r + 1) % rows) * n;
-  const float thr = tau / mu2;
-  const int s1 = lane_rot<V, 1>(), s2 = lane_rot<V, 2>();
   float amax = 0.f, bmax = 0.f;
-  float* a1s = reinterpret_cast<float*>(B);
-#pragma unroll(V == 1 ? 4 : 1)
-  for (int q0 = threadIdx.x * V; q0 < n; q0 += blockDim.x * V) {
-    float x[V], nb[V], ao[V], a[V];
-    ldv<V>(img + rc + q0, x);
-    // roll(+1) in split lanes: new_even[j] = odd[j-1], new_odd[j] = even[j]
-    if (q0 >= m) {
-      ldv<V>(img + rc + q0 - m, nb);
-    } else {
-      if constexpr (V > 1) {
-        float y[V];
-        ldv<V>(img + rc + m + q0, y);
-#pragma unroll
-        for (int k = 1; k < V; ++k) nb[k] = y[k - 1];
-      }
-      nb[0] = ld1(img + rc + m + (q0 ? q0 - 1 : m - 1), Fix{});
-    }
-    ldv<V>(a1 + rc + q0, ao, fa);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float psi1 = nb[k] - x[k];
-      const float eta1 = mu2 * psi1 - ao[k];
-      a[k] = mu2 * soft(psi1 + eta1 / mu2, thr) - eta1;
-      if constexpr (kSat) amax = fmaxf(amax, fabsf(a[k]));
-    }
-    stv<V>(a1o + rc + q0, a, fa);
-    rot(a, s2);
-#pragma unroll
-    for (int k = 0; k < V; ++k) a1s[q0 + ((k + s2) & (V - 1))] = a[k];
-  }
-  __syncthreads();
-  float* rk = reinterpret_cast<float*>(A);
-#pragma unroll(V == 1 ? 4 : 1)
-  for (int q0 = threadIdx.x * V; q0 < n; q0 += blockDim.x * V) {
-    float x[V], ip[V], in[V], ac[V], an[V], bb[V], adj1[V];
-    ldv<V>(img + rc + q0, x);
-    ldv<V>(img + rp + q0, ip);
-    ldv<V>(img + rn + q0, in);
-    ldv<V>(a0 + rc + q0, ac, fa);
-    ldv<V>(a0 + rn + q0, an, fa);
-    ldv<V>(b + rc + q0, bb, fb);
-    // roll(-1) in split lanes: new_even[j] = odd[j], new_odd[j] = even[j+1]
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int q = q0 + ((k + s2) & (V - 1));
-      const int q1 = q < m ? m + q : (q - m + 1 < m ? q - m + 1 : 0);
-      adj1[k] = a1s[q1] - a1s[q];
-    }
-    unrot(adj1, s2);
-    float a0c[V], bn[V], rkv[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float psi_c = ip[k] - x[k];
-      const float eta_c = mu2 * psi_c - ac[k];
-      a0c[k] = mu2 * soft(psi_c + eta_c / mu2, thr) - eta_c;
-      const float psi_n = x[k] - in[k];
-      const float eta_n = mu2 * psi_n - an[k];
-      const float a0n = mu2 * soft(psi_n + eta_n / mu2, thr) - eta_n;
-      const float rho = mu3 * x[k] - bb[k];
-      const float w = fmaxf(rho / mu3 + x[k], 0.f);
-      bn[k] = mu3 * w - rho;
-      rkv[k] = bn[k] + (a0n - a0c[k]) + adj1[k];
-      if constexpr (kSat) {
-        amax = fmaxf(amax, fabsf(a0c[k]));
-        bmax = fmaxf(bmax, fabsf(bn[k]));
-      }
-    }
-    stv<V>(a0o + rc + q0, a0c, fa);
-    stv<V>(bo + rc + q0, bn, fb);
-    rot(rkv, s1);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int q = q0 + ((k + s1) & (V - 1));
-      rk[q < m ? 2 * q : 2 * (q - m) + 1] = rkv[k];
-    }
-  }
+  tv_row<TI, TC, V, kSat>(img, a0, a1, b, a0o, a1o, bo, plane_rows(r, ph, 2 * m), m, mu2, mu3,
+                          tau, fa, fb, reinterpret_cast<float*>(A), reinterpret_cast<float*>(B),
+                          amax, bmax);
   if constexpr (kSat) block_max_to(fmaxf(amax * ia, bmax * ib), sat);
   __syncthreads();
   w_fwd_core<TI, V>(A, B, p, R, rkr + (size_t)r * m, rki + (size_t)r * m);
@@ -140,28 +62,29 @@ __global__ void __launch_bounds__(256, 3) e1_rtv_kernel(
 
 template <typename TI, typename TC>
 static int run(const void* img, const void* a0, const void* a1, const void* b, void* rkr,
-               void* rki, void* a0o, void* a1o, void* bo, const float2* tab, int rows, int m,
-               int n1, int n2, float mu2, float mu3, float tau, Fix fa, Fix fb, float ia,
+               void* rki, void* a0o, void* a1o, void* bo, const float2* tab, int rows, int ph,
+               int m, int n1, int n2, float mu2, float mu3, float tau, Fix fa, Fix fb, float ia,
                float ib, float* sat, void* stream) {
   return launch(e1_rtv_kernel<TI, TC>, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
                 (const TI*)img, (const TC*)a0, (const TC*)a1, (const TC*)b, (TI*)rkr, (TI*)rki,
-                (TC*)a0o, (TC*)a1o, (TC*)bo, tab, rows, m, n1, n2, mu2, mu3, tau, fa, fb, ia,
+                (TC*)a0o, (TC*)a1o, (TC*)bo, tab, ph, m, n1, n2, mu2, mu3, tau, fa, fb, ia,
                 ib, sat);
 }
 
+// rows: P * ph, the rows of all planes; ph: the rows of one plane.
 // io: storage code of img and the rk spectrum (F32 or BF16); tv: that of
 // a0, a1, b and their updates (F32, BF16 or I16).  lda/sta, ldb/stb: the
 // int16 factors of the a and b carries; ia, ib: their inverse full scales;
 // sat: a zeroed f32 scalar (I16 only, else unused).
 extern "C" int lpt_e1_rtv(const void* img, const void* a0, const void* a1, const void* b,
                           void* rkr, void* rki, void* a0o, void* a1o, void* bo,
-                          const float2* tab, int rows, int m, int n1, int n2, float mu2,
+                          const float2* tab, int rows, int ph, int m, int n1, int n2, float mu2,
                           float mu3, float tau, float lda, float sta, float ldb, float stb,
                           float ia, float ib, float* sat, int io, int tv, void* stream) {
   using bf = __nv_bfloat16;
   const Fix fa{lda, sta}, fb{ldb, stb};
 #define LPT_E1(TI, TC)                                                                      \
-  return run<TI, TC>(img, a0, a1, b, rkr, rki, a0o, a1o, bo, tab, rows, m, n1, n2, mu2, mu3, \
+  return run<TI, TC>(img, a0, a1, b, rkr, rki, a0o, a1o, bo, tab, rows, ph, m, n1, n2, mu2, mu3, \
                      tau, fa, fb, ia, ib, sat, stream)
   switch (io * 3 + tv) {
     case F32 * 3 + F32: LPT_E1(float, float);

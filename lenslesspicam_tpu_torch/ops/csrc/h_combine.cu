@@ -16,7 +16,9 @@
 // length-128 DFTs run as 8 x 16 split stages, 24 complex multiply-adds per
 // point each).  A block takes one k1 and 32 consecutive lanes of W: loads
 // and stores are runs of 32 contiguous elements; the three n2 x 32 tiles
-// (96 KB at 12 MP) stay in shared memory.
+// (96 KB at 12 MP) stay in shared memory.  The planes may be a stack of P
+// (grid.y = P); the filter planes H and R are a stack of Pc, P % Pc == 0,
+// and plane p reads filter plane p % Pc.
 #include "lpt_dft.cuh"
 
 using namespace lpt;
@@ -28,7 +30,7 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
     const T* __restrict__ xar, const T* __restrict__ xai, const T* __restrict__ yar,
     const T* __restrict__ yai, const T* __restrict__ hr, const T* __restrict__ hi,
     const T* __restrict__ rr, T* __restrict__ a0r, T* __restrict__ a0i, T* __restrict__ a1r,
-    T* __restrict__ a1i, const float2* __restrict__ tab, int n1, int n2, int w) {
+    T* __restrict__ a1i, const float2* __restrict__ tab, int pc, int n1, int n2, int w) {
   constexpr int V = vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
@@ -43,7 +45,9 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   }
   const int wtiles = w / TW;
   const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
-  const size_t base = (size_t)k1 * n2 * w + w0;
+  const size_t plane = (size_t)n1 * n2 * w;
+  const size_t base = blockIdx.y * plane + (size_t)k1 * n2 * w + w0;
+  const size_t cbase = (blockIdx.y % pc) * plane + (size_t)k1 * n2 * w + w0;
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
@@ -73,7 +77,7 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   float2* t = (a != S1 && b != S1) ? S1 : ((a != S2 && b != S2) ? S2 : S3);
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
-    const size_t g = base + (size_t)(i0 / TW) * w + (i0 % TW);
+    const size_t g = cbase + (size_t)(i0 / TW) * w + (i0 % TW);
     float h_r[V], h_i[V], rv[V];
     ldv<V>(hr + g, h_r);
     ldv<V>(hi + g, h_i);
@@ -119,26 +123,28 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
 }
 
 template <typename T>
-static int run(const void* const* in, void* const* out, const float2* tab, int n1, int n2, int w,
-               void* stream) {
+static int run(const void* const* in, void* const* out, const float2* tab, int planes, int pc,
+               int n1, int n2, int w, void* stream) {
   const size_t smem = sizeof(float2) * (3 * ((size_t)n2 * TW + dft_slack(n2)) + 2 * n2);
-  return launch(h_combine_kernel<T>, dim3(n1 * (w / TW)), dim3(256), smem, stream,
+  return launch(h_combine_kernel<T>, dim3(n1 * (w / TW), planes), dim3(256), smem, stream,
                 (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
                 (const T*)in[4], (const T*)in[5], (const T*)in[6], (T*)out[0], (T*)out[1],
-                (T*)out[2], (T*)out[3], tab, n1, n2, w);
+                (T*)out[2], (T*)out[3], tab, pc, n1, n2, w);
 }
 
-// io: storage code of all eleven planes (F32 or BF16).
+// The four input and four output arrays are stacks of `planes` planes of
+// (n1, n2, w), the filter arrays hr, hi, rr stacks of pc.  io: storage
+// code of all eleven arrays (F32 or BF16).
 extern "C" int lpt_h_combine_dual(const void* xar, const void* xai, const void* yar,
                                   const void* yai, const void* hr, const void* hi,
                                   const void* rr, void* a0r, void* a0i, void* a1r, void* a1i,
-                                  const float2* tab, int n1, int n2, int w, int io,
-                                  void* stream) {
+                                  const float2* tab, int planes, int pc, int n1, int n2, int w,
+                                  int io, void* stream) {
   const void* in[7] = {xar, xai, yar, yai, hr, hi, rr};
   void* out[4] = {a0r, a0i, a1r, a1i};
   switch (io) {
-    case F32: return run<float>(in, out, tab, n1, n2, w, stream);
-    case BF16: return run<__nv_bfloat16>(in, out, tab, n1, n2, w, stream);
+    case F32: return run<float>(in, out, tab, planes, pc, n1, n2, w, stream);
+    case BF16: return run<__nv_bfloat16>(in, out, tab, planes, pc, n1, n2, w, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

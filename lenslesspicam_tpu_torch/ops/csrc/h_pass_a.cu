@@ -12,7 +12,8 @@
 // The H axis is the strided column direction, so a block takes one j2 and
 // 64 consecutive lanes of W: its loads and stores are runs of 64
 // contiguous elements, and the n1 x 64 column tile sits in shared memory
-// for the DFT.  One launch covers both planes (grid.y).
+// for the DFT.  One launch covers both arrays of every plane of a stack
+// of P planes (grid.y = 2 P).
 #include "lpt_dft.cuh"
 
 using namespace lpt;
@@ -33,11 +34,13 @@ __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
   float2* R = D + cap;
   const float2* roots = inverse ? p.r1i : p.r1f;
   for (int i = threadIdx.x; i < n1; i += blockDim.x) R[i] = roots[i];
-  const int plane = blockIdx.y;
-  const T* xr = plane ? x2r : x1r;
-  const T* xi = plane ? x2i : x1i;
-  T* orr = plane ? o2r : o1r;
-  T* oi = plane ? o2i : o1i;
+  // blockIdx.y = 2 * (plane of the stack) + (first or second array)
+  const int second = blockIdx.y & 1;
+  const size_t po = (size_t)(blockIdx.y >> 1) * n1 * n2 * w;
+  const T* xr = (second ? x2r : x1r) + po;
+  const T* xi = (second ? x2i : x1i) + po;
+  T* orr = (second ? o2r : o1r) + po;
+  T* oi = (second ? o2i : o1i) + po;
   const int wtiles = w / TW;
   const int j2 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const int s = lane_rot<V, 1>();
@@ -82,25 +85,27 @@ __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
 
 template <typename T>
 static int run(const void* x1r, const void* x1i, const void* x2r, const void* x2i, void* o1r,
-               void* o1i, void* o2r, void* o2i, const float2* tab, int n1, int n2, int w,
-               int inverse, void* stream) {
+               void* o1i, void* o2r, void* o2i, const float2* tab, int planes, int n1, int n2,
+               int w, int inverse, void* stream) {
   const size_t smem = sizeof(float2) * (2 * ((size_t)n1 * TW + dft_slack(n1)) + n1);
-  return launch(h_pass_a_kernel<T>, dim3(n2 * (w / TW), 2), dim3(256), smem, stream,
+  return launch(h_pass_a_kernel<T>, dim3(n2 * (w / TW), 2 * planes), dim3(256), smem, stream,
                 (const T*)x1r, (const T*)x1i, (const T*)x2r, (const T*)x2i, (T*)o1r, (T*)o1i,
                 (T*)o2r, (T*)o2i, tab, n1, n2, w, inverse);
 }
 
-// io: storage code of all eight planes (F32 or BF16).
+// Each array is a stack of `planes` planes of (n1, n2, w).  io: storage
+// code of all eight arrays (F32 or BF16).
 extern "C" int lpt_h_pass_a_pair(const void* x1r, const void* x1i, const void* x2r,
                                  const void* x2i, void* o1r, void* o1i, void* o2r, void* o2i,
-                                 const float2* tab, int n1, int n2, int w, int inverse, int io,
-                                 void* stream) {
+                                 const float2* tab, int planes, int n1, int n2, int w,
+                                 int inverse, int io, void* stream) {
   switch (io) {
     case F32:
-      return run<float>(x1r, x1i, x2r, x2i, o1r, o1i, o2r, o2i, tab, n1, n2, w, inverse, stream);
+      return run<float>(x1r, x1i, x2r, x2i, o1r, o1i, o2r, o2i, tab, planes, n1, n2, w, inverse,
+                        stream);
     case BF16:
-      return run<__nv_bfloat16>(x1r, x1i, x2r, x2i, o1r, o1i, o2r, o2i, tab, n1, n2, w, inverse,
-                                stream);
+      return run<__nv_bfloat16>(x1r, x1i, x2r, x2i, o1r, o1i, o2r, o2i, tab, planes, n1, n2, w,
+                                inverse, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,6 +9,10 @@
 //   xdv = c_out + (c_in - c_out) mask
 //   the forward packed-real W transform of v' (K1's core).
 //
+// The X / v update is `xv_update` (admm_state.cuh), shared with K8.  The
+// planes may be a stack of P planes of ph rows (grid P * ph): the mask is
+// a stack of Pc planes, P % Pc == 0, and plane p reads mask plane p % Pc.
+//
 // Storage: the spectra, image, mask and dp in the io type TI (f32 or
 // bf16); the patch columns in f32; v and v' in the v carry type TV (f32,
 // bf16 or int16 fixed point at full scale 256 mu1, factors fv).  With a
@@ -24,7 +28,7 @@
 // fed straight to the forward core.
 #include <type_traits>
 
-#include "lpt_dft.cuh"
+#include "admm_state.cuh"
 
 using namespace lpt;
 
@@ -35,7 +39,7 @@ __global__ void __launch_bounds__(256, 3) w_dual_state_kernel(
     const float* __restrict__ p1r, const float* __restrict__ p1i, const TV* __restrict__ v,
     const TI* __restrict__ mask, const TI* __restrict__ dp, TI* __restrict__ img,
     TV* __restrict__ vo, TI* __restrict__ vwr, TI* __restrict__ vwi,
-    const float2* __restrict__ tab, int m, int n1, int n2, float mu1, float c_out,
+    const float2* __restrict__ tab, int ph, int pc, int m, int n1, int n2, float mu1, float c_out,
     float c_diff, Fix fv, float iv, float* __restrict__ sat) {
   constexpr int V = vec_len<TI, TV>();
   constexpr bool kSat = std::is_same<TV, int16_t>::value;
@@ -47,7 +51,7 @@ __global__ void __launch_bounds__(256, 3) w_dual_state_kernel(
   load_roots(R, p);
   __syncthreads();
   const int r = blockIdx.x, n = 2 * m;
-  const size_t hr = (size_t)r * m, fr = (size_t)r * n;
+  const size_t hr = (size_t)r * m, fr = (size_t)r * n, mr = const_row(r, ph, pc, n);
   const float2* X = w_inv_core<TI, V>(a0r + hr, a0i + hr, make_float2(p0r[r], p0i[r]), A, B, p, R);
   store_row<TI, V>(X, img + fr, m);
   __syncthreads();
@@ -65,23 +69,15 @@ __global__ void __launch_bounds__(256, 3) w_dual_state_kernel(
     }
     unrot(fw, s);
     ldv<V>(v + fr + q0, vv, fv);
-    ldv<V>(mask + fr + q0, mk);
+    ldv<V>(mask + mr + q0, mk);
     ldv<V>(dp + fr + q0, d);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const float xi = mu1 * fw[k] - vv[k];
-      const float xdv = c_out + c_diff * mk[k];
-      const float Xk = xdv * (xi + mu1 * fw[k] + d[k]);
-      vn[k] = mu1 * Xk - xi;
+      vn[k] = xv_update(fw[k], vv[k], mk[k], d[k], mu1, c_out, c_diff);
       if constexpr (kSat) vmax = fmaxf(vmax, fabsf(vn[k]));
     }
     stv<V>(vo + fr + q0, vn, fv);
-    rot(vn, s);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int q = q0 + ((k + s) & (V - 1));
-      f[q < m ? 2 * q : 2 * (q - m) + 1] = vn[k];
-    }
+    put_packed<V>(f, vn, q0, m, s);
   }
   if constexpr (kSat) {
     if (sat) block_max_to(vmax * iv, sat);
@@ -92,32 +88,36 @@ __global__ void __launch_bounds__(256, 3) w_dual_state_kernel(
 
 template <typename TI, typename TV>
 static int run(const void* const* in, const float* const* cols, void* const* out,
-               const float2* tab, int rows, int m, int n1, int n2, float mu1, float c_out,
-               float c_diff, Fix fv, float iv, float* sat, void* stream) {
+               const float2* tab, int rows, int ph, int pc, int m, int n1, int n2, float mu1,
+               float c_out, float c_diff, Fix fv, float iv, float* sat, void* stream) {
   return launch(w_dual_state_kernel<TI, TV>, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
                 (const TI*)in[0], (const TI*)in[1], (const TI*)in[2], (const TI*)in[3], cols[0],
                 cols[1], cols[2], cols[3], (const TV*)in[4], (const TI*)in[5], (const TI*)in[6],
-                (TI*)out[0], (TV*)out[1], (TI*)out[2], (TI*)out[3], tab, m, n1, n2, mu1, c_out,
-                c_diff, fv, iv, sat);
+                (TI*)out[0], (TV*)out[1], (TI*)out[2], (TI*)out[3], tab, ph, pc, m, n1, n2, mu1,
+                c_out, c_diff, fv, iv, sat);
 }
 
-// io: storage code of the spectra, image, mask and dp (F32 or BF16); vt:
-// that of v and v' (F32, BF16 or I16).  ld_v/st_v: the int16 factors of
-// v; iv: its inverse full scale; sat: a zeroed f32 scalar or null.
+// rows: P * ph, the rows of all planes; ph: the rows of one plane; pc:
+// the planes of the mask.  io: storage code of the spectra, image, mask
+// and dp (F32 or BF16); vt: that of v and v' (F32, BF16 or I16).
+// ld_v/st_v: the int16 factors of v; iv: its inverse full scale; sat: a
+// zeroed f32 scalar or null.
 extern "C" int lpt_w_dual_state(const void* a0r, const void* a0i, const void* a1r,
                                 const void* a1i, const float* p0r, const float* p0i,
                                 const float* p1r, const float* p1i, const void* v,
                                 const void* mask, const void* dp, void* img, void* vo, void* vwr,
-                                void* vwi, const float2* tab, int rows, int m, int n1, int n2,
-                                float mu1, float c_out, float c_diff, float ld_v, float st_v,
-                                float iv, float* sat, int io, int vt, void* stream) {
+                                void* vwi, const float2* tab, int rows, int ph, int pc, int m,
+                                int n1, int n2, float mu1, float c_out, float c_diff, float ld_v,
+                                float st_v, float iv, float* sat, int io, int vt,
+                                void* stream) {
   using bf = __nv_bfloat16;
   const void* in[7] = {a0r, a0i, a1r, a1i, v, mask, dp};
   const float* cols[4] = {p0r, p0i, p1r, p1i};
   void* out[4] = {img, vo, vwr, vwi};
   const Fix fv{ld_v, st_v};
 #define LPT_W6(TI, TV) \
-  return run<TI, TV>(in, cols, out, tab, rows, m, n1, n2, mu1, c_out, c_diff, fv, iv, sat, stream)
+  return run<TI, TV>(in, cols, out, tab, rows, ph, pc, m, n1, n2, mu1, c_out, c_diff, fv, iv, sat, \
+                     stream)
   switch (io * 3 + vt) {
     case F32 * 3 + F32: LPT_W6(float, float);
     case F32 * 3 + BF16: LPT_W6(float, bf);

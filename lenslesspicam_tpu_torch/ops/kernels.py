@@ -11,6 +11,8 @@ storage mode of the JAX package).
 | ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu`` |
 | ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu`` |
 | ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
+| ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cu`` |
+| ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu`` |
 
 A wrapper given CPU tensors runs the plain version (``*_plain``).  Given
 CUDA tensors it launches its kernel on the current stream or raises: it
@@ -28,6 +30,15 @@ a0, a1, b (TV) and v at their carry dtypes (f32, bf16 or int16 fixed
 point at the full scales ``_tv_scales`` and ``_v_scale``).  A dtype
 combination the CUDA code was not built for raises ``TypeError`` on a
 CUDA tensor; nothing is converted quietly.
+
+Plane axis (the JAX solver's ``vmap`` over B * D * C planes, written
+out).  Every plane operand of K1, K3-K6, K8 and K9 may carry a leading
+axis P: spatial planes (P, ph, pw), half spectra (P, ph, pw/2), H-axis
+views (P, n1, n2, W), DC columns (P, ph).  The per-PSF constants (the
+filter planes H and R, the support mask) carry Pc with P % Pc == 0, and
+plane p reads constant plane p % Pc: the constants are broadcast over
+the batch, never copied P times.  2-D operands are a stack of one.  One
+call is one launch whatever P is.  K2 stays 2-D; K7 scans any shape.
 """
 
 from __future__ import annotations
@@ -62,15 +73,28 @@ def _soft(x, thr):
 def _split_roll_p1(x, mh):
     """roll(x, +1) along natural W in the even/odd split lane layout:
     new_even[j] = odd[j-1], new_odd[j] = even[j]."""
-    ev, od = x[:, :mh], x[:, mh:]
-    return torch.cat([torch.roll(od, 1, dims=1), ev], dim=1)
+    ev, od = x[..., :mh], x[..., mh:]
+    return torch.cat([torch.roll(od, 1, dims=-1), ev], dim=-1)
 
 
 def _split_roll_m1(x, mh):
     """roll(x, -1) along natural W in the even/odd split lane layout:
     new_even[j] = odd[j], new_odd[j] = even[j+1]."""
-    ev, od = x[:, :mh], x[:, mh:]
-    return torch.cat([od, torch.roll(ev, -1, dims=1)], dim=1)
+    ev, od = x[..., :mh], x[..., mh:]
+    return torch.cat([od, torch.roll(ev, -1, dims=-1)], dim=-1)
+
+
+def _bc(x, c):
+    """``x`` (a plane or a stack of P) viewed to broadcast against the
+    constant ``c`` (the same plane shape, or a stack of Pc): plane p of x
+    meets constant plane p % Pc."""
+    return x.reshape((-1,) + tuple(c.shape))
+
+
+def bmul(c, x):
+    """``c * x`` with the constant stack ``c`` broadcast over the planes
+    of ``x`` (:func:`_bc`), in the shape of ``x``."""
+    return (c * _bc(x, c)).reshape(x.shape)
 
 
 _BF16, _I16 = torch.bfloat16, torch.int16
@@ -187,6 +211,28 @@ def _check(name, tensors, shape=None, dtypes=(_F32,)):
         raise ValueError(f"{name}: tensors on different devices")
 
 
+def _depth(name, t, plane):
+    """Planes in ``t``: 1 for a tensor shaped ``plane``, P for (P,) +
+    ``plane``; raises ValueError otherwise."""
+    s, plane = tuple(t.shape), tuple(plane)
+    if s == plane:
+        return 1
+    if len(s) == len(plane) + 1 and s[1:] == plane and s[0] > 0:
+        return s[0]
+    raise ValueError(f"{name}: expected shape {plane} or (P,) + {plane}, got {s}")
+
+
+def _const_depth(name, consts, plane, p):
+    """Planes Pc of a group of constant stacks (all the same), which must
+    divide the P planes they are broadcast over."""
+    pc = _depth(name, consts[0], plane)
+    _check(name, consts, consts[0].shape, (consts[0].dtype,))
+    if p % pc:
+        raise ValueError(f"{name}: {p} planes do not repeat {pc} constant planes "
+                         "(P % Pc must be 0)")
+    return pc
+
+
 def _on_card(name, tensors, combo, built, cols=()):
     """False for CPU tensors (the plain version runs).  True for CUDA
     tensors the kernel takes: ``combo``, the dtypes the kernel is
@@ -240,6 +286,8 @@ def _sat_zero(like):
     return torch.zeros((), dtype=_F32, device=like.device)
 
 
+
+
 # ---------------------------------------------------------------------------
 # K1 / K2: packed-real forward and inverse W transforms
 # ---------------------------------------------------------------------------
@@ -248,24 +296,29 @@ _IO_BUILT = {(_F32,), (_BF16,)}
 
 
 def rfft_w_plain(x):
-    """(rows, N) split-layout real rows -> half-spectrum (rows, N/2) r/i,
+    """(..., N) split-layout real rows -> half-spectrum (..., N/2) r/i,
     computed in f32 and stored at the input's dtype."""
     zr, zi = rfft_w_split(x.to(_F32))
     return zr.to(x.dtype), zi.to(x.dtype)
 
 
 def rfft_w(x):
-    """(rows, N) split-layout real rows -> half-spectrum (rows, N/2) r/i
-    pair in split order, Z[N/2] packed into Im of lane 0; io dtype (f32
-    or bf16) in and out."""
-    rows, n_full = x.shape
+    """(..., N) split-layout real rows (a plane or a stack of planes) ->
+    half-spectrum (..., N/2) r/i pair in split order, Z[N/2] packed into
+    Im of lane 0; io dtype (f32 or bf16) in and out.  All rows of all
+    planes go to one launch."""
+    if x.dim() < 2:
+        raise ValueError(f"rfft_w: expected (..., rows, N), got {tuple(x.shape)}")
+    n_full = x.shape[-1]
     m = n_full // 2
+    rows = x.numel() // n_full
     _check("rfft_w", [x], dtypes=IO_DTYPES)
     cuda = _on_card("rfft_w", [x], (x.dtype,), _IO_BUILT)
     n1, n2 = factors(m, cuda)
     if not cuda:
         return rfft_w_plain(x)
-    zr, zi = _empty((rows, m), x), _empty((rows, m), x)
+    half = tuple(x.shape[:-1]) + (m,)
+    zr, zi = _empty(half, x), _empty(half, x)
     _launch("rfft_w", "lpt_rfft_w", "ppppiiiii", x, zr, zi,
             _table(m, True, x.device), rows, m, n1, n2, _CODE[x.dtype])
     rfft_w.launches += 1
@@ -304,18 +357,19 @@ def irfft_w(zr, zi, out_dtype=_F32):
 # ---------------------------------------------------------------------------
 
 
-def e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau):
-    rows, n_full = image.shape
-    mh = n_full // 2
+def _tv_step(image, a0, a1, b, mu2, mu3, tau):
+    """The TV / non-negativity step of K3 and K8 in f32: (rk, a0', a1',
+    b'), periodic within each plane."""
+    mh = image.shape[-1] // 2
     thr = tau / mu2
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     img = image.to(_F32)
     # H axis (periodic): a0 row r pairs with psi0 = img[r-1] - img[r];
     # the adjoint needs the new a0 of row r+1 as well
-    psi0 = torch.roll(img, 1, dims=0) - img
+    psi0 = torch.roll(img, 1, dims=-2) - img
     eta0 = mu2 * psi0 - _load_carry(a0, sc_a)
     a0n = mu2 * _soft(psi0 + eta0 / mu2, thr) - eta0
-    adj0 = torch.roll(a0n, -1, dims=0) - a0n
+    adj0 = torch.roll(a0n, -1, dims=-2) - a0n
     psi1 = _split_roll_p1(img, mh) - img
     eta1 = mu2 * psi1 - _load_carry(a1, sc_a)
     a1n = mu2 * _soft(psi1 + eta1 / mu2, thr) - eta1
@@ -323,7 +377,12 @@ def e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau):
     rho = mu3 * img - _load_carry(b, sc_b)
     W = torch.clamp(rho / mu3 + img, min=0.0)
     bn = mu3 * W - rho
-    rk = bn + adj0 + adj1
+    return bn + adj0 + adj1, a0n, a1n, bn
+
+
+def e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau):
+    sc_a, sc_b = _tv_scales(mu2, mu3, tau)
+    rk, a0n, a1n, bn = _tv_step(image, a0, a1, b, mu2, mu3, tau)
     rkr, rki = rfft_w_split(rk)
     sat = 0.0
     if a0.dtype == _I16:
@@ -337,17 +396,19 @@ def e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau):
 
 
 def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
-    """v3 pre-transform step.  Returns (rk_wr, rk_wi, a0', a1', b', sat):
-    the rk half spectrum at ``image``'s dtype, the new TV/non-negativity
-    carries at the dtypes of a0, a1 and b, and the carry-saturation value.
-    With int16 carries sat is a 0-d f32 tensor, max(max |a0'|, |a1'|) /
-    (8 tau), max |b'| / (32 mu3)) over the f32 values before they are
-    quantized; >= 1 means a carry clipped.  Otherwise it is 0.0 and
-    nothing is launched for it."""
-    rows, n_full = image.shape
-    m = n_full // 2
-    _check("e1_rtv", [image], (rows, n_full), IO_DTYPES)
-    _check("e1_rtv", [a0, a1, b], (rows, n_full), CARRY_DTYPES)
+    """v3 pre-transform step on a plane or a stack of planes (ph, pw) /
+    (P, ph, pw).  Returns (rk_wr, rk_wi, a0', a1', b', sat): the rk half
+    spectrum at ``image``'s dtype, the new TV/non-negativity carries at
+    the dtypes of a0, a1 and b, and the carry-saturation value.  With
+    int16 carries sat is a 0-d f32 tensor, max(max |a0'|, |a1'|) /
+    (8 tau), max |b'| / (32 mu3)) over the f32 values of all planes before
+    they are quantized; >= 1 means a carry clipped.  Otherwise it is 0.0
+    and nothing is launched for it."""
+    ph, n_full = image.shape[-2:]
+    _depth("e1_rtv", image, (ph, n_full))
+    m, rows = n_full // 2, image.numel() // n_full
+    _check("e1_rtv", [image], dtypes=IO_DTYPES)
+    _check("e1_rtv", [a0, a1, b], image.shape, CARRY_DTYPES)
     planes = [image, a0, a1, b]
     cuda = _on_card("e1_rtv", planes, tuple(t.dtype for t in planes),
                     {(i, c, c, c) for i in IO_DTYPES for c in CARRY_DTYPES})
@@ -355,14 +416,15 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
     if not cuda:
         return e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau)
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
-    rkr, rki = _empty((rows, m), image), _empty((rows, m), image)
-    a0o, a1o, bo = (_empty((rows, n_full), a0) for _ in range(3))
+    half = tuple(image.shape[:-1]) + (m,)
+    rkr, rki = _empty(half, image), _empty(half, image)
+    a0o, a1o, bo = (_empty(image.shape, a0) for _ in range(3))
     i16 = a0.dtype == _I16
     sat = _sat_zero(image) if i16 else None
-    _launch("e1_rtv", "lpt_e1_rtv", "pppppppppp" + "iiii" + "fff" + "ffff"
+    _launch("e1_rtv", "lpt_e1_rtv", "pppppppppp" + "iiiii" + "fff" + "ffff"
             + "ff" + "p" + "ii",
             image, a0, a1, b, rkr, rki, a0o, a1o, bo,
-            _table(m, True, image.device), rows, m, n1, n2,
+            _table(m, True, image.device), rows, ph, m, n1, n2,
             float(mu2), float(mu3), float(tau), *_fix(sc_a), *_fix(sc_b),
             1.0 / sc_a, 1.0 / sc_b, sat.data_ptr() if i16 else None,
             _CODE[image.dtype], _CODE[a0.dtype])
@@ -377,13 +439,13 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
 
 def _h_passA_plain_one(xr, xi, n, inverse):
     F1, _, T, scale = _plan_t(n, inverse, xr.device)
-    n1, n2, w = xr.shape
+    *lead, n1, n2, w = xr.shape
     x = torch.complex(xr.to(_F32), xi.to(_F32))
     tw = T[:, :, None]
     if inverse:
-        z = torch.matmul(F1, (x * tw).reshape(n1, n2 * w)).reshape(n1, n2, w) * scale
+        z = torch.matmul(F1, (x * tw).reshape(*lead, n1, n2 * w)).reshape(x.shape) * scale
     else:
-        z = torch.matmul(F1, x.reshape(n1, n2 * w)).reshape(n1, n2, w) * tw
+        z = torch.matmul(F1, x.reshape(*lead, n1, n2 * w)).reshape(x.shape) * tw
     return z.real.contiguous().to(xr.dtype), z.imag.contiguous().to(xr.dtype)
 
 
@@ -393,26 +455,27 @@ def h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse):
 
 
 def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
-    """H-axis stage 1 on two complex planes viewed (n1, n2, W).  Forward:
-    contract j1 with F1, then twiddle.  Inverse: twiddle, contract with
-    the inverse F1, scale 1/n.  io dtype in and out.  Returns ((z1r,
-    z1i), (z2r, z2i))."""
+    """H-axis stage 1 on two complex planes (or stacks of planes) viewed
+    (n1, n2, W) / (P, n1, n2, W).  Forward: contract j1 with F1, then
+    twiddle.  Inverse: twiddle, contract with the inverse F1, scale 1/n.
+    io dtype in and out.  Returns ((z1r, z1i), (z2r, z2i))."""
     planes = [x1r, x1i, x2r, x2i]
-    n1, n2, w = x1r.shape
-    _check("h_passA_pair", planes, (n1, n2, w), IO_DTYPES)
+    n1, n2, w = x1r.shape[-3:]
+    p = _depth("h_passA_pair", x1r, (n1, n2, w))
+    _check("h_passA_pair", planes, x1r.shape, IO_DTYPES)
     cuda = _on_card("h_passA_pair", planes, tuple(t.dtype for t in planes),
                     {(d,) * 4 for d in IO_DTYPES})
     if (n1, n2) != factors(n, cuda):
-        raise ValueError(f"h_passA_pair: planes {x1r.shape} do not view a "
+        raise ValueError(f"h_passA_pair: planes {tuple(x1r.shape)} do not view a "
                          f"length-{n} axis as {_factor(n)}")
     if not cuda:
         return h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse)
     if w % _K4_TW:
         raise ValueError(f"h_passA_pair: lane width {w} is not a multiple "
                          f"of {_K4_TW}")
-    outs = [_empty((n1, n2, w), x1r) for _ in range(4)]
-    _launch("h_pass_a", "lpt_h_pass_a_pair", "ppppppppp" + "iiiii",
-            *planes, *outs, _table(n, False, x1r.device), n1, n2, w,
+    outs = [_empty(x1r.shape, x1r) for _ in range(4)]
+    _launch("h_pass_a", "lpt_h_pass_a_pair", "ppppppppp" + "iiiiii",
+            *planes, *outs, _table(n, False, x1r.device), p, n1, n2, w,
             int(bool(inverse)), _CODE[x1r.dtype])
     h_passA_pair.launches += 1
     return (outs[0], outs[1]), (outs[2], outs[3])
@@ -427,15 +490,15 @@ def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
     _, F2f, _, _ = _plan_t(n, False, xar.device)
     _, F2i, _, _ = _plan_t(n, True, xar.device)
 
-    def stage2(x, F2):     # z[k1, q, w] = sum_p F2[q, p] x[k1, p, w]
+    def stage2(x, F2):     # z[..., k1, q, w] = sum_p F2[q, p] x[..., k1, p, w]
         return torch.matmul(F2, x)
 
     def c(r, i):
         return torch.complex(r.to(_F32), i.to(_F32))
 
     hr, hi, rr = hr.to(_F32), hi.to(_F32), rr.to(_F32)
-    a = stage2(c(xar, xai), F2f)
-    b = stage2(c(yar, yai), F2f)
+    a = _bc(stage2(c(xar, xai), F2f), hr)
+    b = _bc(stage2(c(yar, yai), F2f), hr)
     ar, ai, br, bi = a.real, a.imag, b.real, b.imag
     fr = rr * (ar + hr * br + hi * bi)
     fi = rr * (ai + hr * bi - hi * br)
@@ -443,31 +506,35 @@ def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
     f1i = fr * hi + fi * hr
     g0 = stage2(torch.complex(fr, fi), F2i)
     g1 = stage2(torch.complex(f1r, f1i), F2i)
-    return tuple(t.contiguous().to(xar.dtype)
+    return tuple(t.reshape(xar.shape).contiguous().to(xar.dtype)
                  for t in (g0.real, g0.imag, g1.real, g1.imag))
 
 
 def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
     """Forward stage 2 of the rk (x) and v (y) stage-1 planes, F = R(A +
     conj(H) B), F1 = H F, and the inverse stage 2 of F and F1; all planes
-    (n1, n2, W) at the io dtype, the filter planes H and R included.
-    Returns (a0r, a0i, a1r, a1i)."""
+    (n1, n2, W) or stacks (P, n1, n2, W) at the io dtype, the filter
+    planes H and R included (a plane or a stack of Pc, P % Pc == 0: plane
+    p is filtered by filter plane p % Pc).  Returns (a0r, a0i, a1r,
+    a1i)."""
     ins = [xar, xai, yar, yai, hr, hi, rr]
-    n1, n2, w = xar.shape
-    _check("h_combine_dual", ins, (n1, n2, w), IO_DTYPES)
+    n1, n2, w = xar.shape[-3:]
+    p = _depth("h_combine_dual", xar, (n1, n2, w))
+    _check("h_combine_dual", ins[:4], xar.shape, IO_DTYPES)
+    pc = _const_depth("h_combine_dual", ins[4:], (n1, n2, w), p)
     cuda = _on_card("h_combine_dual", ins, tuple(t.dtype for t in ins),
                     {(d,) * 7 for d in IO_DTYPES})
     if (n1, n2) != factors(n, cuda):
-        raise ValueError(f"h_combine_dual: planes {xar.shape} do not view "
+        raise ValueError(f"h_combine_dual: planes {tuple(xar.shape)} do not view "
                          f"a length-{n} axis as {_factor(n)}")
     if not cuda:
         return h_combine_dual_plain(*ins, n)
     if w % _K5_TW:
         raise ValueError(f"h_combine_dual: lane width {w} is not a "
                          f"multiple of {_K5_TW}")
-    outs = [_empty((n1, n2, w), xar) for _ in range(4)]
-    _launch("h_combine", "lpt_h_combine_dual", "pppppppppppp" + "iiii",
-            *ins, *outs, _table(n, False, xar.device), n1, n2, w,
+    outs = [_empty(xar.shape, xar) for _ in range(4)]
+    _launch("h_combine", "lpt_h_combine_dual", "pppppppppppp" + "iiiiii",
+            *ins, *outs, _table(n, False, xar.device), p, pc, n1, n2, w,
             _CODE[xar.dtype])
     h_combine_dual.launches += 1
     return tuple(outs)
@@ -476,21 +543,22 @@ def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
 def fft_h_combine_dual(rkr, rki, vr, vi, hr, hi, rr, h, ops=None):
     """Forward H transforms of both ADMM planes, spectrum combine and the
     inverse H transforms of F and H.F: K4 forward, K5, K4 inverse.  All
-    planes (h, W) in split order; returns ((a0r, a0i), (a1r, a1i))."""
+    planes (h, W) or stacks (P, h, W) in split order, the filter planes
+    (h, W) or (Pc, h, W); returns ((a0r, a0i), (a1r, a1i))."""
     ops = ops or KERNELS
     n1, n2 = _factor(h)
     w = rkr.shape[-1]
 
     def v(t):
-        return t.reshape(n1, n2, w)
+        return t.reshape(tuple(t.shape[:-2]) + (n1, n2, w))
 
     (xar, xai), (yar, yai) = ops.h_passA_pair(v(rkr), v(rki), v(vr), v(vi),
                                               h, False)
     a0r, a0i, a1r, a1i = ops.h_combine_dual(xar, xai, yar, yai,
                                             v(hr), v(hi), v(rr), h)
     (z0r, z0i), (z1r, z1i) = ops.h_passA_pair(a0r, a0i, a1r, a1i, h, True)
-    return ((z0r.reshape(h, w), z0i.reshape(h, w)),
-            (z1r.reshape(h, w), z1i.reshape(h, w)))
+    return ((z0r.reshape(rkr.shape), z0i.reshape(rkr.shape)),
+            (z1r.reshape(rkr.shape), z1i.reshape(rkr.shape)))
 
 
 # ---------------------------------------------------------------------------
@@ -498,20 +566,27 @@ def fft_h_combine_dual(rkr, rki, vr, vi, hr, hi, rr, h, ops=None):
 # ---------------------------------------------------------------------------
 
 
+def _patch(z, col):
+    """Lane 0 of a half spectrum replaced by the f32 column ``col``."""
+    return torch.cat([col[..., None], z[..., 1:].to(_F32)], dim=-1)
+
+
+def _xv_step(fwd, v, mask, dp, mu1):
+    """The X / v update of K6 and K8 in f32 (v' from the f32 forward
+    plane, the stored v carry and the mask and data planes)."""
+    c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
+    xi = mu1 * fwd - _load_carry(v, _v_scale(mu1))
+    xdv = c_out + (c_in - c_out) * mask.to(_F32)
+    X = bmul(xdv, xi + mu1 * fwd + dp.to(_F32))
+    return mu1 * X - xi
+
+
 def irfft_w_dual_state_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i,
                              v, mask, dp, mu1, with_sat=True):
-    c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
     vsc = _v_scale(mu1)
-
-    def patch(z, col):
-        return torch.cat([col[:, None], z[:, 1:].to(_F32)], dim=1)
-
-    image = irfft_w_split(patch(a0r, p0r), patch(a0i, p0i))
-    fwd = irfft_w_split(patch(a1r, p1r), patch(a1i, p1i))
-    xi = mu1 * fwd - _load_carry(v, vsc)
-    xdv = c_out + (c_in - c_out) * mask.to(_F32)
-    X = xdv * (xi + mu1 * fwd + dp.to(_F32))
-    vn = mu1 * X - xi
+    image = irfft_w_split(_patch(a0r, p0r), _patch(a0i, p0i))
+    fwd = irfft_w_split(_patch(a1r, p1r), _patch(a1i, p1i))
+    vn = _xv_step(fwd, v, mask, dp, mu1)
     vwr, vwi = rfft_w_split(vn)
     sat = 0.0
     if with_sat and v.dtype == _I16:
@@ -521,25 +596,38 @@ def irfft_w_dual_state_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i,
             vwi.to(io), sat)
 
 
+def _dual_inputs(name, spectra, cols):
+    """(P, ph, m) of the four half spectra and the four (rows,) patch
+    columns of K6 / K9."""
+    ph, m = spectra[0].shape[-2:]
+    p = _depth(name, spectra[0], (ph, m))
+    _check(name, spectra, spectra[0].shape, IO_DTYPES)
+    _check(name, cols, tuple(spectra[0].shape[:-1]))
+    return p, ph, m
+
+
 def irfft_w_dual_state(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
                        mu1, with_sat=True):
     """v3 post-transform step: lane 0 of the a0/a1 half spectra replaced by
-    the (rows,) f32 DC/Nyquist patch columns p0*/p1*, both inverse W
-    transforms (image, fwd), xi = mu1 fwd - v, X = xdv (xi + mu1 fwd +
-    dp), v' = mu1 X - xi, and the forward W transform of v'.  fwd never
-    reaches device memory.  Returns (image, v', v'_wr, v'_wi, sat): image
-    and the v' spectrum at a0r's dtype, v' at v's.  With ``with_sat`` and
-    an int16 v, sat is a 0-d f32 tensor, max |v'| / (256 mu1) over the f32
-    values before they are quantized; otherwise 0.0 (the solver's form,
+    the f32 DC/Nyquist patch columns p0*/p1* (one value per row), both
+    inverse W transforms (image, fwd), xi = mu1 fwd - v, X = xdv (xi +
+    mu1 fwd + dp), v' = mu1 X - xi, and the forward W transform of v'.
+    fwd never reaches device memory.  Planes (ph, pw) or stacks (P, ph,
+    pw), the half spectra (.., ph, pw/2), the columns (.., ph); the mask a
+    plane or a stack of Pc (plane p reads mask plane p % Pc).  Returns
+    (image, v', v'_wr, v'_wi, sat): image and the v' spectrum at a0r's
+    dtype, v' at v's.  With ``with_sat`` and an int16 v, sat is a 0-d f32
+    tensor, max |v'| / (256 mu1) over the f32 values of all planes before
+    they are quantized; otherwise 0.0 (the solver's form,
     ``with_sat=False``, leaves the v scan to :func:`sat_scan_i16`)."""
-    rows, m = a0r.shape
-    n_full = 2 * m
-    _check("irfft_w_dual_state", [a0r, a0i, a1r, a1i], (rows, m), IO_DTYPES)
-    _check("irfft_w_dual_state", [p0r, p0i, p1r, p1i], (rows,))
-    _check("irfft_w_dual_state", [mask, dp], (rows, n_full), IO_DTYPES)
-    _check("irfft_w_dual_state", [v], (rows, n_full), CARRY_DTYPES)
+    name = "irfft_w_dual_state"
+    p, ph, m = _dual_inputs(name, [a0r, a0i, a1r, a1i], [p0r, p0i, p1r, p1i])
+    full = tuple(a0r.shape[:-1]) + (2 * m,)
+    _check(name, [dp], full, IO_DTYPES)
+    _check(name, [v], full, CARRY_DTYPES)
+    pc = _const_depth(name, [mask], (ph, 2 * m), p)
     planes = [a0r, a0i, a1r, a1i, mask, dp, v]
-    cuda = _on_card("irfft_w_dual_state", planes, tuple(t.dtype for t in planes),
+    cuda = _on_card(name, planes, tuple(t.dtype for t in planes),
                     {(i,) * 6 + (c,) for i in IO_DTYPES for c in CARRY_DTYPES},
                     cols=(p0r, p0i, p1r, p1i))
     n1, n2 = factors(m, cuda)
@@ -548,15 +636,15 @@ def irfft_w_dual_state(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
                                         p1i, v, mask, dp, mu1, with_sat)
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
     vsc = _v_scale(mu1)
-    image = _empty((rows, n_full), a0r)
-    vo = _empty((rows, n_full), v)
-    vwr, vwi = _empty((rows, m), a0r), _empty((rows, m), a0r)
+    image = _empty(full, a0r)
+    vo = _empty(full, v)
+    vwr, vwi = _empty(a0r.shape, a0r), _empty(a0r.shape, a0r)
     sat = _sat_zero(v) if with_sat and v.dtype == _I16 else None
     _launch("w_dual_state", "lpt_w_dual_state", "ppppppppppp" + "pppp" + "p"
-            + "iiii" + "fff" + "fff" + "p" + "ii",
+            + "iiiiii" + "fff" + "fff" + "p" + "ii",
             a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
-            image, vo, vwr, vwi, _table(m, True, v.device), rows, m, n1, n2,
-            float(mu1), float(c_out), float(c_in - c_out), *_fix(vsc),
+            image, vo, vwr, vwi, _table(m, True, v.device), p * ph, ph, pc, m,
+            n1, n2, float(mu1), float(c_out), float(c_in - c_out), *_fix(vsc),
             1.0 / vsc, sat.data_ptr() if sat is not None else None,
             _CODE[a0r.dtype], _CODE[v.dtype])
     irfft_w_dual_state.launches += 1
@@ -573,10 +661,11 @@ def sat_scan_i16_plain(x):
 
 
 def sat_scan_i16(x):
-    """max |x| / 32767 over a stored int16 plane, as a 0-d f32 tensor on
-    x's device (the JAX kernel returns an (8, 128) block of equal entries
-    that its callers reduce with ``jnp.max``).  |x| is taken in int32, so
-    a plane holding -32768 reads 32768/32767 > 1."""
+    """max |x| / 32767 over a stored int16 plane (or stack of planes), as
+    a 0-d f32 tensor on x's device (the JAX kernel returns an (8, 128)
+    block of equal entries that its callers reduce with ``jnp.max``).
+    |x| is taken in int32, so a plane holding -32768 reads 32768/32767 >
+    1."""
     _check("sat_scan_i16", [x], dtypes=(_I16,))
     if not _on_card("sat_scan_i16", [x], (x.dtype,), {(_I16,)}):
         return sat_scan_i16_plain(x)
@@ -587,24 +676,117 @@ def sat_scan_i16(x):
     return sat
 
 
+def carry_sat_fraction(x, scale, ops=None):
+    """Saturation fraction of a stored carry plane (the JAX package's
+    XLA-side ``carry_sat_fraction``, the v2 placement's channel): for
+    int16, max |x| / 32767, which is K7's function and runs as
+    ``ops.sat_scan_i16``; otherwise max |x| / ``scale``."""
+    if x.dtype == _I16:
+        return (ops or KERNELS).sat_scan_i16(x)
+    return x.to(_F32).abs().amax() / scale
+
+
+# ---------------------------------------------------------------------------
+# K8: v2 pre-transform step (TV + X/v from the carried fwd + two W transforms)
+# ---------------------------------------------------------------------------
+
+
+def e1_rcarry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
+    sc_a, sc_b = _tv_scales(mu2, mu3, tau)
+    rk, a0n, a1n, bn = _tv_step(image, a0, a1, b, mu2, mu3, tau)
+    vn = _xv_step(fwd.to(_F32), v, mask, dp, mu1)
+    rkr, rki = rfft_w_split(rk)
+    vwr, vwi = rfft_w_split(vn)
+    io = image.dtype
+    return (rkr.to(io), rki.to(io), vwr.to(io), vwi.to(io),
+            _store_carry(vn, v.dtype, _v_scale(mu1)),
+            _store_carry(a0n, a0.dtype, sc_a), _store_carry(a1n, a1.dtype, sc_a),
+            _store_carry(bn, b.dtype, sc_b))
+
+
+def e1_rcarry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
+    """v2 pre-transform step: K3's TV / non-negativity step (a0', a1', b'
+    and rk), the X / v update v' = mu1 X - xi from the carried forward
+    plane ``fwd``, and the forward W transforms of rk and of the f32 v'.
+    Planes (ph, pw) or stacks (P, ph, pw); the mask a plane or a stack of
+    Pc (plane p reads mask plane p % Pc).  image, fwd, mask, dp and the
+    spectra at the io dtype; b, a0, a1 at one TV carry dtype and v at the
+    v carry dtype, each f32, bf16 or int16.  Returns (rk_wr, rk_wi, v_wr,
+    v_wi, v', a0', a1', b'), the spectra at half width.  No saturation
+    output: v2 scans the stored carries (:func:`carry_sat_fraction`)."""
+    name = "e1_rcarry"
+    ph, n_full = image.shape[-2:]
+    p = _depth(name, image, (ph, n_full))
+    m, rows = n_full // 2, image.numel() // n_full
+    _check(name, [image, fwd, dp], image.shape, IO_DTYPES)
+    _check(name, [v, b, a0, a1], image.shape, CARRY_DTYPES)
+    pc = _const_depth(name, [mask], (ph, n_full), p)
+    planes = [image, fwd, v, b, a0, a1, mask, dp]
+    cuda = _on_card(name, planes, tuple(t.dtype for t in planes),
+                    {(i, i, cv, c, c, c, i, i) for i in IO_DTYPES
+                     for c in CARRY_DTYPES for cv in CARRY_DTYPES})
+    n1, n2 = factors(m, cuda)
+    if not cuda:
+        return e1_rcarry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau)
+    sc_a, sc_b = _tv_scales(mu2, mu3, tau)
+    c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
+    half = tuple(image.shape[:-1]) + (m,)
+    spectra = [_empty(half, image) for _ in range(4)]
+    vo = _empty(image.shape, v)
+    a0o, a1o, bo = (_empty(image.shape, a0) for _ in range(3))
+    _launch("e1_rcarry", "lpt_e1_rcarry", "p" * 17 + "iiiiii" + "ffff" + "ff" + "ffffff" + "iii",
+            image, fwd, v, b, a0, a1, mask, dp, *spectra, vo, a0o, a1o, bo,
+            _table(m, True, image.device), rows, ph, pc, m, n1, n2,
+            float(mu1), float(mu2), float(mu3), float(tau), float(c_out),
+            float(c_in - c_out), *_fix(sc_a), *_fix(sc_b), *_fix(_v_scale(mu1)),
+            _CODE[image.dtype], _CODE[a0.dtype], _CODE[v.dtype])
+    e1_rcarry.launches += 1
+    return (*spectra, vo, a0o, a1o, bo)
+
+
+# ---------------------------------------------------------------------------
+# K9: v2 post-transform step (DC patch + dual inverse W transform)
+# ---------------------------------------------------------------------------
+
+
+def irfft_w_dual_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
+    io = a0r.dtype
+    image = irfft_w_split(_patch(a0r, p0r), _patch(a0i, p0i))
+    fwd = irfft_w_split(_patch(a1r, p1r), _patch(a1i, p1i))
+    return image.to(io), fwd.to(io)
+
+
+def irfft_w_dual(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
+    """v2 post-transform step: lane 0 of the a0/a1 half spectra replaced by
+    the f32 DC/Nyquist patch columns p0*/p1* (one value per row; the JAX
+    kernel's (m, 128) column operands use only column 0), then both
+    inverse W transforms.  Half spectra (ph, pw/2) or stacks (P, ph,
+    pw/2), columns (.., ph).  Returns (image, fwd) at a0r's dtype."""
+    name = "irfft_w_dual"
+    p, ph, m = _dual_inputs(name, [a0r, a0i, a1r, a1i], [p0r, p0i, p1r, p1i])
+    cuda = _on_card(name, [a0r, a0i, a1r, a1i], (a0r.dtype,) * 4,
+                    {(d,) * 4 for d in IO_DTYPES}, cols=(p0r, p0i, p1r, p1i))
+    n1, n2 = factors(m, cuda)
+    if not cuda:
+        return irfft_w_dual_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i)
+    full = tuple(a0r.shape[:-1]) + (2 * m,)
+    image, fwd = _empty(full, a0r), _empty(full, a0r)
+    _launch("irfft_w_dual", "lpt_irfft_w_dual", "ppppppppppp" + "iiiii",
+            a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, image, fwd,
+            _table(m, True, a0r.device), p * ph, m, n1, n2, _CODE[a0r.dtype])
+    irfft_w_dual.launches += 1
+    return image, fwd
+
+
 WRAPPERS = (rfft_w, irfft_w, e1_rtv, h_passA_pair, h_combine_dual,
-            irfft_w_dual_state, sat_scan_i16)
+            irfft_w_dual_state, sat_scan_i16, e1_rcarry, irfft_w_dual)
 for _w in WRAPPERS:
     _w.launches = 0
 
 # the kernel set the solver runs, and the same functions in plain PyTorch
 # (for holding the kernels against it on the card)
-KERNELS = SimpleNamespace(rfft_w=rfft_w, irfft_w=irfft_w, e1_rtv=e1_rtv,
-                          h_passA_pair=h_passA_pair,
-                          h_combine_dual=h_combine_dual,
-                          irfft_w_dual_state=irfft_w_dual_state,
-                          sat_scan_i16=sat_scan_i16)
-PLAIN = SimpleNamespace(rfft_w=rfft_w_plain, irfft_w=irfft_w_plain,
-                        e1_rtv=e1_rtv_plain,
-                        h_passA_pair=h_passA_pair_plain,
-                        h_combine_dual=h_combine_dual_plain,
-                        irfft_w_dual_state=irfft_w_dual_state_plain,
-                        sat_scan_i16=sat_scan_i16_plain)
+KERNELS = SimpleNamespace(**{w.__name__: w for w in WRAPPERS})
+PLAIN = SimpleNamespace(**{w.__name__: globals()[w.__name__ + "_plain"] for w in WRAPPERS})
 
 
 def reset_launches():

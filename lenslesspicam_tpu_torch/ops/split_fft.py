@@ -155,46 +155,46 @@ def from_split_layout(x):
 
 
 def rfft_w_split(x_split):
-    """(rows, N) real rows in the split layout -> half-spectrum (rows, M)
+    """(..., N) real rows in the split layout -> half-spectrum (..., M)
     r/i planes in the size-M split order, Z[0] + i Z[M] at lane 0."""
-    rows, n_full = x_split.shape
+    lead, n_full = tuple(x_split.shape[:-1]), x_split.shape[-1]
     m = n_full // 2
     n1, n2 = _factor(m)
     er, ei, mirror = _rplan_t(n_full, x_split.device)
-    p = torch.complex(x_split[:, :m], x_split[:, m:]).reshape(rows, n1, n2)
-    P = two_stage(p, m).reshape(rows, m)
+    p = torch.complex(x_split[..., :m], x_split[..., m:]).reshape(*lead, n1, n2)
+    P = two_stage(p, m).reshape(*lead, m)
     Pr, Pi = P.real, P.imag
-    R = P[:, mirror]
+    R = P[..., mirror]
     Rr, Ri = R.real, R.imag
     Sr, Si = Pr + Rr, Pi - Ri
     Dr, Di = Pr - Rr, Pi + Ri
     Zr = 0.5 * (Sr + er * Di + ei * Dr)
     Zi = 0.5 * (Si - (er * Dr - ei * Di))
-    Zi = torch.cat([(Pr - Pi)[:, :1], Zi[:, 1:]], dim=1)   # pack Z[M]
+    Zi = torch.cat([(Pr - Pi)[..., :1], Zi[..., 1:]], dim=-1)   # pack Z[M]
     return Zr.contiguous(), Zi.contiguous()
 
 
 def irfft_w_split(zr, zi):
-    """(rows, M) half-spectrum (packed lane 0) -> (rows, N) real rows in
-    the split layout.  Exact inverse of :func:`rfft_w_split`."""
-    rows, m = zr.shape
+    """(..., M) half-spectrum (packed lane 0) -> (..., N) real rows in the
+    split layout.  Exact inverse of :func:`rfft_w_split`."""
+    lead, m = tuple(zr.shape[:-1]), zr.shape[-1]
     n_full = 2 * m
     n1, n2 = _factor(m)
     er, ei, mirror = _rplan_t(n_full, zr.device)
     wr, wi = er, -ei
-    Rr, Ri = zr[:, mirror], zi[:, mirror]
+    Rr, Ri = zr[..., mirror], zi[..., mirror]
     Er = 0.5 * (zr + Rr)
     Ei = 0.5 * (zi - Ri)
     Dr = 0.5 * (zr - Rr)
     Di = 0.5 * (zi + Ri)
     Or = wr * Dr - wi * Di
     Oi = wr * Di + wi * Dr
-    z0r, z0i = zr[:, :1], zi[:, :1]
+    z0r, z0i = zr[..., :1], zi[..., :1]
     zero = torch.zeros_like(z0r)
-    Er = torch.cat([0.5 * (z0r + z0i), Er[:, 1:]], dim=1)
-    Ei = torch.cat([zero, Ei[:, 1:]], dim=1)
-    Or = torch.cat([0.5 * (z0r - z0i), Or[:, 1:]], dim=1)
-    Oi = torch.cat([zero, Oi[:, 1:]], dim=1)
-    P = torch.complex(Er - Oi, Ei + Or).reshape(rows, n1, n2)
-    p = two_stage(P, m, inverse=True).reshape(rows, m)
-    return torch.cat([p.real, p.imag], dim=1)
+    Er = torch.cat([0.5 * (z0r + z0i), Er[..., 1:]], dim=-1)
+    Ei = torch.cat([zero, Ei[..., 1:]], dim=-1)
+    Or = torch.cat([0.5 * (z0r - z0i), Or[..., 1:]], dim=-1)
+    Oi = torch.cat([zero, Oi[..., 1:]], dim=-1)
+    P = torch.complex(Er - Oi, Ei + Or).reshape(*lead, n1, n2)
+    p = two_stage(P, m, inverse=True).reshape(*lead, m)
+    return torch.cat([p.real, p.imag], dim=-1)
