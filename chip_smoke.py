@@ -15,8 +15,13 @@ measurement with the exact solver and with the fused solver through the
 kernels in both modes and both kernel placements (v3, v2), passes the
 JAX bench's gates (bench.py:376-435) in the headline mode, runs its RGB
 and gray batch=4 rungs (bench.py:573-700) per plane in the headline
-mode, checks that each counted run went through every kernel of its
-path, measures the solvers' rates, and prints one JSON line per phase.
+mode, runs the full-width split solver (``run_split(backend="fused")``,
+K10, K4, K5, K4, K11) and its kernels K10-K13 (phase ``split``: every
+built storage combination at 96 x 512, a 6-over-3 stack, both modes at
+12 MP, the K12 -> K13 round trip, the f32 and bench-mode solves against
+the exact one, their rates), checks that each counted run went through
+every kernel of its path, measures the solvers' rates, and prints one JSON
+line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -41,6 +46,10 @@ from lenslesspicam_tpu_torch.recon.admm import ADMMParams
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
+# padded to 96 x 512: the full-width kernels need both factors of W
+# divisible by 4 and n1 > 1 (kernels.factors), and W = 128 or 256 factors
+# as 1 x 128 or 2 x 128; W = 512 = 4 x 128
+SMALL_SPLIT = (48, 256)
 TOL_KERNEL = 1e-4            # f32 outputs: max |kernel - plain| / max |plain|
 TOL_PSNR_DB = 0.1            # |PSNR exact - PSNR fused| at n = 10
 TOL_SMALL = 1e-5             # fused vs exact, normalized, small grid, n = 10
@@ -70,6 +79,9 @@ TOL_PSNR_DEEP_MODE_DB = 1.5
 # v2 against v3 at f32, normalized, n = 10: the same recurrence (2e-6 in
 # the JAX package at 40 x 56, tests/test_pallas_fft.py:212)
 TOL_V2_V3 = 1e-4
+# the full-width split solver against the exact one, normalized
+# (tests/test_pallas_fft.py:54-72)
+TOL_SPLIT_EXACT = 5e-2
 HEADLINE = dict(io="bf16", carry_tv="i16", carry_v="i16")
 F32, BF16, I16 = torch.float32, torch.bfloat16, torch.int16
 NAME = {F32: "f32", BF16: "bf16", I16: "i16"}
@@ -94,6 +106,17 @@ PLANE_KERNELS = ("rfft_w", "e1_rtv", "h_passA_pair", "h_combine_dual",
 LOOP_MODES = [("bf16", "f32", "f32"), ("f32", "i16", "f32"), ("f32", "f32", "i16"),
               ("f32", "bf16", "bf16"), ("bf16", "i16", "i16")]
 TOL_LOOP_MODES = 5e-2        # normalized, n = 20 (tests/test_pallas_fft.py:249)
+# the full-width split path: its kernels in f32 and in the storage modes the
+# bench's headline environment gives it (bench.py:844-846: io bf16, v int16;
+# e1_carry keeps the TV carries at _CARRY_DTYPE, f32)
+SPLIT_MODES = {"f32": (F32, F32, F32, F32), "bench": (BF16, F32, I16, F32)}
+SPLIT_BENCH = dict(io="bf16", carry_tv="f32", carry_v="i16")
+# K10 in all 12 (io, carry_tv, carry_v) it is built for; K11-K13 in every
+# io and K13 in every (io, out) pair
+K10_COMBOS = [(io, tv, v, F32) for io in (F32, BF16) for tv in (F32, BF16)
+              for v in (F32, BF16, I16)]
+W_COMBOS = [(io, F32, F32, out) for io in (F32, BF16) for out in (F32, BF16)]
+SPLIT_KERNELS = ("e1_carry", "ifft_w_dual", "fft_w", "ifft_w")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 
@@ -116,6 +139,14 @@ KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
                   "lenslesspicam_tpu/ops/pallas_kernels2.py:1968"),
     "irfft_w_dual": ("K9", "lenslesspicam_tpu_torch/ops/csrc/irfft_w_dual.cu",
                      "lenslesspicam_tpu/ops/pallas_kernels2.py:2006"),
+    "e1_carry": ("K10", "lenslesspicam_tpu_torch/ops/csrc/e1_carry.cu",
+                 "lenslesspicam_tpu/ops/pallas_kernels2.py:1288"),
+    "ifft_w_dual": ("K11", "lenslesspicam_tpu_torch/ops/csrc/ifft_w_dual.cu",
+                    "lenslesspicam_tpu/ops/pallas_kernels2.py:1329"),
+    "fft_w": ("K12", "lenslesspicam_tpu_torch/ops/csrc/fft_w.cu",
+              "lenslesspicam_tpu/ops/pallas_kernels2.py:788"),
+    "ifft_w": ("K13", "lenslesspicam_tpu_torch/ops/csrc/ifft_w.cu",
+               "lenslesspicam_tpu/ops/pallas_kernels2.py:812"),
 }
 
 
@@ -191,6 +222,7 @@ TV_OPS = 31        # per point, K3's TV and non-negativity update and rk (e1_rtv
 X_OPS = 9          # per point, K6's X and v update (irfft_w_dual_state_plain)
 COMBINE_OPS = 16   # per point, K5's F = R (A + conj(H) B) and H F
 SAT_OPS = 2        # per value scanned for the saturation max (abs, max)
+HERM_OPS = 4       # per bin, the Hermitian part of a spectrum whose real inverse is asked for
 
 
 def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
@@ -254,6 +286,41 @@ def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
     }
 
 
+def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
+    """The full-width kernels' inputs at the shapes the full-width loop
+    gives them (K12 and K13 at the plane's), as :func:`kernel_cases`:
+    spectra and static planes at ``io``, the TV carries at ``tv`` and at
+    their KKT scale, v at ``v`` and of order mu1, K13's output at
+    ``out``; with ``planes`` = (P, Pc) stacks.  Operations: a real
+    length-W transform is counted as the packed complex length-W/2 one
+    and its unpack; the real part of an inverse of any spectrum adds
+    HERM_OPS per bin."""
+    dev = "cuda"
+    p = ADMMParams()
+    npl, npc = planes or (1, 1)
+    lp = (npl,) if planes else ()
+    lc = (npc,) if planes else ()
+
+    def rn(*s, scale=1.0, dtype=io):
+        return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
+
+    rows = npl * ph
+    w_real = rows * (fft_ops(pw // 2) + UNPACK_OPS * pw // 2)
+    w_inv = w_real + rows * pw * HERM_OPS
+    mask32 = (torch.rand(*lc, ph, pw, generator=gen, device=dev) > 0.5).float()
+    dp = K.bmul(mask32, torch.rand(*lp, ph, pw, generator=gen, device=dev)).to(io)
+    vc = K.encode_v(rn(*lp, ph, pw, scale=p.mu1, dtype=F32), p.mu1, v)
+    return {
+        "e1_carry": ((rn(*lp, ph, pw), rn(*lp, ph, pw), vc, rn(*lp, ph, pw, scale=p.mu3, dtype=tv),
+                      rn(*lp, ph, pw, scale=p.tau, dtype=tv), rn(*lp, ph, pw, scale=p.tau, dtype=tv),
+                      mask32.to(io), dp, p.mu1, p.mu2, p.mu3, p.tau),
+                     2 * w_real + rows * pw * (TV_OPS + X_OPS)),
+        "ifft_w_dual": (tuple(rn(*lp, ph, pw) for _ in range(4)), 2 * w_inv),
+        "fft_w": ((rn(*lp, ph, pw),), w_real),
+        "ifft_w": ((rn(*lp, ph, pw), rn(*lp, ph, pw), out), w_inv),
+    }
+
+
 def library_call(name, args):
     """One PyTorch call computing the same function on the same inputs
     (the yardstick of ``library_ms``), or None where there is none."""
@@ -269,18 +336,30 @@ def library_call(name, args):
         return lambda: torch.fft.irfft(z, n=2 * z.shape[-1], dim=-1)
     if name == "sat_scan_i16":
         return lambda: torch.aminmax(args[0])
+    if name == "fft_w":       # complex fft along W of the real rows (f32 copy)
+        x = args[0].float()
+        return lambda: torch.fft.fft(x, dim=-1)
+    if name == "ifft_w":      # real part of the inverse along W
+        z = torch.complex(args[0].float(), args[1].float())
+        return lambda: torch.fft.ifft(z, dim=-1).real
+    if name == "ifft_w_dual":     # real parts of both inverses along W, one call
+        z = torch.stack([torch.complex(args[0].float(), args[1].float()),
+                         torch.complex(args[2].float(), args[3].float())])
+        return lambda: torch.fft.ifft(z, dim=-1).real
     return None
 
 
-def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=None):
+def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=None,
+                  cases=kernel_cases):
     """Each kernel (of ``names``, default all) against its plain version on
-    the inputs of :func:`kernel_cases`; with ``timed`` also its time, the
-    plain version's, the library call's and the bound.  One JSON line per
+    the inputs of ``cases`` (:func:`kernel_cases` or
+    :func:`split_kernel_cases`); with ``timed`` also its time, the plain
+    version's, the library call's and the bound.  One JSON line per
     kernel; returns the rows by kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(ph)
     rows = {}
-    for name, (args, flops) in kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes).items():
+    for name, (args, flops) in cases(ph, pw, gen, io, tv, v, k2_out, planes).items():
         if names is not None and name not in names:
             continue
         wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
@@ -315,28 +394,28 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
     return rows
 
 
-def round_trip(ph, pw):
-    """K2's own path: ``irfft_w(rfft_w(x)) == x`` at 12 MP through the two
-    entry points, at f32 and at bf16 io, each run with the launch counts
-    set to 0 just before it and read just after.  Returns the counts of
-    the bf16 run."""
+def round_trip(ph, pw, fwd=K.rfft_w, inv=K.irfft_w, seed=7):
+    """A forward W transform and its standalone inverse on their own path
+    (K1 -> K2, or K12 -> K13; no solver calls K2, K12 or K13): ``inv(fwd(x))
+    == x`` at 12 MP through the two entry points, at f32 and at bf16 io,
+    each run with the launch counts set to 0 just before it and read just
+    after.  Returns the counts of the bf16 run."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
+    gen.manual_seed(seed)
     x0 = torch.randn(ph, pw, generator=gen, device="cuda")
+    names = (fwd.__name__, inv.__name__)
     for dtype in (torch.float32, torch.bfloat16):
         x = x0.to(dtype)
-        K.reset_launches()
-        back = K.irfft_w(*K.rfft_w(x))
-        torch.cuda.synchronize()
-        counts = K.launch_counts()
-        want = {name: int(name in ("rfft_w", "irfft_w")) for name in counts}
-        if counts != want:
-            raise AssertionError(f"round trip launch counts {counts} != {want}")
+        back, counts = counted(lambda: inv(*fwd(x)),
+                               {name: int(name in names) for name in K.launch_counts()},
+                               " -> ".join(names))
         err = float((back - x.float()).abs().max() / x.float().abs().max())
         if not err <= TOL_ROUND_TRIP[dtype]:
-            raise AssertionError(f"K1 -> K2 round trip ({dtype}) at {ph}x{pw}: {err:.3e}")
-        emit({"phase": "round_trip", "grid": [ph, pw], "io": str(dtype),
-              "max_rel_err": err, "tol": TOL_ROUND_TRIP[dtype], "launches": counts})
+            raise AssertionError(f"{' -> '.join(names)} round trip ({dtype}) at {ph}x{pw}: "
+                                 f"{err:.3e}")
+        emit({"phase": "round_trip", "transforms": list(names), "grid": [ph, pw],
+              "io": str(dtype), "max_rel_err": err, "tol": TOL_ROUND_TRIP[dtype],
+              "launches": counts})
     return counts
 
 
@@ -526,7 +605,7 @@ def end_to_end_headline(pre, conv, data5, scene_n, p_exact10):
           "tol_deep_db": TOL_PSNR_DEEP_DB, "tol_collapse_db": TOL_COLLAPSE_DB,
           "loop_kernels_vs_plain_n3": loop_err, "tol_loop": TOL_LOOP_HEADLINE,
           "launches": counts, "peak_mem_headline_bytes": peak})
-    return counts
+    return counts, deep
 
 
 def v2_phase(pre, fused_v3, scene_n, p_exact10):
@@ -646,6 +725,91 @@ def mode_phase(mode, scene, psf2d, conv):
     return rec
 
 
+def want_split_counts(n):
+    """Launches of an n-iteration full-width fused solve: K10, 2 K4, K5,
+    K11 per iteration, whatever the number of planes."""
+    counts = dict.fromkeys(K.launch_counts(), 0)
+    counts.update(e1_carry=n, h_passA_pair=2 * n, h_combine_dual=n, ifft_w_dual=n)
+    return counts
+
+
+def split_small_loop():
+    """The full-width fused loop through the kernels against the loop
+    through the plain versions at 48 x 256 (padded 96 x 512), n = 3, at f32
+    (TOL_LOOP) and in the bench mode (TOL_LOOP_HEADLINE); the f32 loop
+    against the exact solver at n = 10 (TOL_SPLIT_EXACT)."""
+    rng = np.random.RandomState(13)
+    psf = rng.rand(*SMALL_SPLIT).astype(np.float32)
+    psf /= np.linalg.norm(psf)
+    data = rng.rand(*SMALL_SPLIT).astype(np.float32)
+    data /= data.max()
+    pre = admm_split.precompute_split(psf, data)
+    rec = {}
+    for mode, modes, tol in (("f32", {}, TOL_LOOP), ("bench", SPLIT_BENCH, TOL_LOOP_HEADLINE)):
+        k = admm_split.run_split_fused(pre, n_iter=3, **modes)
+        p = admm_split.run_split_fused(pre, n_iter=3, ops=K.PLAIN, **modes)
+        err = nerr(k, p)
+        if not (err <= tol and bool(torch.isfinite(k).all())):
+            raise AssertionError(f"split loop ({mode}) kernels vs plain at {SMALL_SPLIT}: {err:.3e}")
+        rec[f"loop_{mode}_kernels_vs_plain_n3"] = err
+    conv = admm.make_convolver(psf[None, :, :, None])
+    ref = admm.run(conv, torch.from_numpy(data)[None, None, :, :, None].to("cuda"),
+                   n_iter=10)[0, 0, :, :, 0]
+    err = nerr(admm_split.run_split(pre, n_iter=10, backend="fused"), ref)
+    if not err <= TOL_SPLIT_EXACT:
+        raise AssertionError(f"split fused vs exact at {SMALL_SPLIT}: {err:.3e}")
+    return {**rec, "fused_vs_exact_n10": err}
+
+
+def split_phase(psf2d, meas, scene_n, p_exact10, p_exact100):
+    """The full-width split solver at 12 MP (``run_split(backend="fused")``:
+    K10, K4, K5, K4, K11): f32 within TOL_PSNR_DB of the exact solver at
+    n = 10; the bench mode (SPLIT_BENCH) within TOL_PSNR_DB at n = 10 and
+    at least exact - TOL_PSNR_DEEP_DB at n = 100; the launch counts of
+    both n = 10 solves; the small-grid loops of :func:`split_small_loop`;
+    the rates of both modes.  Returns the phase's record."""
+    t0 = time.perf_counter()
+    small = split_small_loop()
+    t1 = time.perf_counter()
+    pre = admm_split.precompute_split(psf2d, meas.cpu().numpy())
+    t_pre = time.perf_counter() - t1
+    n = 10
+
+    def solve(k, **modes):
+        return admm_split.run_split(pre, n_iter=k, backend="fused", **modes)
+
+    torch.cuda.reset_peak_memory_stats()
+    out, counts_f32 = counted(lambda: solve(n), want_split_counts(n), "split f32")
+    peak = torch.cuda.max_memory_allocated()
+    out_b, counts = counted(lambda: solve(n, **SPLIT_BENCH), want_split_counts(n), "split bench")
+    psnr = {}
+    for label, img in (("f32", out), ("bench", out_b)):
+        if tuple(img.shape) != SENSOR or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"split {label} output is not finite at the sensor shape")
+        psnr[label] = psnr_db(img, scene_n)
+        if not abs(p_exact10 - psnr[label]) <= TOL_PSNR_DB:
+            raise AssertionError(f"split {label} exactness gate (n={n}): exact {p_exact10:.3f} "
+                                 f"vs {psnr[label]:.3f} dB")
+    del out, out_b
+    p100 = psnr_db(solve(100, **SPLIT_BENCH), scene_n)
+    if not p100 >= p_exact100 - TOL_PSNR_DEEP_DB:
+        raise AssertionError(f"split bench quality gate (n=100): {p100:.3f} dB more than "
+                             f"{TOL_PSNR_DEEP_DB} dB below exact {p_exact100:.3f} dB")
+    rates = {"split_fused_it_per_s": rate(solve),
+             "split_bench_it_per_s": rate(lambda k: solve(k, **SPLIT_BENCH))}
+    rec = {"phase": "split", "grid": list(SENSOR), "padded": list(pre.padded_shape),
+           "mode_bench": SPLIT_BENCH, "n_iter": n, "psnr_exact_db": p_exact10,
+           "psnr_split_f32_db": psnr["f32"], "psnr_split_bench_db": psnr["bench"],
+           "tol_db": TOL_PSNR_DB, "psnr_exact_n100_db": p_exact100,
+           "psnr_split_bench_n100_db": p100, "tol_deep_db": TOL_PSNR_DEEP_DB,
+           "small": {"grid": list(SMALL_SPLIT), **small, "tol_loop_f32": TOL_LOOP,
+                     "tol_loop_bench": TOL_LOOP_HEADLINE, "tol_exact": TOL_SPLIT_EXACT},
+           "launches_f32": counts_f32, "launches_bench": counts, "peak_mem_f32_bytes": peak,
+           "precompute_s": t_pre, **rates, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -689,6 +853,20 @@ def main():
             check_kernels(ph, pw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
                           planes=planes)
     seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssh, ssw = 2 * SMALL_SPLIT[0], 2 * SMALL_SPLIT[1]
+    for combos, names in ((K10_COMBOS, ("e1_carry",)), (W_COMBOS, SPLIT_KERNELS[1:])):
+        for io, tv, v, out in combos:
+            check_kernels(ssh, ssw, False, io, tv, v, out,
+                          f"io={NAME[io]},tv={NAME[tv]},v={NAME[v]},out={NAME[out]}",
+                          names=names, cases=split_kernel_cases)
+    for mode, dts in SPLIT_MODES.items():
+        check_kernels(ssh, ssw, False, *dts, f"planes,{mode}", planes=PLANES,
+                      cases=split_kernel_cases)
+    split_rows = {mode: check_kernels(ph, pw, True, *dts, mode, cases=split_kernel_cases)
+                  for mode, dts in SPLIT_MODES.items()}
+    counts_srt = round_trip(ph, pw, K.fft_w, K.ifft_w, seed=8)
+    seconds["split_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     counts_rt = round_trip(ph, pw)
     chain_yardstick(ph, pw)
@@ -738,7 +916,7 @@ def main():
           "peak_mem_fused_bytes": peak_fused,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
 
-    counts = end_to_end_headline(pre, conv, data5, scene_n, p_exact)
+    counts, deep = end_to_end_headline(pre, conv, data5, scene_n, p_exact)
     seconds["gray"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     counts_v2, counts_v2_f32 = v2_phase(pre, fused, scene_n, p_exact)
@@ -755,7 +933,11 @@ def main():
                  pre, n_iter=k, placement="v2", **HEADLINE)),
              "exact_it_per_s": rate(lambda k: admm.run(conv, data5, n_iter=k))}
     seconds["rate_gray"] = time.perf_counter() - t0
-    del pre, data5, meas
+    del pre, data5
+    split = split_phase(psf2d, meas, scene_n, p_exact, deep[100]["psnr_exact_db"])
+    seconds["split"] = split["seconds"]
+    rates.update({k: split[k] for k in ("split_fused_it_per_s", "split_bench_it_per_s")})
+    del meas
 
     modes = {}
     for mode in ("rgb", "batch4"):
@@ -771,16 +953,25 @@ def main():
     # one entry per kernel: the headline mode's numbers, the f32 mode's
     # beside them; launches from the path named by "path" (K2: its round
     # trip, no solver calls it), and those of every counted main path
+    # (K10-K13: the split phase's bench mode, f32 beside it; K12, K13 from
+    # their round trip)
     paths = {"end_to_end_headline": counts, "v2_headline": counts_v2,
              "rgb": modes["rgb"]["launches"], "batch4": modes["batch4"]["launches"],
-             "round_trip": counts_rt}
+             "round_trip": counts_rt, "split_bench": split["launches_bench"],
+             "split_round_trip": counts_srt}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else
                    "v2_headline" if name in ("e1_rcarry", "irfft_w_dual") else
+                   "split_bench" if name in ("e1_carry", "ifft_w_dual") else
+                   "split_round_trip" if name in ("fft_w", "ifft_w") else
                    "end_to_end_headline") for name in KERNEL_INFO}
     f32_launches = {**counts_f32, **{k: counts_v2_f32[k] for k in ("e1_rcarry", "irfft_w_dual")},
-                    "irfft_w": counts_rt["irfft_w"]}
+                    "irfft_w": counts_rt["irfft_w"],
+                    **{k: split["launches_f32"][k] for k in ("e1_carry", "ifft_w_dual")},
+                    **{k: counts_srt[k] for k in ("fft_w", "ifft_w")}}
+    krows["headline"].update(split_rows["bench"])
+    krows["f32"].update(split_rows["f32"])
     seconds["total"] = time.perf_counter() - t_start
     emit({"phase": "seconds", **seconds})
     emit({"kernels": [

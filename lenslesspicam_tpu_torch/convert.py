@@ -15,7 +15,7 @@ import torch
 from ._device import resolve_device
 from .ops.fft_conv import FFTConvolver
 from .recon.admm import ADMMParams, ADMMPrecomp, ADMMState
-from .recon.admm_split import ARRAY_FIELDS, RSplitPrecomp
+from .recon.admm_split import ARRAY_FIELDS, SPLIT_FIELDS, RSplitPrecomp, SplitPrecomp
 
 
 def _t(x, device, dtype=None):
@@ -56,6 +56,26 @@ def rsplit_general_precomp(arrays: dict, info: dict, psf_shape, padded_shape, st
     RSplitPrecomp's arrays (a leading axis over the D * C planes) and its
     info dict."""
     pre = rsplit_precomp(arrays, psf_shape, padded_shape, start, device)
+    return pre, {k: int(info[k]) for k in ("batch", "depth", "channels")}
+
+
+def split_precomp(arrays: dict, psf_shape, padded_shape, start,
+                  device=None) -> SplitPrecomp:
+    """The port's SplitPrecomp (full-width solver) from the JAX
+    SplitPrecomp's arrays: one plane, or a stack on a leading axis."""
+    device = resolve_device(device)
+    return SplitPrecomp(
+        *[_t(arrays[f], device, np.float32) for f in SPLIT_FIELDS],
+        psf_shape=tuple(psf_shape), padded_shape=tuple(padded_shape),
+        start=tuple(start))
+
+
+def split_general_precomp(arrays: dict, info: dict, psf_shape, padded_shape, start,
+                          device=None):
+    """``(pre, info)`` of the port's batched full-width solver
+    (``run_split_general``) from the JAX ``precompute_split_general``
+    result: its stacked SplitPrecomp's arrays and its info dict."""
+    pre = split_precomp(arrays, psf_shape, padded_shape, start, device)
     return pre, {k: int(info[k]) for k in ("batch", "depth", "channels")}
 
 

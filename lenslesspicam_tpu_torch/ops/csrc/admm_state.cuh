@@ -1,6 +1,7 @@
 // Shared device code of the ADMM state kernels: the TV / non-negativity
-// step of one row (K3 `e1_rtv`, K8 `e1_rcarry`) and the X / v update
-// (K6 `irfft_w_dual_state`, K8).
+// step of one row (K3 `e1_rtv`, K8 `e1_rcarry` in the even/odd split lane
+// layout, K10 `e1_carry` in natural lane order) and the X / v update (K6
+// `irfft_w_dual_state`, K8, K10).
 //
 // Planes may carry a leading plane axis: a kernel sees P * ph rows, row r
 // of plane r / ph.  The H axis is periodic within a plane, so the halo
@@ -50,6 +51,16 @@ __device__ __forceinline__ void put_packed(float* f, float (&x)[V], int q0, int 
   }
 }
 
+// Write x[0..V) (natural positions q0 + k of a row) into part `part` (0:
+// real, 1: imaginary) of the complex row buffer f (float view), in the
+// lane-rotated order s; x is rotated in place.
+template <int V>
+__device__ __forceinline__ void put_part(float* f, float (&x)[V], int q0, int part, int s) {
+  rot(x, s);
+#pragma unroll
+  for (int k = 0; k < V; ++k) f[2 * (q0 + ((k + s) & (V - 1))) + part] = x[k];
+}
+
 // The X / v update of one element: xi = mu1 fwd - v,
 // X = xdv (xi + mu1 fwd + dp), v' = mu1 X - xi, xdv = c_out + c_diff mask.
 __device__ __forceinline__ float xv_update(float fw, float v, float mk, float d, float mu1,
@@ -61,21 +72,23 @@ __device__ __forceinline__ float xv_update(float fw, float v, float mk, float d,
 }
 
 // TV / non-negativity step of one row (the JAX kernels' algebra, planes
-// in the split lane layout, periodic in both axes):
+// periodic in both axes, in the split lane layout or, with kNat, in
+// natural lane order):
 //   a0' = mu2 soft(psi0 + eta0/mu2, tau/mu2) - eta0, eta0 = mu2 psi0 - a0,
 //         psi0 = img[r-1] - img[r]
 //   a1' likewise along W, psi1 = roll(img, +1) - img
 //   b'  = mu3 max(rho/mu3 + img, 0) - rho, rho = mu3 img - b
 //   rk  = b' + (a0'[r+1] - a0'[r]) + (roll(a1', -1) - a1')
 // a0', a1', b' are stored (type TC, factors fa / fb); rk is written packed
-// into `rk` (float view of the first W-core buffer), a1' goes through the
-// scratch row `a1s` (float view of the second).  The halo rows (img r-1
+// into `rk` (float view of the first W-core buffer; with kNat into its real
+// parts, rk[2q]), a1' goes through the scratch row `a1s` (float view of the
+// second).  A row holds n = 2m elements.  The halo rows (img r-1
 // and r+1, a0 r+1) are read straight from device memory and a0' of row
 // r+1 is recomputed, so no block depends on another.  With kSat, amax and
 // bmax collect max |a0'|, |a1'| and max |b'| before quantization.  Ends
 // with the row's values written; the caller synchronises before reading
 // `rk`.
-template <typename TI, typename TC, int V, bool kSat>
+template <typename TI, typename TC, int V, bool kSat, bool kNat = false>
 __device__ __forceinline__ void tv_row(const TI* __restrict__ img, const TC* __restrict__ a0,
                                        const TC* __restrict__ a1, const TC* __restrict__ b,
                                        TC* __restrict__ a0o, TC* __restrict__ a1o,
@@ -89,8 +102,13 @@ __device__ __forceinline__ void tv_row(const TI* __restrict__ img, const TC* __r
   for (int q0 = threadIdx.x * V; q0 < n; q0 += blockDim.x * V) {
     float x[V], nb[V], ao[V], a[V];
     ldv<V>(img + o.c + q0, x);
-    // roll(+1) in split lanes: new_even[j] = odd[j-1], new_odd[j] = even[j]
-    if (q0 >= m) {
+    if constexpr (kNat) {
+      // roll(+1) in natural lanes: new[q] = x[q-1]
+#pragma unroll
+      for (int k = 1; k < V; ++k) nb[k] = x[k - 1];
+      nb[0] = ld1(img + o.c + (q0 ? q0 - 1 : n - 1), Fix{});
+    } else if (q0 >= m) {
+      // roll(+1) in split lanes: new_even[j] = odd[j-1], new_odd[j] = even[j]
       ldv<V>(img + o.c + q0 - m, nb);
     } else {
       if constexpr (V > 1) {
@@ -124,11 +142,13 @@ __device__ __forceinline__ void tv_row(const TI* __restrict__ img, const TC* __r
     ldv<V>(a0 + o.c + q0, ac, fa);
     ldv<V>(a0 + o.n + q0, an, fa);
     ldv<V>(b + o.c + q0, bb, fb);
-    // roll(-1) in split lanes: new_even[j] = odd[j], new_odd[j] = even[j+1]
+    // roll(-1): natural new[q] = a1'[q+1]; in split lanes new_even[j] =
+    // odd[j], new_odd[j] = even[j+1]
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const int q = q0 + ((k + s2) & (V - 1));
-      const int q1 = q < m ? m + q : (q - m + 1 < m ? q - m + 1 : 0);
+      const int q1 = kNat ? (q + 1 < n ? q + 1 : 0)
+                          : (q < m ? m + q : (q - m + 1 < m ? q - m + 1 : 0));
       adj1[k] = a1s[q1] - a1s[q];
     }
     unrot(adj1, s2);
@@ -152,7 +172,11 @@ __device__ __forceinline__ void tv_row(const TI* __restrict__ img, const TC* __r
     }
     stv<V>(a0o + o.c + q0, a0c, fa);
     stv<V>(bo + o.c + q0, bn, fb);
-    put_packed<V>(rk, rkv, q0, m, s1);
+    if constexpr (kNat) {
+      put_part<V>(rk, rkv, q0, 0, s1);
+    } else {
+      put_packed<V>(rk, rkv, q0, m, s1);
+    }
   }
 }
 

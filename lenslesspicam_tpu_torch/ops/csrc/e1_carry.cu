@@ -1,0 +1,134 @@
+// K10: full-width pre-transform step of the fused ADMM iteration.
+//
+// Replaces lenslesspicam_tpu/ops/pallas_kernels2.py `e1_carry` (kernel
+// `_e1c_kernel`).  Per row r of the padded grid (planes in natural lane
+// order, periodic in both axes):
+//   the TV / non-negativity step (`tv_row` in natural lane order,
+//   admm_state.cuh): a0', a1', b' and rk = b' + Psi^T a', the H halo rows
+//   (image r-1 and r+1, a0 r+1) read straight from device memory, the W
+//   difference a roll inside the row
+//   xi = mu1 fwd - v, X = xdv (xi + mu1 fwd + dp), v' = mu1 X - xi from the
+//   carried forward plane fwd (`xv_update`), xdv rebuilt from the {0,1}
+//   support mask
+//   the forward W transforms of rk and of the f32 v', split order.
+// The JAX kernel fetches whole neighbour row blocks for its halo; here the
+// halo rows are single rows, periodic within the plane.  Rows may be those
+// of a stack of P planes of ph rows; the mask is a stack of Pc planes,
+// P % Pc == 0, and plane p reads mask plane p % Pc.
+//
+// Storage: img, fwd, mask, dp and the four spectra in the io type TI (f32
+// or bf16); a0, a1, b and their updates in the TV carry type TC (f32 or
+// bf16: the JAX kernel stores them at `_CARRY_DTYPE`, never int16); v, v'
+// in the v carry type TV (f32, bf16 or int16 fixed point at full scale
+// 256 mu1, factors fv).  12 instantiations.
+//
+// Bound on the H100: bytes (8 planes read, 8 written; 40 complex
+// multiply-adds per point at 12 MP for the one complex DFT of a row).  rk
+// and v' are both real: they are written as z = rk + i v' into one padded
+// shared row, transformed once, and separated through the mirror
+// (`store_two_spectra`), which halves the DFT work of two transforms.
+// 134 KB of shared memory at 12 MP: one block of 512 threads per SM.
+#include "admm_state.cuh"
+
+using namespace lpt;
+
+template <typename TI, typename TC, typename TV>
+__global__ void __launch_bounds__(FW_THREADS, 1) e1_carry_kernel(
+    const TI* __restrict__ img, const TI* __restrict__ fwd, const TV* __restrict__ v,
+    const TC* __restrict__ b, const TC* __restrict__ a0, const TC* __restrict__ a1,
+    const TI* __restrict__ mask, const TI* __restrict__ dp, TI* __restrict__ rkr,
+    TI* __restrict__ rki, TI* __restrict__ vwr, TI* __restrict__ vwi, TV* __restrict__ vo,
+    TC* __restrict__ a0o, TC* __restrict__ a1o, TC* __restrict__ bo,
+    const float2* __restrict__ tab, int ph, int pc, int n1, int n2, float mu1, float mu2,
+    float mu3, float tau, float c_out, float c_diff, Fix fv) {
+  constexpr int V = vec_len<TI, TC, TV>();
+  extern __shared__ float2 sm[];
+  const Plan p = make_plan(tab, n1, n2);
+  float2* A = sm;
+  float2* B = A + w_buf_len(n1, n2);
+  float2* R = B + w_buf_len(n1, n2);
+  load_roots(R, p);
+  const int r = blockIdx.x, n = p.n;
+  const size_t fr = (size_t)r * n, mr = const_row(r, ph, pc, n);
+  float* f = reinterpret_cast<float*>(A);
+  float amax = 0.f, bmax = 0.f;  // unused: no saturation channel
+  tv_row<TI, TC, V, false, true>(img, a0, a1, b, a0o, a1o, bo, plane_rows(r, ph, n), n / 2, mu2,
+                                 mu3, tau, Fix{}, Fix{}, f, reinterpret_cast<float*>(B), amax,
+                                 bmax);
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int q0 = threadIdx.x * V; q0 < n; q0 += blockDim.x * V) {
+    float fw[V], vv[V], mk[V], d[V], vn[V];
+    ldv<V>(fwd + fr + q0, fw);
+    ldv<V>(v + fr + q0, vv, fv);
+    ldv<V>(mask + mr + q0, mk);
+    ldv<V>(dp + fr + q0, d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) vn[k] = xv_update(fw[k], vv[k], mk[k], d[k], mu1, c_out, c_diff);
+    stv<V>(vo + fr + q0, vn, fv);
+    put_part<V>(f, vn, q0, 1, s);
+  }
+  __syncthreads();
+  const float sc = balance_imag(A, n);
+  const float2* P = c_fwd_core(A, B, p, R);
+  store_two_spectra<TI, V>(P, p, rkr + fr, rki + fr, vwr + fr, vwi + fr, 1.f / sc);
+}
+
+template <typename TI, typename TC, typename TV>
+static int run(const void* const* in, void* const* out, const float2* tab, int rows, int ph,
+               int pc, int n1, int n2, float mu1, float mu2, float mu3, float tau, float c_out,
+               float c_diff, Fix fv, void* stream) {
+  return launch(e1_carry_kernel<TI, TC, TV>, dim3(rows), dim3(FW_THREADS), w_smem_bytes(n1, n2),
+                stream,
+                (const TI*)in[0], (const TI*)in[1], (const TV*)in[2], (const TC*)in[3],
+                (const TC*)in[4], (const TC*)in[5], (const TI*)in[6], (const TI*)in[7],
+                (TI*)out[0], (TI*)out[1], (TI*)out[2], (TI*)out[3], (TV*)out[4], (TC*)out[5],
+                (TC*)out[6], (TC*)out[7], tab, ph, pc, n1, n2, mu1, mu2, mu3, tau, c_out, c_diff,
+                fv);
+}
+
+template <typename TI>
+static int dispatch(int tv, int vt, const void* const* in, void* const* out, const float2* tab,
+                    int rows, int ph, int pc, int n1, int n2, float mu1, float mu2, float mu3,
+                    float tau, float c_out, float c_diff, Fix fv, void* stream) {
+  using bf = __nv_bfloat16;
+#define LPT_E10(TC, TV)                                                                  \
+  return run<TI, TC, TV>(in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3, tau, c_out, \
+                         c_diff, fv, stream)
+  switch (tv * 3 + vt) {
+    case F32 * 3 + F32: LPT_E10(float, float);
+    case F32 * 3 + BF16: LPT_E10(float, bf);
+    case F32 * 3 + I16: LPT_E10(float, int16_t);
+    case BF16 * 3 + F32: LPT_E10(bf, float);
+    case BF16 * 3 + BF16: LPT_E10(bf, bf);
+    case BF16 * 3 + I16: LPT_E10(bf, int16_t);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LPT_E10
+}
+
+// rows: P * ph, the rows of all planes; ph: the rows of one plane; pc:
+// the planes of the mask; W = n1 * n2.  io: storage code of img, fwd,
+// mask, dp and the spectra (F32 or BF16); tv: that of a0, a1, b and their
+// updates (F32 or BF16); vt: that of v and v' (F32, BF16 or I16).
+// ld_v/st_v: the int16 factors of v.
+extern "C" int lpt_e1_carry(const void* img, const void* fwd, const void* v, const void* b,
+                            const void* a0, const void* a1, const void* mask, const void* dp,
+                            void* rkr, void* rki, void* vwr, void* vwi, void* vo, void* a0o,
+                            void* a1o, void* bo, const float2* tab, int rows, int ph, int pc,
+                            int n1, int n2, float mu1, float mu2, float mu3, float tau,
+                            float c_out, float c_diff, float ld_v, float st_v, int io, int tv,
+                            int vt, void* stream) {
+  const void* in[8] = {img, fwd, v, b, a0, a1, mask, dp};
+  void* out[8] = {rkr, rki, vwr, vwi, vo, a0o, a1o, bo};
+  const Fix fv{ld_v, st_v};
+  switch (io) {
+    case F32:
+      return dispatch<float>(tv, vt, in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3, tau,
+                             c_out, c_diff, fv, stream);
+    case BF16:
+      return dispatch<__nv_bfloat16>(tv, vt, in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3,
+                                     tau, c_out, c_diff, fv, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

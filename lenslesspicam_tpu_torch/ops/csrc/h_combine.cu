@@ -18,14 +18,17 @@
 // and stores are runs of 32 contiguous elements; the three n2 x 32 tiles
 // (96 KB at 12 MP) stay in shared memory.  The planes may be a stack of P
 // (grid.y = P); the filter planes H and R are a stack of Pc, P % Pc == 0,
-// and plane p reads filter plane p % Pc.
+// and plane p reads filter plane p % Pc.  A single plane runs an
+// instantiation without the plane offsets (kStack false): with them the
+// gray headline loop's K5 took 3 % more time (945.5 against 914-918 us a
+// call in the loop, torch.profiler on an H100, profile_solver.py).
 #include "lpt_dft.cuh"
 
 using namespace lpt;
 
 constexpr int TW = 32;
 
-template <typename T>
+template <typename T, bool kStack>
 __global__ void __launch_bounds__(256) h_combine_kernel(
     const T* __restrict__ xar, const T* __restrict__ xai, const T* __restrict__ yar,
     const T* __restrict__ yai, const T* __restrict__ hr, const T* __restrict__ hi,
@@ -46,8 +49,9 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   const int wtiles = w / TW;
   const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const size_t plane = (size_t)n1 * n2 * w;
-  const size_t base = blockIdx.y * plane + (size_t)k1 * n2 * w + w0;
-  const size_t cbase = (blockIdx.y % pc) * plane + (size_t)k1 * n2 * w + w0;
+  const size_t tile0 = (size_t)k1 * n2 * w + w0;
+  const size_t base = kStack ? blockIdx.y * plane + tile0 : tile0;
+  const size_t cbase = kStack ? (blockIdx.y % pc) * plane + tile0 : tile0;
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
@@ -126,10 +130,12 @@ template <typename T>
 static int run(const void* const* in, void* const* out, const float2* tab, int planes, int pc,
                int n1, int n2, int w, void* stream) {
   const size_t smem = sizeof(float2) * (3 * ((size_t)n2 * TW + dft_slack(n2)) + 2 * n2);
-  return launch(h_combine_kernel<T>, dim3(n1 * (w / TW), planes), dim3(256), smem, stream,
-                (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
-                (const T*)in[4], (const T*)in[5], (const T*)in[6], (T*)out[0], (T*)out[1],
-                (T*)out[2], (T*)out[3], tab, pc, n1, n2, w);
+  const dim3 grid(n1 * (w / TW), planes);
+  auto kernel = planes == 1 ? h_combine_kernel<T, false> : h_combine_kernel<T, true>;
+  return launch(kernel, grid, dim3(256), smem, stream, (const T*)in[0], (const T*)in[1],
+                (const T*)in[2], (const T*)in[3], (const T*)in[4], (const T*)in[5],
+                (const T*)in[6], (T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], tab, pc, n1,
+                n2, w);
 }
 
 // The four input and four output arrays are stacks of `planes` planes of

@@ -1,5 +1,6 @@
 // Shared device code of the port's kernels: the batched DFT stages on
-// shared memory and the packed-real W-axis cores.
+// shared memory, the packed-real W-axis cores (half-spectrum solver) and
+// the complex full-width W cores (full-width solver).
 //
 // A length-n axis is factored n = n1 * n2.  The forward two-stage DFT
 // contracts j1 with F1[k1, j1] = r1[(k1 j1) mod n1], multiplies by the
@@ -13,7 +14,8 @@
 // Each stage is a DFT in FFMA.  A stage of length L >= 16 runs as two
 // direct passes of lengths a and b (L = a*b, Cooley-Tukey, `dft`), so a
 // point costs a + b complex multiply-adds instead of L: 36 instead of 160
-// for a 12 MP W core (32 = 4*8, 128 = 8*16), 16 instead of 48 along H.
+// for a 12 MP half-width W core (32 = 4*8, 128 = 8*16), 40 instead of 192
+// for the full-width one (64 = 8*8, 128 = 8*16), 16 instead of 48 along H.
 // The design keeps every intermediate of a row or column tile in shared
 // memory (one HBM read and write per plane) and register-tiles each pass
 // 4 outputs x 4 vectors per thread, so one shared load feeds four complex
@@ -180,10 +182,42 @@ __host__ inline size_t w_smem_bytes(int n1, int n2) {
   return sizeof(float2) * (2 * (size_t)w_buf_len(n1, n2) + 2 * (n1 + n2));
 }
 
+// Split position of frequency (n - k) mod n for the frequency k at split
+// position (k1, k2) of a length-n = n1 * n2 transform.
 __device__ __forceinline__ int mirror_pos(int k1, int k2, int n1, int n2) {
   const int s1 = k1 ? n1 - k1 : 0;
   const int s2 = k1 ? n2 - 1 - k2 : (k2 ? n2 - k2 : 0);
   return s1 * n2 + s2;
+}
+
+// Complex forward two-stage transform of the row A[j] (natural j = j1*n2 +
+// j2 < n) through the second buffer B.  Returns the buffer that holds the
+// split-order spectrum at [k1*(n2+1) + k2].
+__device__ inline const float2* c_fwd_core(float2* A, float2* B, const Plan& p, const float2* R) {
+  const int n1 = p.n1, n2 = p.n2;
+  // stage 1: vectors j2, contract j1 -> [j2*(n1+1) + k1], twiddle Tf[k1, j2]
+  float2* Y = dft(A, B, 1, n2, n1 + 1, 1, n1, n2, R, p.tf, 1, n2, 1.f);
+  __syncthreads();
+  // stage 2: vectors k1, contract j2 -> [k1*(n2+1) + k2]
+  const float2* P = dft(Y, Y == A ? B : A, 1, n1 + 1, n2 + 1, 1, n2, n1, R + n1, nullptr, 0, 0,
+                        1.f);
+  __syncthreads();
+  return P;
+}
+
+// Complex inverse two-stage transform of the split-order spectrum held in A
+// at [k2*(n1+1) + k1], through B.  Returns the buffer that holds the row at
+// natural j = j1*n2 + j2, times `scale`.
+__device__ inline float2* c_inv_core(float2* A, float2* B, const Plan& p, const float2* R,
+                                     float scale) {
+  const int n1 = p.n1, n2 = p.n2;
+  // inner: vectors k1, contract k2 -> [k1*(n2+1) + j2], twiddle Ti[k1, j2]
+  float2* Y = dft(A, B, 1, n1 + 1, n2 + 1, 1, n2, n1, R + 2 * n1 + n2, p.ti, n2, 1, 1.f);
+  __syncthreads();
+  // outer: vectors j2, contract k1 -> [j1*n2 + j2]
+  float2* X = dft(Y, Y == A ? B : A, 1, n2 + 1, 1, n2, n1, n2, R + n1 + n2, nullptr, 0, 0, scale);
+  __syncthreads();
+  return X;
 }
 
 // Forward packed-real W core.  On entry A[j] = x_even[j] + i x_odd[j] for
@@ -193,13 +227,7 @@ __device__ __forceinline__ int mirror_pos(int k1, int k2, int n1, int n2) {
 template <typename T, int V>
 __device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R, T* zr, T* zi) {
   const int n1 = p.n1, n2 = p.n2, m = p.n;
-  // stage 1: vectors j2, contract j1 -> [j2*(n1+1) + k1], twiddle Tf[k1, j2]
-  float2* Y = dft(A, B, 1, n2, n1 + 1, 1, n1, n2, R, p.tf, 1, n2, 1.f);
-  __syncthreads();
-  // stage 2: vectors k1, contract j2 -> P at [k1*(n2+1) + k2]
-  const float2* P = dft(Y, Y == A ? B : A, 1, n1 + 1, n2 + 1, 1, n2, n1, R + n1, nullptr, 0, 0,
-                        1.f);
-  __syncthreads();
+  const float2* P = c_fwd_core(A, B, p, R);
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int p0 = threadIdx.x * V; p0 < m; p0 += blockDim.x * V) {
@@ -270,14 +298,190 @@ __device__ float2* w_inv_core(const T* zr, const T* zi, float2 z0, float2* A, fl
     A[k2 * (n1 + 1) + k1] = make_float2(Er - Oi, Ei + Or);
   }
   __syncthreads();
-  // inner: vectors k1, contract k2 -> [k1*(n2+1) + j2], twiddle Ti[k1, j2]
-  float2* Y = dft(A, B, 1, n1 + 1, n2 + 1, 1, n2, n1, R + 2 * n1 + n2, p.ti, n2, 1, 1.f);
+  return c_inv_core(A, B, p, R, 1.f / (float)m);
+}
+
+// ---------------------------------------------------------------------------
+// Full-width W rows (K10-K13): a row of n = n1 * n2 complex values, two real
+// rows at once.  The forward transform of z = x0 + i x1 gives both real
+// rows' spectra through the mirror, X0[k] = (Z[k] + conj(Z[-k])) / 2 and
+// X1[k] = (Z[k] - conj(Z[-k])) / 2i; the inverse of C = herm(a0) + i
+// herm(a1), herm(a)[k] = (a[k] + conj(a[-k])) / 2, is Re ifft(a0) + i Re
+// ifft(a1) for any spectra a0, a1.  One DFT serves two rows, exactly in
+// the kernels' contract.  The rounding of a shared DFT is relative to the
+// larger row, so the second row is first scaled by a power of two (exact)
+// into the binade of the first and its outputs scaled back: in the solver
+// v (order mu1) rides beside rk (order tau), 100 times larger.  The
+// full-width kernels run FW_THREADS threads a block.
+// ---------------------------------------------------------------------------
+
+constexpr int FW_THREADS = 512;
+
+// (max a, max b) over the block's FW_THREADS threads, by a shared-memory
+// tree; every thread gets it.  Ends synchronised.
+__device__ inline float2 block_max2(float a, float b) {
+  __shared__ float2 red[FW_THREADS];
+  const int t = threadIdx.x;
+  red[t] = make_float2(a, b);
   __syncthreads();
-  // outer: vectors j2, contract k1 -> [j1*n2 + j2], scale 1/m
-  float2* X = dft(Y, Y == A ? B : A, 1, n2 + 1, 1, n2, n1, n2, R + n1 + n2, nullptr, 0, 0,
-                  1.f / (float)m);
+  for (int h = FW_THREADS / 2; h > 0; h >>= 1) {
+    if (t < h) red[t] = make_float2(fmaxf(red[t].x, red[t + h].x), fmaxf(red[t].y, red[t + h].y));
+    __syncthreads();
+  }
+  const float2 r = red[0];
   __syncthreads();
-  return X;
+  return r;
+}
+
+// The power of two 2^k that brings a row of max |x| = m1 into the binade of
+// a row of max |x| = m0 (1 if either is 0 or not finite), |k| <= 100.
+__device__ inline float pow2_balance(float2 m) {
+  if (!(m.x > 0.f && m.y > 0.f && m.x < INFINITY && m.y < INFINITY)) return 1.f;
+  int k = ilogbf(m.x) - ilogbf(m.y);
+  k = k > 100 ? 100 : (k < -100 ? -100 : k);
+  return ldexpf(1.f, k);
+}
+
+// Scales the imaginary parts of the complex row A[j] (j < n) by the power
+// of two that balances them against the real parts; returns it.  Starts
+// and ends synchronised.
+__device__ inline float balance_imag(float2* A, int n) {
+  float m0 = 0.f, m1 = 0.f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    m0 = fmaxf(m0, fabsf(A[j].x));
+    m1 = fmaxf(m1, fabsf(A[j].y));
+  }
+  const float s = pow2_balance(block_max2(m0, m1));
+  for (int j = threadIdx.x; j < n; j += blockDim.x) A[j].y *= s;
+  __syncthreads();
+  return s;
+}
+
+// A[j] <- x0[j] + i x1[j] for j < n (x1 null: 0), widened from T.
+template <typename T, int V>
+__device__ void load_two_rows(const T* x0, const T* x1, float2* A, int n) {
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int j0 = threadIdx.x * V; j0 < n; j0 += blockDim.x * V) {
+    float re[V], im[V] = {};
+    ldv<V>(x0 + j0, re);
+    if (x1) ldv<V>(x1 + j0, im);
+    rot(re, s);
+    rot(im, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) A[j0 + ((k + s) & (V - 1))] = make_float2(re[k], im[k]);
+  }
+}
+
+// From the split-order spectrum P of z = x0 + i x1 s at [k1*(n2+1) + k2]
+// (c_fwd_core), the split-order spectra of x0 and x1 (times inv_s = 1/s)
+// as T (x1r null: x0's only).
+template <typename T, int V>
+__device__ void store_two_spectra(const float2* P, const Plan& p, T* x0r, T* x0i, T* x1r, T* x1i,
+                                  float inv_s) {
+  const int n1 = p.n1, n2 = p.n2, n = p.n;
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int p0 = threadIdx.x * V; p0 < n; p0 += blockDim.x * V) {
+    float ar[V], ai[V], br[V], bi[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int pos = p0 + ((k + s) & (V - 1));
+      const int k1 = pos / n2, k2 = pos - k1 * n2;
+      const int mp = mirror_pos(k1, k2, n1, n2);
+      const int m1 = mp / n2, m2 = mp - m1 * n2;
+      const float2 z = P[k1 * (n2 + 1) + k2], q = P[m1 * (n2 + 1) + m2];
+      ar[k] = 0.5f * (z.x + q.x);
+      ai[k] = 0.5f * (z.y - q.y);
+      br[k] = 0.5f * (z.y + q.y) * inv_s;
+      bi[k] = 0.5f * (q.x - z.x) * inv_s;
+    }
+    unrot(ar, s);
+    unrot(ai, s);
+    stv<V>(x0r + p0, ar);
+    stv<V>(x0i + p0, ai);
+    if (x1r) {
+      unrot(br, s);
+      unrot(bi, s);
+      stv<V>(x1r + p0, br);
+      stv<V>(x1i + p0, bi);
+    }
+  }
+}
+
+// Loads the split-order spectra a0, a1 (T) of one row and leaves C =
+// herm(a0) + i herm(a1) s in A at c_inv_core's layout [k2*(n1+1) + k1],
+// s the balancing power of two, which it returns; B is scratch.  a1r
+// null: a1 = 0.  Ends synchronised.
+template <typename T, int V>
+__device__ float load_two_spectra(const T* a0r, const T* a0i, const T* a1r, const T* a1i,
+                                  float2* A, float2* B, const Plan& p) {
+  const int n1 = p.n1, n2 = p.n2, n = p.n;
+  const int s = lane_rot<V, 1>();
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int p0 = threadIdx.x * V; p0 < n; p0 += blockDim.x * V) {
+    float re[V], im[V], br[V] = {}, bi[V] = {};
+    ldv<V>(a0r + p0, re);
+    ldv<V>(a0i + p0, im);
+    if (a1r) {
+      ldv<V>(a1r + p0, br);
+      ldv<V>(a1i + p0, bi);
+    }
+    rot(re, s);
+    rot(im, s);
+    rot(br, s);
+    rot(bi, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int pos = p0 + ((k + s) & (V - 1));
+      const int k1 = pos / n2, k2 = pos - k1 * n2;
+      A[k2 * (n1 + 1) + k1] = make_float2(re[k], im[k]);
+      B[k2 * (n1 + 1) + k1] = make_float2(br[k], bi[k]);
+      m0 = fmaxf(m0, fmaxf(fabsf(re[k]), fabsf(im[k])));
+      m1 = fmaxf(m1, fmaxf(fabsf(br[k]), fabsf(bi[k])));
+    }
+  }
+  const float sc = pow2_balance(block_max2(m0, m1)), hs = 0.5f * sc;
+  // each mirror pair {k, -k} by one thread, in place; frequency f = k1 + n1 k2
+  for (int pos = threadIdx.x; pos < n; pos += blockDim.x) {
+    const int k1 = pos / n2, k2 = pos - k1 * n2;
+    const int f = k1 + n1 * k2;
+    if (f > (f ? n - f : 0)) continue;
+    const int mp = mirror_pos(k1, k2, n1, n2);
+    const int m1 = mp / n2, m2 = mp - m1 * n2;
+    const int i = k2 * (n1 + 1) + k1, j = m2 * (n1 + 1) + m1;
+    const float2 a = A[i], am = A[j], b = B[i], bm = B[j];
+    const float h0r = 0.5f * (a.x + am.x), h0i = 0.5f * (a.y - am.y);
+    const float h1r = hs * (b.x + bm.x), h1i = hs * (b.y - bm.y);
+    A[i] = make_float2(h0r - h1i, h0i + h1r);
+    if (j != i) A[j] = make_float2(h0r + h1i, h1r - h0i);
+  }
+  __syncthreads();
+  return sc;
+}
+
+// Store the row X[j] (j < n) as its real part to o0 and its imaginary part
+// times inv_s to o1 (null: dropped), as T.
+template <typename T, int V>
+__device__ void store_two_rows(const float2* X, int n, T* o0, T* o1, float inv_s) {
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int j0 = threadIdx.x * V; j0 < n; j0 += blockDim.x * V) {
+    float re[V], im[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float2 x = X[j0 + ((k + s) & (V - 1))];
+      re[k] = x.x;
+      im[k] = x.y * inv_s;
+    }
+    unrot(re, s);
+    stv<V>(o0 + j0, re);
+    if (o1) {
+      unrot(im, s);
+      stv<V>(o1 + j0, im);
+    }
+  }
 }
 
 // Store a row held as X[j] = x_even[j] + i x_odd[j] (j < m) to its split

@@ -13,6 +13,10 @@ storage mode of the JAX package).
 | ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
 | ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cu`` |
 | ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu`` |
+| ``e1_carry`` (K10) | ``e1_carry`` / ``_e1c_kernel`` | ``csrc/e1_carry.cu`` |
+| ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu`` |
+| ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu`` |
+| ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu`` |
 
 A wrapper given CPU tensors runs the plain version (``*_plain``).  Given
 CUDA tensors it launches its kernel on the current stream or raises: it
@@ -31,8 +35,12 @@ point at the full scales ``_tv_scales`` and ``_v_scale``).  A dtype
 combination the CUDA code was not built for raises ``TypeError`` on a
 CUDA tensor; nothing is converted quietly.
 
+K1-K9 serve the half-spectrum solver (spatial rows in the even/odd split
+lane layout, half-width spectra); K10-K13 the full-width one (natural
+lane order, full-width complex spectra in split order).
+
 Plane axis (the JAX solver's ``vmap`` over B * D * C planes, written
-out).  Every plane operand of K1, K3-K6, K8 and K9 may carry a leading
+out).  Every plane operand of K1, K3-K6 and K8-K13 may carry a leading
 axis P: spatial planes (P, ph, pw), half spectra (P, ph, pw/2), H-axis
 views (P, n1, n2, W), DC columns (P, ph).  The per-PSF constants (the
 filter planes H and R, the support mask) carry Pc with P % Pc == 0, and
@@ -51,7 +59,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .split_fft import _factor, _plan, _plan_t, _rplan, irfft_w_split, rfft_w_split
+from .split_fft import (_factor, _plan, _plan_t, _rplan, fft_w_split, ifft_w_split,
+                        irfft_w_split, rfft_w_split)
 
 _F32 = torch.float32
 
@@ -82,6 +91,14 @@ def _split_roll_m1(x, mh):
     new_even[j] = odd[j], new_odd[j] = even[j+1]."""
     ev, od = x[..., :mh], x[..., mh:]
     return torch.cat([od, torch.roll(ev, -1, dims=-1)], dim=-1)
+
+
+def _w_rolls(natural, mh):
+    """(roll(+1), roll(-1)) along natural W, for rows in natural lane order
+    or in the split lane layout of half width ``mh``."""
+    if natural:
+        return (lambda x: torch.roll(x, 1, dims=-1)), (lambda x: torch.roll(x, -1, dims=-1))
+    return (lambda x: _split_roll_p1(x, mh)), (lambda x: _split_roll_m1(x, mh))
 
 
 def _bc(x, c):
@@ -277,6 +294,13 @@ def _launch(lib, fn, sig, *args):
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
 
 
+def _rows(name, x):
+    """(rows, width) of (..., rows, width) rows, at least 2-D."""
+    if x.dim() < 2:
+        raise ValueError(f"{name}: expected (..., rows, width), got {tuple(x.shape)}")
+    return x.numel() // x.shape[-1], x.shape[-1]
+
+
 def _empty(shape, like, dtype=None):
     return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
 
@@ -307,11 +331,8 @@ def rfft_w(x):
     half-spectrum (..., N/2) r/i pair in split order, Z[N/2] packed into
     Im of lane 0; io dtype (f32 or bf16) in and out.  All rows of all
     planes go to one launch."""
-    if x.dim() < 2:
-        raise ValueError(f"rfft_w: expected (..., rows, N), got {tuple(x.shape)}")
-    n_full = x.shape[-1]
+    rows, n_full = _rows("rfft_w", x)
     m = n_full // 2
-    rows = x.numel() // n_full
     _check("rfft_w", [x], dtypes=IO_DTYPES)
     cuda = _on_card("rfft_w", [x], (x.dtype,), _IO_BUILT)
     n1, n2 = factors(m, cuda)
@@ -357,10 +378,11 @@ def irfft_w(zr, zi, out_dtype=_F32):
 # ---------------------------------------------------------------------------
 
 
-def _tv_step(image, a0, a1, b, mu2, mu3, tau):
-    """The TV / non-negativity step of K3 and K8 in f32: (rk, a0', a1',
-    b'), periodic within each plane."""
-    mh = image.shape[-1] // 2
+def _tv_step(image, a0, a1, b, mu2, mu3, tau, natural=False):
+    """The TV / non-negativity step of K3 and K8 (split lane layout) and
+    of K10 (``natural`` lane order) in f32: (rk, a0', a1', b'), periodic
+    within each plane."""
+    roll_p1, roll_m1 = _w_rolls(natural, image.shape[-1] // 2)
     thr = tau / mu2
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     img = image.to(_F32)
@@ -370,10 +392,10 @@ def _tv_step(image, a0, a1, b, mu2, mu3, tau):
     eta0 = mu2 * psi0 - _load_carry(a0, sc_a)
     a0n = mu2 * _soft(psi0 + eta0 / mu2, thr) - eta0
     adj0 = torch.roll(a0n, -1, dims=-2) - a0n
-    psi1 = _split_roll_p1(img, mh) - img
+    psi1 = roll_p1(img) - img
     eta1 = mu2 * psi1 - _load_carry(a1, sc_a)
     a1n = mu2 * _soft(psi1 + eta1 / mu2, thr) - eta1
-    adj1 = _split_roll_m1(a1n, mh) - a1n
+    adj1 = roll_m1(a1n) - a1n
     rho = mu3 * img - _load_carry(b, sc_b)
     W = torch.clamp(rho / mu3 + img, min=0.0)
     bn = mu3 * W - rho
@@ -778,8 +800,154 @@ def irfft_w_dual(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
     return image, fwd
 
 
+# ---------------------------------------------------------------------------
+# K12 / K13: full-width forward and inverse W transforms (split order)
+# ---------------------------------------------------------------------------
+
+
+def fft_w_plain(x):
+    """(..., W) real rows -> split-order spectrum r/i, computed in f32 and
+    stored at the input's dtype."""
+    zr, zi = fft_w_split(x.to(_F32))
+    return zr.to(x.dtype), zi.to(x.dtype)
+
+
+def fft_w(x):
+    """(..., W) real rows in natural order (a plane or a stack of planes)
+    -> the split-order W spectrum (..., W) as r/i planes; io dtype (f32 or
+    bf16) in and out.  All rows of all planes go to one launch."""
+    rows, w = _rows("fft_w", x)
+    _check("fft_w", [x], dtypes=IO_DTYPES)
+    cuda = _on_card("fft_w", [x], (x.dtype,), _IO_BUILT)
+    n1, n2 = factors(w, cuda)
+    if not cuda:
+        return fft_w_plain(x)
+    zr, zi = _empty(x.shape, x), _empty(x.shape, x)
+    _launch("fft_w", "lpt_fft_w", "ppppiiii", x, zr, zi, _table(w, False, x.device),
+            rows, n1, n2, _CODE[x.dtype])
+    fft_w.launches += 1
+    return zr, zi
+
+
+def ifft_w_plain(vr, vi, out_dtype=_F32):
+    """Real part of the inverse of a split-order spectrum, computed in f32,
+    stored as ``out_dtype``."""
+    return ifft_w_split(vr.to(_F32), vi.to(_F32)).to(out_dtype)
+
+
+def ifft_w(vr, vi, out_dtype=_F32):
+    """(..., W) split-order spectrum r/i (io dtype) -> (..., W) real part
+    of its inverse W transform, natural order, as ``out_dtype`` (f32 or
+    bf16).  No spectrum is assumed Hermitian."""
+    rows, w = _rows("ifft_w", vr)
+    _check("ifft_w", [vr, vi], vr.shape, IO_DTYPES)
+    if out_dtype not in IO_DTYPES:
+        raise TypeError(f"ifft_w: out_dtype {out_dtype} is not one of {IO_DTYPES}")
+    cuda = _on_card("ifft_w", [vr, vi], (vr.dtype, vi.dtype, out_dtype),
+                    {(a, a, o) for a in IO_DTYPES for o in IO_DTYPES})
+    n1, n2 = factors(w, cuda)
+    if not cuda:
+        return ifft_w_plain(vr, vi, out_dtype)
+    out = _empty(vr.shape, vr, out_dtype)
+    _launch("ifft_w", "lpt_ifft_w", "pppp" + "iiiii", vr, vi, out,
+            _table(w, False, vr.device), rows, n1, n2, _CODE[vr.dtype], _CODE[out_dtype])
+    ifft_w.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K10: full-width pre-transform step (TV + X/v + the forward W transforms)
+# ---------------------------------------------------------------------------
+
+FULL_TV_DTYPES = IO_DTYPES     # K10's TV carries: never int16 (module docstring)
+
+
+def e1_carry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
+    rk, a0n, a1n, bn = _tv_step(image, a0, a1, b, mu2, mu3, tau, natural=True)
+    vn = _xv_step(fwd.to(_F32), v, mask, dp, mu1)
+    rkr, rki = fft_w_split(rk)
+    vwr, vwi = fft_w_split(vn)
+    io = image.dtype
+    return (rkr.to(io), rki.to(io), vwr.to(io), vwi.to(io),
+            _store_carry(vn, v.dtype, _v_scale(mu1)),
+            a0n.to(a0.dtype), a1n.to(a1.dtype), bn.to(b.dtype))
+
+
+def e1_carry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
+    """Full-width pre-transform step, planes in natural lane order: the TV
+    / non-negativity step (a0', a1', b' and rk, the W difference a roll
+    within the row), the X / v update v' = mu1 X - xi from the carried
+    forward plane ``fwd`` and the {0,1} support ``mask``, and the forward
+    W transforms of rk and of the f32 v', split order.  Planes (ph, pw) or
+    stacks (P, ph, pw); the mask a plane or a stack of Pc (plane p reads
+    mask plane p % Pc).  image, fwd, mask, dp and the spectra at the io
+    dtype; b, a0, a1 at one TV carry dtype, f32 or bf16 (the JAX kernel
+    has no int16 TV carries here); v at the v carry dtype, f32, bf16 or
+    int16 at full scale 256 mu1.  Returns (rk_wr, rk_wi, v_wr, v_wi, v',
+    a0', a1', b')."""
+    name = "e1_carry"
+    ph, w = image.shape[-2:]
+    p = _depth(name, image, (ph, w))
+    rows = image.numel() // w
+    _check(name, [image, fwd, dp], image.shape, IO_DTYPES)
+    _check(name, [b, a0, a1], image.shape, FULL_TV_DTYPES)
+    _check(name, [b, a0, a1], image.shape, (b.dtype,))
+    _check(name, [v], image.shape, CARRY_DTYPES)
+    pc = _const_depth(name, [mask], (ph, w), p)
+    planes = [image, fwd, v, b, a0, a1, mask, dp]
+    cuda = _on_card(name, planes, tuple(t.dtype for t in planes),
+                    {(i, i, cv, c, c, c, i, i) for i in IO_DTYPES
+                     for c in FULL_TV_DTYPES for cv in CARRY_DTYPES})
+    n1, n2 = factors(w, cuda)
+    if not cuda:
+        return e1_carry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau)
+    c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
+    spectra = [_empty(image.shape, image) for _ in range(4)]
+    vo = _empty(image.shape, v)
+    a0o, a1o, bo = (_empty(image.shape, a0) for _ in range(3))
+    _launch("e1_carry", "lpt_e1_carry", "p" * 17 + "iiiii" + "ffffff" + "ff" + "iii",
+            image, fwd, v, b, a0, a1, mask, dp, *spectra, vo, a0o, a1o, bo,
+            _table(w, False, image.device), rows, ph, pc, n1, n2,
+            float(mu1), float(mu2), float(mu3), float(tau), float(c_out),
+            float(c_in - c_out), *_fix(_v_scale(mu1)),
+            _CODE[image.dtype], _CODE[a0.dtype], _CODE[v.dtype])
+    e1_carry.launches += 1
+    return (*spectra, vo, a0o, a1o, bo)
+
+
+# ---------------------------------------------------------------------------
+# K11: full-width post-transform step (dual inverse W transform)
+# ---------------------------------------------------------------------------
+
+
+def ifft_w_dual_plain(a0r, a0i, a1r, a1i):
+    io = a0r.dtype
+    return ifft_w_plain(a0r, a0i, io), ifft_w_plain(a1r, a1i, io)
+
+
+def ifft_w_dual(a0r, a0i, a1r, a1i):
+    """Full-width post-transform step: (image, fwd) = the real parts of
+    the inverse W transforms of the split-order spectra a0 and a1, natural
+    order, at a0r's dtype.  Planes (ph, pw) or stacks (P, ph, pw).  No
+    spectrum is assumed Hermitian."""
+    name = "ifft_w_dual"
+    ins = [a0r, a0i, a1r, a1i]
+    rows, w = _rows(name, a0r)
+    _check(name, ins, a0r.shape, IO_DTYPES)
+    cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 4 for d in IO_DTYPES})
+    n1, n2 = factors(w, cuda)
+    if not cuda:
+        return ifft_w_dual_plain(*ins)
+    image, fwd = _empty(a0r.shape, a0r), _empty(a0r.shape, a0r)
+    _launch("ifft_w_dual", "lpt_ifft_w_dual", "pppppppiiii", *ins, image, fwd,
+            _table(w, False, a0r.device), rows, n1, n2, _CODE[a0r.dtype])
+    ifft_w_dual.launches += 1
+    return image, fwd
+
+
 WRAPPERS = (rfft_w, irfft_w, e1_rtv, h_passA_pair, h_combine_dual,
-            irfft_w_dual_state, sat_scan_i16, e1_rcarry, irfft_w_dual)
+            irfft_w_dual_state, sat_scan_i16, e1_rcarry, irfft_w_dual,
+            e1_carry, ifft_w_dual, fft_w, ifft_w)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -1,6 +1,6 @@
-"""Split-order DFT layout and the packed-real W transform in plain
-PyTorch (port of lenslesspicam_tpu/ops/pallas_fft.py:53-94, 111-162,
-220-268, 296-421).
+"""Split-order DFT layout, the full-width complex transforms and the
+packed-real W transform in plain PyTorch (port of
+lenslesspicam_tpu/ops/pallas_fft.py:53-94, 111-268, 296-436).
 
 A length-n axis is factored n = n1 * n2 (``_factor``).  The two-stage
 transform leaves frequency k = k1 + n1 * k2 at position (k1, k2), the
@@ -140,6 +140,62 @@ def two_stage(x, n: int, inverse: bool = False):
         return torch.matmul(y, F2)           # contract j2
     a = torch.matmul(x, F2) * T              # contract k2, twiddle (k1, j2)
     return torch.matmul(F1, a) * scale       # contract k1
+
+
+# ---------------------------------------------------------------------------
+# full-width complex split transforms (pallas_fft.py:171-268, 424-436): the
+# JAX package computes these in XLA, and they are the oracle of the
+# full-width solver (recon/admm_split.py run_split).  ``two_stage(...,
+# inverse=True)`` is the JAX ``_two_stage_inverse``.  Every function takes
+# leading plane axes.
+# ---------------------------------------------------------------------------
+
+
+def fft_w_split(x):
+    """(..., W) real rows -> split-order W spectrum as (..., W) r/i."""
+    lead, w = tuple(x.shape[:-1]), x.shape[-1]
+    n1, n2 = _factor(w)
+    z = two_stage(torch.complex(x, torch.zeros_like(x)).reshape(*lead, n1, n2), w)
+    z = z.reshape(*lead, w)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def ifft_w_split(vr, vi):
+    """(..., W) split-order spectrum -> real part of its inverse, natural
+    order, scaled 1/W."""
+    lead, w = tuple(vr.shape[:-1]), vr.shape[-1]
+    n1, n2 = _factor(w)
+    z = two_stage(torch.complex(vr, vi).reshape(*lead, n1, n2), w, inverse=True)
+    return z.real.reshape(*lead, w).contiguous()
+
+
+def _h_transform(vr, vi, inverse):
+    """The split-order transform along H (axis -2) of (..., H, K) r/i."""
+    *lead, h, k = vr.shape
+    n1, n2 = _factor(h)
+    x = torch.complex(vr, vi).reshape(*lead, n1, n2, k).movedim(-1, -3)
+    z = two_stage(x, h, inverse).movedim(-3, -1).reshape(*lead, h, k)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def fft_h_split(vr, vi):
+    """(..., H, K) r/i -> the split-order forward transform along H."""
+    return _h_transform(vr, vi, False)
+
+
+def ifft_h_split(vr, vi):
+    """(..., H, K) split-order r/i -> the inverse transform along H,
+    natural order, scaled 1/H."""
+    return _h_transform(vr, vi, True)
+
+
+def filtered_synthesis_split(x, filt_r, filt_i):
+    """Re ifft2(fft2(x) * F) of (..., H, W) real planes, with the filter F
+    in split order on both axes (``spectrum_to_split``)."""
+    hr, hi = fft_h_split(*fft_w_split(x))
+    mr = hr * filt_r - hi * filt_i
+    mi = hr * filt_i + hi * filt_r
+    return ifft_w_split(*ifft_h_split(mr, mi))
 
 
 def to_split_layout(x):

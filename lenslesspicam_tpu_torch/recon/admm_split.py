@@ -1,7 +1,9 @@
-"""Fused half-spectrum ADMM: the system's hot path (port of
-lenslesspicam_tpu/recon/admm_split.py:205-525, both kernel placements, at
-every storage mode of the JAX package, for one plane or a batched RGB /
-3-D stack of planes).
+"""Split-order ADMM (port of lenslesspicam_tpu/recon/admm_split.py): the
+fused half-spectrum solver, the system's hot path (:205-525, both kernel
+placements, at every storage mode of the JAX package, for one plane or a
+batched RGB / 3-D stack of planes), and the full-width split solver
+(:30-192, 528-701; ``precompute_split``, ``run_split``,
+``run_split_general``, at the end of this module).
 
 Spatial planes ride in the even/odd split lane layout; spectra, filter
 constants and all H-axis work are half width (``ops/split_fft.py``).
@@ -56,6 +58,7 @@ from .._device import resolve_device
 from ..ops import kernels
 from ..ops import split_fft as sf
 from ..ops.padding import padded_size
+from ..ops.tv import soft_thresh
 from .admm import ADMMParams
 
 
@@ -83,29 +86,45 @@ ARRAY_FIELDS = ("Hr", "Hi", "R", "mask", "data_pad",
 PLACEMENTS = ("v3", "v2")
 
 
-def precompute_rsplit_np(psf2d: np.ndarray, data2d: np.ndarray,
-                         params: ADMMParams = ADMMParams()) -> dict:
-    """The loop-invariant arrays as numpy, computed exactly as the JAX
-    package computes them (so both start from identical constants)."""
+def _geometry(psf2d):
+    """(nh, nw, ph, pw, sy, sx): the PSF's shape, the even padded grid and
+    the offset of the PSF in it."""
     nh, nw = psf2d.shape
     ph, pw = padded_size(nh), padded_size(nw)
     if ph % 2 or pw % 2:
         raise ValueError(f"padded grid {ph}x{pw} must be even on both axes")
-    sy, sx = (ph - nh) // 2, (pw - nw) // 2
-    mh = pw // 2
+    return nh, nw, ph, pw, (ph - nh) // 2, (pw - nw) // 2
 
-    pad = np.zeros((ph, pw), np.float32)
-    pad[sy : sy + nh, sx : sx + nw] = psf2d
-    H_nat = np.fft.fft2(pad).astype(np.complex64)
+
+def _pad_np(x2d, ph, pw, sy, sx):
+    out = np.zeros((ph, pw), np.float32)
+    out[sy : sy + x2d.shape[0], sx : sx + x2d.shape[1]] = x2d
+    return out
+
+
+def _filters_np(psf2d, params: ADMMParams):
+    """(H, R, geometry) on the padded grid in natural order, as the JAX
+    package's precomputes compute them: H the PSF's spectrum (complex64,
+    the ifftshift folded in as (-1)^(ky+kx)), R = 1 / (mu1 |H|^2 + mu2
+    |fft2(Laplacian)| + mu3) as f32, the geometry of :func:`_geometry`."""
+    geo = nh, nw, ph, pw, sy, sx = _geometry(psf2d)
+    H_nat = np.fft.fft2(_pad_np(psf2d, ph, pw, sy, sx)).astype(np.complex64)
     mask = np.outer((-1.0) ** np.arange(ph), (-1.0) ** np.arange(pw)).astype(np.float32)
     H_nat = H_nat * mask
-
     kern = np.zeros((ph, pw), np.float32)
     kern[0, 0] = 4.0
     kern[0, 1] = kern[0, -1] = kern[1, 0] = kern[-1, 0] = -1.0
     psi = np.abs(np.fft.fft2(kern))
     R_nat = 1.0 / (params.mu1 * np.abs(H_nat) ** 2 + params.mu2 * psi + params.mu3)
-    R_nat = R_nat.astype(np.float32)
+    return H_nat, R_nat.astype(np.float32), geo
+
+
+def precompute_rsplit_np(psf2d: np.ndarray, data2d: np.ndarray,
+                         params: ADMMParams = ADMMParams()) -> dict:
+    """The loop-invariant arrays as numpy, computed exactly as the JAX
+    package computes them (so both start from identical constants)."""
+    H_nat, R_nat, (nh, nw, ph, pw, sy, sx) = _filters_np(psf2d, params)
+    mh = pw // 2
 
     H_half = sf.spectrum_to_half_split(H_nat)
     R_half = sf.spectrum_to_half_split(R_nat)
@@ -113,10 +132,8 @@ def precompute_rsplit_np(psf2d: np.ndarray, data2d: np.ndarray,
     def to_split(x):
         return np.ascontiguousarray(np.concatenate([x[:, 0::2], x[:, 1::2]], axis=1))
 
-    ones_pad = np.zeros((ph, pw), np.float32)
-    ones_pad[sy : sy + nh, sx : sx + nw] = 1.0
-    data_pad = np.zeros((ph, pw), np.float32)
-    data_pad[sy : sy + nh, sx : sx + nw] = data2d
+    ones_pad = _pad_np(np.ones((nh, nw), np.float32), ph, pw, sy, sx)
+    data_pad = _pad_np(data2d, ph, pw, sy, sx)
 
     c = np.ascontiguousarray
     return dict(
@@ -338,3 +355,241 @@ def run_rsplit_general(pre: RSplitPrecomp, info: dict, data,
         out, sat = out
     out = out.reshape(batch, depth, ch, nh, nw).permute(0, 1, 3, 4, 2).contiguous()
     return (out, sat) if return_sat else out
+
+
+# ---------------------------------------------------------------------------
+# full-width split solver (admm_split.py:30-192, 528-701): spatial planes in
+# natural lane order, full-width complex spectra in split order on both
+# axes (ops/split_fft.py).
+#
+# ``run_split(backend="torch")`` is the JAX package's ``"jax"`` backend: the
+# unfused loop of admm_split.py:534-601 through the plain split transforms,
+# at f32.  ``backend="fused"`` (``run_split_fused``) is the carry-rebuild
+# loop of admm_split.py:161-192: per iteration K10 ``e1_carry`` -> K4/K5/K4
+# ``fft_h_combine_dual`` -> K11 ``ifft_w_dual``, no dc_patch (the spectra
+# are full width).  Its TV carries are f32 or bf16: the JAX kernel stores
+# them at ``_CARRY_DTYPE``, never int16, and has no saturation channel, so
+# neither has the port.
+# ---------------------------------------------------------------------------
+
+
+class SplitPrecomp(NamedTuple):
+    # each array one plane, or a stack of planes on a leading axis: Pc for
+    # the per-PSF constants, P for data_pad
+    Hr: torch.Tensor        # (Ph, Pw) filter spectrum, split order
+    Hi: torch.Tensor
+    R: torch.Tensor         # (Ph, Pw) real, split order
+    X_divmat: torch.Tensor  # (Ph, Pw) spatial, natural order
+    data_pad: torch.Tensor  # (Ph, Pw) spatial, natural order
+    psf_shape: tuple
+    padded_shape: tuple
+    start: tuple
+
+
+SPLIT_FIELDS = ("Hr", "Hi", "R", "X_divmat", "data_pad")
+BACKENDS = ("torch", "fused")
+
+
+def precompute_split_np(psf2d: np.ndarray, data2d: np.ndarray,
+                        params: ADMMParams = ADMMParams()) -> dict:
+    """The full-width split precompute as numpy, computed exactly as the
+    JAX package's ``precompute_split`` computes it."""
+    H_nat, R_nat, (nh, nw, ph, pw, sy, sx) = _filters_np(psf2d, params)
+    H_split = sf.spectrum_to_split(H_nat, axes=(0, 1))
+    R_split = sf.spectrum_to_split(R_nat, axes=(0, 1))
+    ones_pad = _pad_np(np.ones((nh, nw), np.float32), ph, pw, sy, sx)
+    c = np.ascontiguousarray
+    return dict(
+        Hr=c(H_split.real), Hi=c(H_split.imag), R=c(R_split),
+        X_divmat=(1.0 / (ones_pad + params.mu1)).astype(np.float32),
+        data_pad=_pad_np(data2d, ph, pw, sy, sx),
+        psf_shape=(nh, nw), padded_shape=(ph, pw), start=(sy, sx),
+    )
+
+
+def _split_from_np(arrs: list, device, stack: bool = False) -> SplitPrecomp:
+    """A SplitPrecomp of the first set of numpy arrays, or with ``stack`` of
+    all of them stacked on a leading axis."""
+    def t(f):
+        x = np.stack([a[f] for a in arrs]) if stack else arrs[0][f]
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+    return SplitPrecomp(*[t(f) for f in SPLIT_FIELDS], psf_shape=arrs[0]["psf_shape"],
+                        padded_shape=arrs[0]["padded_shape"], start=arrs[0]["start"])
+
+
+def precompute_split(psf2d, data2d, params: ADMMParams = ADMMParams(),
+                     device=None) -> SplitPrecomp:
+    """Full-width split precompute for a (H, W) grayscale PSF and
+    measurement, placed on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
+    return _split_from_np([precompute_split_np(np.asarray(psf2d, np.float32),
+                                               np.asarray(data2d, np.float32), params)],
+                          device)
+
+
+def _finite_diff(x):
+    """Periodic differences along H and W (admm_split.py:86-98)."""
+    return torch.roll(x, 1, dims=-2) - x, torch.roll(x, 1, dims=-1) - x
+
+
+def _finite_diff_adj(u0, u1):
+    return (torch.roll(u0, -1, dims=-2) - u0) + (torch.roll(u1, -1, dims=-1) - u1)
+
+
+def _crop(image, pre):
+    sy, sx = pre.start
+    nh, nw = pre.psf_shape
+    return torch.clamp(image.to(torch.float32)[..., sy : sy + nh, sx : sx + nw], min=0.0)
+
+
+def _run_split_torch(pre: SplitPrecomp, params: ADMMParams, n_iter: int):
+    """The JAX package's ``"jax"`` backend (admm_split.py:534-601): the
+    unfused split loop through the plain full-width transforms, f32."""
+    mu1, mu2, mu3, tau = params.mu1, params.mu2, params.mu3, params.tau
+    bmul = kernels.bmul
+    Hr, Hi, R = pre.Hr, pre.Hi, pre.R
+
+    def fwd2(x):
+        return sf.fft_h_split(*sf.fft_w_split(x))
+
+    def inv2(vr, vi):
+        return sf.ifft_w_split(*sf.ifft_h_split(vr, vi))
+
+    zeros = torch.zeros(tuple(pre.data_pad.shape), dtype=torch.float32, device=Hr.device)
+    image = xi = rho = eta0 = eta1 = fwd = psi0 = psi1 = zeros
+    for _ in range(int(n_iter)):
+        U0 = soft_thresh(psi0 + eta0 / mu2, tau / mu2)
+        U1 = soft_thresh(psi1 + eta1 / mu2, tau / mu2)
+        X = bmul(pre.X_divmat, xi + mu1 * fwd + pre.data_pad)
+        W = torch.clamp(rho / mu3 + image, min=0.0)
+        rk = (mu3 * W - rho) + _finite_diff_adj(mu2 * U0 - eta0, mu2 * U1 - eta1)
+        v = mu1 * X - xi
+        ar, ai = fwd2(rk)
+        br, bi = fwd2(v)
+        fr = bmul(R, ar + bmul(Hr, br) + bmul(Hi, bi))
+        fi = bmul(R, ai + bmul(Hr, bi) - bmul(Hi, br))
+        # image = ifft(F); forward = ifft(H F)
+        image = inv2(fr, fi)
+        fwd = inv2(bmul(Hr, fr) - bmul(Hi, fi), bmul(Hi, fr) + bmul(Hr, fi))
+        psi0, psi1 = _finite_diff(image)
+        xi = xi + mu1 * (fwd - X)
+        rho = rho + mu3 * (image - W)
+        eta0 = eta0 + mu2 * (psi0 - U0)
+        eta1 = eta1 + mu2 * (psi1 - U1)
+    return _crop(image, pre)
+
+
+def run_split_fused(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
+                    n_iter: int = 100, ops=None, io: str = "f32",
+                    carry_tv: str = "f32", carry_v: str = "f32"):
+    """Full-width fused ADMM with the carry-rebuild state (the JAX
+    package's ``run_split_fused``): per iteration K10 ``e1_carry``, K4 /
+    K5 / K4 ``fft_h_combine_dual`` and K11 ``ifft_w_dual``, one launch
+    each per pass whatever the number of planes.  Returns the cropped
+    image clipped at 0, (H, W) for one plane and (P, H, W) for a stack.
+
+    ``io`` is "f32" or "bf16" (spectra, image, forward plane, mask and
+    data); ``carry_tv`` "f32" or "bf16" (a0, a1, b); ``carry_v`` "f32",
+    "bf16" or "i16" (v, fixed point at 256 mu1).  There is no saturation
+    channel, as in the JAX package.  ``ops`` is the kernel set,
+    ``kernels.KERNELS`` by default; ``kernels.PLAIN`` runs the same loop
+    through the plain PyTorch versions."""
+    ops = ops or kernels.KERNELS
+    io_t = kernels.storage_dtype(io, ("f32", "bf16"))
+    if carry_tv == "i16":
+        raise ValueError("carry_tv='i16': the full-width path has no int16 TV carries in "
+                         "the JAX package (e1_carry stores a0, a1, b at _CARRY_DTYPE); "
+                         "use 'f32' or 'bf16'")
+    tv_t = kernels.storage_dtype(carry_tv, ("f32", "bf16"))
+    v_t = kernels.storage_dtype(carry_v)
+    _check_planes(pre)
+    mu1, mu2, mu3, tau = params.mu1, params.mu2, params.mu3, params.tau
+    ph = pre.padded_shape[0]
+    shape, dev = tuple(pre.data_pad.shape), pre.Hr.device
+    Hr, Hi, R = pre.Hr.to(io_t), pre.Hi.to(io_t), pre.R.to(io_t)
+    # X_divmat's two values are rebuilt in the kernel from the {0,1}
+    # support mask (exact in bf16)
+    mask = (pre.X_divmat * mu1 < 0.5).to(io_t)
+    data_pad = pre.data_pad.to(io_t)
+    image = fwd = torch.zeros(shape, dtype=io_t, device=dev)
+    v = torch.zeros(shape, dtype=v_t, device=dev)
+    a0 = a1 = b = torch.zeros(shape, dtype=tv_t, device=dev)
+    for _ in range(int(n_iter)):
+        rkr, rki, vr, vi, v, a0, a1, b = ops.e1_carry(
+            image, fwd, v, b, a0, a1, mask, data_pad, mu1, mu2, mu3, tau)
+        (a0r, a0i), (a1r, a1i) = kernels.fft_h_combine_dual(
+            rkr, rki, vr, vi, Hr, Hi, R, ph, ops=ops)
+        image, fwd = ops.ifft_w_dual(a0r, a0i, a1r, a1i)
+    return _crop(image, pre)
+
+
+def run_split(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
+              n_iter: int = 100, backend: str = "torch", io: str = "f32",
+              carry_tv: str = "f32", carry_v: str = "f32"):
+    """Full-width split ADMM of one plane (or a stack); returns the cropped
+    image clipped at 0.  ``backend``: "torch", the JAX package's "jax"
+    backend (the unfused loop through the plain transforms, f32 only), or
+    "fused" (:func:`run_split_fused`, which takes the storage modes).  The
+    JAX package's "pallas" backend (K12-K17) is not ported yet and raises
+    NotImplementedError."""
+    if backend == "fused":
+        return run_split_fused(pre, params, n_iter, io=io, carry_tv=carry_tv, carry_v=carry_v)
+    if backend == "pallas":
+        raise NotImplementedError("run_split(backend='pallas') runs K12-K17, the JAX "
+                                  "package's pass-level kernels: not ported yet (ROADMAP "
+                                  "item 5b); use 'fused' or 'torch'")
+    if backend != "torch":
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS + ('pallas',)}")
+    if (io, carry_tv, carry_v) != ("f32", "f32", "f32"):
+        raise ValueError("the torch backend runs at f32, as the JAX package's jax "
+                         "backend; storage modes are for backend='fused'")
+    _check_planes(pre)
+    return _run_split_torch(pre, params, n_iter)
+
+
+def precompute_split_general(psf, data, params: ADMMParams = ADMMParams(), device=None):
+    """Per-plane full-width precompute for a (D, H, W, C) PSF and (B, D, H,
+    W, C) measurements (also (D, H, W, C) or (H, W, C)), placed on
+    ``device`` (None: the CUDA card).  Returns ``(pre, info)``: the
+    SplitPrecomp arrays stacked over the D * C planes (d-major, then c),
+    each computed as :func:`precompute_split` computes a gray plane
+    (data_pad from the first batch entry; depth-1 data serves every
+    depth), and ``info = {"batch", "depth", "channels"}``."""
+    device = resolve_device(device)
+    psf = np.asarray(psf, np.float32)
+    data = _as_5d(np.asarray(data, np.float32))
+    depth, _, _, ch = psf.shape
+    arrs = [precompute_split_np(psf[d, :, :, c],
+                                data[0, min(d, data.shape[1] - 1), :, :, c], params)
+            for d in range(depth) for c in range(ch)]
+    return (_split_from_np(arrs, device, stack=True),
+            dict(batch=data.shape[0], depth=depth, channels=ch))
+
+
+def run_split_general(pre: SplitPrecomp, info: dict, data,
+                      params: ADMMParams = ADMMParams(), n_iter: int = 100,
+                      backend: str = "torch", io: str = "f32", carry_tv: str = "f32",
+                      carry_v: str = "f32"):
+    """Batched RGB / 3-D full-width split ADMM (the JAX package's
+    ``run_split_general``); returns (B, D, H, W, C), clipped at 0.
+
+    ``pre`` and ``info`` come from :func:`precompute_split_general`.  Data
+    of depth 1 is broadcast over the PSF's depths.  The B * D * C planes
+    (b-major, then d, then c) are padded from ``data`` on the device and
+    run as one stack through :func:`run_split`, the per-PSF constants
+    broadcast over the batch: one launch per kernel per pass."""
+    dev = pre.Hr.device
+    data = _as_5d(torch.as_tensor(data, dtype=torch.float32, device=dev))
+    batch, depth, ch = info["batch"], info["depth"], info["channels"]
+    if data.shape[1] == 1 and depth > 1:
+        data = data.expand(data.shape[0], depth, *data.shape[2:])
+    nh, nw = pre.psf_shape
+    ph, pw = pre.padded_shape
+    sy, sx = pre.start
+    planes = data.permute(0, 1, 4, 2, 3).reshape(batch * depth * ch, nh, nw)
+    pad = torch.zeros((planes.shape[0], ph, pw), dtype=torch.float32, device=dev)
+    pad[:, sy : sy + nh, sx : sx + nw] = planes
+    out = run_split(pre._replace(data_pad=pad), params, n_iter, backend=backend, io=io,
+                    carry_tv=carry_tv, carry_v=carry_v)
+    return out.reshape(batch, depth, ch, nh, nw).permute(0, 1, 3, 4, 2).contiguous()
