@@ -1,6 +1,7 @@
 """Times the port's kernels built from two source trees on one card.
 
     python3 ab_kernels.py OTHER_CSRC [--modes headline,f32] [--rounds 2]
+                          [--planes 3x3,4x1] [--kernels h_combine_dual]
 
 A is ``lenslesspicam_tpu_torch/ops/csrc`` of this checkout, B the
 directory OTHER_CSRC holding the same sources changed (the same C
@@ -8,8 +9,11 @@ entries).  Both are built with ``nvcc``, then every kernel of
 ``chip_smoke.kernel_cases`` is timed at 12 MP in each mode, in the order
 A, B, B, A per round (CUDA events, median of 7 after a warm-up, as
 ``chip_smoke.time_ms``), and its output is checked against the plain
-version as ``chip_smoke.check_kernels`` checks it.  Prints one JSON line
-per kernel and mode with both medians and B / A, then the card's name
+version as ``chip_smoke.check_kernels`` checks it.  ``--planes`` times
+the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``) on
+stacks of P planes over Pc constant planes instead of one plane;
+``--kernels`` keeps only the kernels named.  Prints one JSON line per
+kernel, mode and stack with both medians and B / A, then the card's name
 and power limit.  Exits non-zero without a CUDA device.
 """
 
@@ -40,7 +44,11 @@ def main():
     ap.add_argument("other_csrc", type=Path)
     ap.add_argument("--modes", default="headline,f32")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--planes", default="", help="stacks PxPc, comma separated")
+    ap.add_argument("--kernels", default="", help="kernel names, comma separated")
     args = ap.parse_args()
+    stacks = [tuple(int(n) for n in st.split("x")) for st in args.planes.split(",") if st]
+    keep = set(args.kernels.split(",")) - {""}
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -49,11 +57,13 @@ def main():
         use(tree)
         _build.build_all()
     ph, pw = 6144, 8192
-    for mode in args.modes.split(","):
+    for mode, planes in [(m, st) for m in args.modes.split(",") for st in stacks or [None]]:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(ph)
-        cases = cs.kernel_cases(ph, pw, gen, *cs.MODES[mode])
+        cases = cs.kernel_cases(ph, pw, gen, *cs.MODES[mode], planes=planes)
         for name, (inputs, _) in cases.items():
+            if (planes and name not in cs.PLANE_KERNELS) or (keep and name not in keep):
+                continue
             wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
             ref = plain(*inputs)
             times = {"A": [], "B": []}
@@ -67,6 +77,7 @@ def main():
                     times[label].append(cs.time_ms(lambda: wrapper(*inputs)))
             a, b = statistics.median(times["A"]), statistics.median(times["B"])
             print(json.dumps({"kernel": name, "mode": mode, "grid": [ph, pw],
+                              "planes": list(planes) if planes else None,
                               "a_ms": a, "b_ms": b, "b_over_a": b / a, "times": times}),
                   flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

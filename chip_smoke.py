@@ -19,9 +19,15 @@ mode, runs the full-width split solver (``run_split(backend="fused")``,
 K10, K4, K5, K4, K11) and its kernels K10-K13 (phase ``split``: every
 built storage combination at 96 x 512, a 6-over-3 stack, both modes at
 12 MP, the K12 -> K13 round trip, the f32 and bench-mode solves against
-the exact one, their rates), checks that each counted run went through
-every kernel of its path, measures the solvers' rates, and prints one JSON
-line per phase.
+the exact one, their rates), runs its pass-level backend
+(``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
+``split_pallas``: K14-K17 against their plain versions at 96 x 512 in both
+io modes and as a 6-over-3 stack and at 12 MP with kernel rows, the
+``fft_h`` and ``ifft_h_dual`` chains against torch.fft,
+``filtered_synthesis_pallas2`` at 12 MP against torch.fft, the f32 and bf16
+solves against the exact one, launch counts, rates), checks that each
+counted run went through every kernel of its path, measures the solvers'
+rates, and prints one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from lenslesspicam_tpu_torch.ops import _build, kernels as K
+from lenslesspicam_tpu_torch.ops import split_fft as sf
 from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.recon import admm, admm_split
 from lenslesspicam_tpu_torch.recon.admm import ADMMParams
@@ -117,6 +124,13 @@ K10_COMBOS = [(io, tv, v, F32) for io in (F32, BF16) for tv in (F32, BF16)
               for v in (F32, BF16, I16)]
 W_COMBOS = [(io, F32, F32, out) for io in (F32, BF16) for out in (F32, BF16)]
 SPLIT_KERNELS = ("e1_carry", "ifft_w_dual", "fft_w", "ifft_w")
+# the pass-level backend: io f32 or bf16, no carries
+PALLAS_IO = {"f32": F32, "bf16": BF16}
+# the kernels of the pallas backend's loop (K12, K13 and the K14 and K15
+# forward forms included: the pallas solve runs them; K4 stays on its
+# half-spectrum path)
+PALLAS_NAMES = ("fft_w", "ifft_w", "h_passA", "h_passB", "h_passB_combine", "h_passB_dual")
+TOL_SYNTHESIS = 1e-4         # filtered_synthesis_pallas2 vs torch.fft (tests/test_pallas_fft.py:93)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 
@@ -147,6 +161,14 @@ KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
               "lenslesspicam_tpu/ops/pallas_kernels2.py:788"),
     "ifft_w": ("K13", "lenslesspicam_tpu_torch/ops/csrc/ifft_w.cu",
                "lenslesspicam_tpu/ops/pallas_kernels2.py:812"),
+    "h_passA": ("K14", "lenslesspicam_tpu_torch/ops/csrc/h_pass_a.cu",
+                "lenslesspicam_tpu/ops/pallas_kernels2.py:504"),
+    "h_passB": ("K15", "lenslesspicam_tpu_torch/ops/csrc/h_pass_b.cu",
+                "lenslesspicam_tpu/ops/pallas_kernels2.py:645"),
+    "h_passB_combine": ("K16", "lenslesspicam_tpu_torch/ops/csrc/h_pass_b.cu",
+                        "lenslesspicam_tpu/ops/pallas_kernels2.py:876"),
+    "h_passB_dual": ("K17", "lenslesspicam_tpu_torch/ops/csrc/h_pass_b.cu",
+                     "lenslesspicam_tpu/ops/pallas_kernels2.py:1143"),
 }
 
 
@@ -223,6 +245,8 @@ X_OPS = 9          # per point, K6's X and v update (irfft_w_dual_state_plain)
 COMBINE_OPS = 16   # per point, K5's F = R (A + conj(H) B) and H F
 SAT_OPS = 2        # per value scanned for the saturation max (abs, max)
 HERM_OPS = 4       # per bin, the Hermitian part of a spectrum whose real inverse is asked for
+CMUL_OPS = 6       # per point, a complex product (K15's filter, K17's H y)
+F_OPS = 10         # per point, K16's F = R (a + conj(H) b)
 
 
 def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
@@ -321,6 +345,41 @@ def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
     }
 
 
+def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
+    """The pass-level kernels' inputs at the shapes the pallas loop gives
+    them, as :func:`split_kernel_cases`: H-axis views (n1, n2, W) of a
+    (ph, pw) plane at ``io``, R at its loop scale (up to 1/mu3); with
+    ``planes`` = (P, Pc) stacks.  A key "name:form" is the wrapper
+    ``name`` in another form than the one of the loop's forward passes
+    (K14 and K15 inverse, K15 with its filter).  Operations: 5 log2 n per
+    point of a length-n stage, 6 per twiddle and per complex product,
+    F_OPS per point of the combine."""
+    dev = "cuda"
+    p = ADMMParams()
+    npl, npc = planes or (1, 1)
+    lp = (npl,) if planes else ()
+    lc = (npc,) if planes else ()
+    h1, h2 = K.factors(ph, True)
+
+    def rn(*lead, scale=1.0):
+        return (torch.randn(*lead, h1, h2, pw, generator=gen, device=dev) * scale).to(io)
+
+    pts = npl * ph * pw
+    s1 = pts * (5.0 * math.log2(h1) + CMUL_OPS)
+    s2 = pts * 5.0 * math.log2(h2)
+    rr = (torch.rand(*lc, h1, h2, pw, generator=gen, device=dev) / p.mu3).to(io)
+    return {
+        "h_passA": ((rn(*lp), rn(*lp), ph, False), s1),
+        "h_passA:inverse": ((rn(*lp), rn(*lp), ph, True), s1 + 2 * pts),
+        "h_passB": ((rn(*lp), rn(*lp), ph, False), s2),
+        "h_passB:inverse_filter": ((rn(*lp), rn(*lp), ph, True, rn(*lc), rn(*lc)),
+                                   s2 + CMUL_OPS * pts),
+        "h_passB_combine": ((rn(*lp), rn(*lp), rn(*lp), rn(*lp), rn(*lc), rn(*lc), rr, ph),
+                            s2 + F_OPS * pts),
+        "h_passB_dual": ((rn(*lp), rn(*lp), rn(*lc), rn(*lc), ph), 2 * s2 + CMUL_OPS * pts),
+    }
+
+
 def library_call(name, args):
     """One PyTorch call computing the same function on the same inputs
     (the yardstick of ``library_ms``), or None where there is none."""
@@ -346,6 +405,10 @@ def library_call(name, args):
         z = torch.stack([torch.complex(args[0].float(), args[1].float()),
                          torch.complex(args[2].float(), args[3].float())])
         return lambda: torch.fft.ifft(z, dim=-1).real
+    if name == "h_passB":     # stage 2 is the length-n2 DFT along the n2 axis (the
+        # filtered inverse form is a product and an ifft: no one call)
+        z = torch.complex(args[0].float(), args[1].float())
+        return lambda: torch.fft.fft(z, dim=-2)
     return None
 
 
@@ -359,10 +422,11 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
     gen = torch.Generator(device="cuda")
     gen.manual_seed(ph)
     rows = {}
-    for name, (args, flops) in cases(ph, pw, gen, io, tv, v, k2_out, planes).items():
+    for name, (args, flops) in cases(ph, pw, gen, io, tv, v, k2_out, planes=planes).items():
         if names is not None and name not in names:
             continue
-        wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
+        fn = name.split(":")[0]     # "name:form": another form of the wrapper name
+        wrapper, plain = getattr(K, fn), getattr(K, fn + "_plain")
         out = wrapper(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
@@ -761,18 +825,16 @@ def split_small_loop():
     return {**rec, "fused_vs_exact_n10": err}
 
 
-def split_phase(psf2d, meas, scene_n, p_exact10, p_exact100):
+def split_phase(pre, t_pre, scene_n, p_exact10, p_exact100):
     """The full-width split solver at 12 MP (``run_split(backend="fused")``:
-    K10, K4, K5, K4, K11): f32 within TOL_PSNR_DB of the exact solver at
-    n = 10; the bench mode (SPLIT_BENCH) within TOL_PSNR_DB at n = 10 and
-    at least exact - TOL_PSNR_DEEP_DB at n = 100; the launch counts of
-    both n = 10 solves; the small-grid loops of :func:`split_small_loop`;
-    the rates of both modes.  Returns the phase's record."""
+    K10, K4, K5, K4, K11) on the full-width precompute ``pre`` (which took
+    ``t_pre`` s): f32 within TOL_PSNR_DB of the exact solver at n = 10; the
+    bench mode (SPLIT_BENCH) within TOL_PSNR_DB at n = 10 and at least
+    exact - TOL_PSNR_DEEP_DB at n = 100; the launch counts of both n = 10
+    solves; the small-grid loops of :func:`split_small_loop`; the rates of
+    both modes.  Returns the phase's record."""
     t0 = time.perf_counter()
     small = split_small_loop()
-    t1 = time.perf_counter()
-    pre = admm_split.precompute_split(psf2d, meas.cpu().numpy())
-    t_pre = time.perf_counter() - t1
     n = 10
 
     def solve(k, **modes):
@@ -806,6 +868,141 @@ def split_phase(psf2d, meas, scene_n, p_exact10, p_exact100):
                      "tol_loop_bench": TOL_LOOP_HEADLINE, "tol_exact": TOL_SPLIT_EXACT},
            "launches_f32": counts_f32, "launches_bench": counts, "peak_mem_f32_bytes": peak,
            "precompute_s": t_pre, **rates, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def want_pallas_counts(n):
+    """Launches of an n-iteration pallas solve: per iteration K12 twice,
+    K14 twice, K15, K16, K17, K4 once, K13 twice, whatever the number of
+    planes."""
+    counts = dict.fromkeys(K.launch_counts(), 0)
+    counts.update(fft_w=2 * n, h_passA=2 * n, h_passB=n, h_passB_combine=n, h_passB_dual=n,
+                  h_passA_pair=n, ifft_w=2 * n)
+    return counts
+
+
+def pallas_chains(ph, pw):
+    """``fft_h`` (K14, K15) against one torch.fft.fft along H and
+    ``ifft_h_dual`` (K17, K4) against two torch.fft.ifft along H, on f32
+    full-width planes: one ``chain`` line each."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    vr, vi, hr, hi = (torch.randn(ph, pw, generator=gen, device="cuda") for _ in range(4))
+    V, Hc = torch.complex(vr, vi), torch.complex(hr, hi)
+    for name, fn, lib in (
+            ("fft_h (K14, K15)", lambda: K.fft_h(vr, vi, ph),
+             lambda: torch.fft.fft(V, dim=0)),
+            ("ifft_h_dual (K17, K4)", lambda: K.ifft_h_dual(vr, vi, hr, hi, ph),
+             lambda: (torch.fft.ifft(V, dim=0), torch.fft.ifft(Hc * V, dim=0)))):
+        emit({"phase": "chain", "name": name, "grid": [ph, pw], "ms": time_ms(fn),
+              "library_ms": time_ms(lib),
+              "note": "library_ms: torch.fft along H (natural order) of the same function"})
+
+
+def filtered_synthesis_check(ph, pw):
+    """``filtered_synthesis_pallas2`` (K12, K14, K15, K15 with the filter,
+    K14, K13) on a 12 MP plane against torch.fft's ifft2(fft2(x) fft2(k)),
+    within TOL_SYNTHESIS of max |ref|; its launch counts, its time and
+    torch.fft's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    x = torch.rand(ph, pw, generator=gen, device="cuda")
+    Hk = torch.fft.fft2(torch.rand(ph, pw, generator=gen, device="cuda"))
+    ih = torch.from_numpy(sf.split_order_indices(ph)).to("cuda")
+    iw = torch.from_numpy(sf.split_order_indices(pw)).to("cuda")
+    Hs = Hk[ih][:, iw]
+    fr, fi = Hs.real.contiguous(), Hs.imag.contiguous()
+    want = dict.fromkeys(K.launch_counts(), 0)
+    want.update(fft_w=1, h_passA=2, h_passB=2, ifft_w=1)
+    out, counts = counted(lambda: K.filtered_synthesis_pallas2(x, fr, fi), want,
+                          "filtered_synthesis_pallas2")
+
+    def lib():
+        return torch.fft.ifft2(torch.fft.fft2(x) * Hk).real
+
+    err = nerr(out, lib())
+    if not (err <= TOL_SYNTHESIS and out.dtype == F32 and tuple(out.shape) == (ph, pw)):
+        raise AssertionError(f"filtered_synthesis_pallas2 vs torch.fft at {ph}x{pw}: {err:.3e}")
+    rec = {"phase": "filtered_synthesis", "grid": [ph, pw], "max_rel_err": err,
+           "tol": TOL_SYNTHESIS, "launches": counts,
+           "ms": time_ms(lambda: K.filtered_synthesis_pallas2(x, fr, fi)),
+           "library_ms": time_ms(lib)}
+    emit(rec)
+    return rec
+
+
+def pallas_small_loop():
+    """The pallas loop through the kernels against the loop through the
+    plain versions at 48 x 256 (padded 96 x 512), n = 3, at f32 (TOL_LOOP)
+    and bf16 io (TOL_LOOP_HEADLINE); the launch counts of an RGB stack
+    (3 planes over 3) equal a gray solve's."""
+    rng = np.random.RandomState(14)
+    psf = rng.rand(*SMALL_SPLIT).astype(np.float32)
+    psf /= np.linalg.norm(psf)
+    data = rng.rand(*SMALL_SPLIT).astype(np.float32)
+    data /= data.max()
+    pre = admm_split.precompute_split(psf, data)
+    rec = {}
+    for io, tol in (("f32", TOL_LOOP), ("bf16", TOL_LOOP_HEADLINE)):
+        k = admm_split.run_split_pallas(pre, n_iter=3, io=io)
+        p = admm_split.run_split_pallas(pre, n_iter=3, ops=K.PLAIN, io=io)
+        err = nerr(k, p)
+        if not (err <= tol and bool(torch.isfinite(k).all())):
+            raise AssertionError(f"pallas loop ({io}) kernels vs plain at {SMALL_SPLIT}: "
+                                 f"{err:.3e}")
+        rec[f"loop_{io}_kernels_vs_plain_n3"] = err
+    rgb_psf = np.stack([psf, psf[::-1], psf[:, ::-1]], axis=-1)[None]
+    rgb = np.stack([data, data[::-1], data[:, ::-1]], axis=-1)[None]
+    gpre, info = admm_split.precompute_split_general(rgb_psf, rgb)
+    _, rec["launches_rgb_n2"] = counted(
+        lambda: admm_split.run_split_general(gpre, info, rgb, n_iter=2, backend="pallas",
+                                             io="bf16"),
+        want_pallas_counts(2), "pallas rgb stack")
+    return rec
+
+
+def split_pallas_phase(pre, scene_n, p_exact10, p_exact100):
+    """The pass-level split backend at 12 MP (``run_split(backend="pallas")``)
+    on the split phase's precompute: f32 and bf16 io within TOL_PSNR_DB of
+    the exact solver at n = 10 with the launch counts of
+    :func:`want_pallas_counts`; bf16 io at least exact - TOL_PSNR_DEEP_DB
+    at n = 100; the small-grid loops of :func:`pallas_small_loop`; the
+    rates of both io modes.  Returns the phase's record."""
+    t0 = time.perf_counter()
+    small = pallas_small_loop()
+    n = 10
+
+    def solve(k, io="f32"):
+        return admm_split.run_split(pre, n_iter=k, backend="pallas", io=io)
+
+    psnr, counts, peak = {}, {}, {}
+    for io in ("f32", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        img, counts[io] = counted(lambda: solve(n, io), want_pallas_counts(n), f"pallas {io}")
+        peak[io] = torch.cuda.max_memory_allocated()
+        if tuple(img.shape) != SENSOR or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"pallas {io} output is not finite at the sensor shape")
+        psnr[io] = psnr_db(img, scene_n)
+        if not abs(p_exact10 - psnr[io]) <= TOL_PSNR_DB:
+            raise AssertionError(f"pallas {io} exactness gate (n={n}): exact {p_exact10:.3f} "
+                                 f"vs {psnr[io]:.3f} dB")
+        del img
+    p100 = psnr_db(solve(100, "bf16"), scene_n)
+    if not p100 >= p_exact100 - TOL_PSNR_DEEP_DB:
+        raise AssertionError(f"pallas bf16 quality gate (n=100): {p100:.3f} dB more than "
+                             f"{TOL_PSNR_DEEP_DB} dB below exact {p_exact100:.3f} dB")
+    rates = {"split_pallas_f32_it_per_s": rate(solve),
+             "split_pallas_bf16_it_per_s": rate(lambda k: solve(k, "bf16"))}
+    rec = {"phase": "split_pallas", "grid": list(SENSOR), "padded": list(pre.padded_shape),
+           "n_iter": n, "psnr_exact_db": p_exact10, "psnr_pallas_f32_db": psnr["f32"],
+           "psnr_pallas_bf16_db": psnr["bf16"], "tol_db": TOL_PSNR_DB,
+           "psnr_exact_n100_db": p_exact100, "psnr_pallas_bf16_n100_db": p100,
+           "tol_deep_db": TOL_PSNR_DEEP_DB,
+           "small": {"grid": list(SMALL_SPLIT), **small, "tol_loop_f32": TOL_LOOP,
+                     "tol_loop_bf16": TOL_LOOP_HEADLINE},
+           "launches_f32": counts["f32"], "launches_bf16": counts["bf16"],
+           "peak_mem_bytes": peak, **rates, "seconds": time.perf_counter() - t0}
     emit(rec)
     return rec
 
@@ -867,6 +1064,18 @@ def main():
                   for mode, dts in SPLIT_MODES.items()}
     counts_srt = round_trip(ph, pw, K.fft_w, K.ifft_w, seed=8)
     seconds["split_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for mode, io in PALLAS_IO.items():
+        check_kernels(ssh, ssw, False, io, F32, F32, F32, f"io={mode}",
+                      cases=pallas_kernel_cases)
+        check_kernels(ssh, ssw, False, io, F32, F32, F32, f"planes,io={mode}",
+                      planes=PLANES, cases=pallas_kernel_cases)
+    pallas_rows = {mode: check_kernels(ph, pw, True, io, F32, F32, F32, f"io={mode}",
+                                       cases=pallas_kernel_cases)
+                   for mode, io in PALLAS_IO.items()}
+    pallas_chains(ph, pw)
+    synthesis = filtered_synthesis_check(ph, pw)
+    seconds["split_pallas_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     counts_rt = round_trip(ph, pw)
     chain_yardstick(ph, pw)
@@ -934,10 +1143,17 @@ def main():
              "exact_it_per_s": rate(lambda k: admm.run(conv, data5, n_iter=k))}
     seconds["rate_gray"] = time.perf_counter() - t0
     del pre, data5
-    split = split_phase(psf2d, meas, scene_n, p_exact, deep[100]["psnr_exact_db"])
+    t1 = time.perf_counter()
+    spre = admm_split.precompute_split(psf2d, meas.cpu().numpy())
+    t_spre = time.perf_counter() - t1
+    split = split_phase(spre, t_spre, scene_n, p_exact, deep[100]["psnr_exact_db"])
     seconds["split"] = split["seconds"]
     rates.update({k: split[k] for k in ("split_fused_it_per_s", "split_bench_it_per_s")})
-    del meas
+    pallas = split_pallas_phase(spre, scene_n, p_exact, deep[100]["psnr_exact_db"])
+    seconds["split_pallas"] = pallas["seconds"]
+    rates.update({k: pallas[k] for k in ("split_pallas_f32_it_per_s",
+                                         "split_pallas_bf16_it_per_s")})
+    del meas, spre
 
     modes = {}
     for mode in ("rgb", "batch4"):
@@ -953,25 +1169,30 @@ def main():
     # one entry per kernel: the headline mode's numbers, the f32 mode's
     # beside them; launches from the path named by "path" (K2: its round
     # trip, no solver calls it), and those of every counted main path
-    # (K10-K13: the split phase's bench mode, f32 beside it; K12, K13 from
-    # their round trip)
+    # (K10, K11: the split phase's bench mode, f32 beside it; K12-K17: the
+    # pallas backend at bf16 io, f32 io beside it; the numbers of K12 and
+    # K13 those of the split phase's kernel rows, of K14-K17 those of the
+    # bf16 and f32 io rows, K14 and K15 in their forward form)
     paths = {"end_to_end_headline": counts, "v2_headline": counts_v2,
              "rgb": modes["rgb"]["launches"], "batch4": modes["batch4"]["launches"],
              "round_trip": counts_rt, "split_bench": split["launches_bench"],
-             "split_round_trip": counts_srt}
+             "split_round_trip": counts_srt, "split_pallas_bf16": pallas["launches_bf16"],
+             "filtered_synthesis": synthesis["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else
                    "v2_headline" if name in ("e1_rcarry", "irfft_w_dual") else
                    "split_bench" if name in ("e1_carry", "ifft_w_dual") else
-                   "split_round_trip" if name in ("fft_w", "ifft_w") else
+                   "split_pallas_bf16" if name in PALLAS_NAMES else
                    "end_to_end_headline") for name in KERNEL_INFO}
     f32_launches = {**counts_f32, **{k: counts_v2_f32[k] for k in ("e1_rcarry", "irfft_w_dual")},
                     "irfft_w": counts_rt["irfft_w"],
                     **{k: split["launches_f32"][k] for k in ("e1_carry", "ifft_w_dual")},
-                    **{k: counts_srt[k] for k in ("fft_w", "ifft_w")}}
+                    **{k: pallas["launches_f32"][k] for k in PALLAS_NAMES}}
     krows["headline"].update(split_rows["bench"])
     krows["f32"].update(split_rows["f32"])
+    krows["headline"].update({k: pallas_rows["bf16"][k] for k in PALLAS_NAMES[2:]})
+    krows["f32"].update({k: pallas_rows["f32"][k] for k in PALLAS_NAMES[2:]})
     seconds["total"] = time.perf_counter() - t_start
     emit({"phase": "seconds", **seconds})
     emit({"kernels": [

@@ -21,7 +21,12 @@
 // and plane p reads filter plane p % Pc.  A single plane runs an
 // instantiation without the plane offsets (kStack false): with them the
 // gray headline loop's K5 took 3 % more time (945.5 against 914-918 us a
-// call in the loop, torch.profiler on an H100, profile_solver.py).
+// call in the loop, torch.profiler on an H100, profile_solver.py).  ptxas
+// allocates registers by the form of the offset sums: written as below,
+// the stacked instantiation gets 100 (bf16) / 108 (f32) registers and the
+// single-plane one 80, and a stack runs 2-3 % faster than with the sum
+// over a shared tile offset, which gave both 80 (`ab_kernels.py --planes
+// 1x1,3x3,4x1` on an H100 at 12 MP, one source form against the other).
 #include "lpt_dft.cuh"
 
 using namespace lpt;
@@ -49,9 +54,8 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   const int wtiles = w / TW;
   const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const size_t plane = (size_t)n1 * n2 * w;
-  const size_t tile0 = (size_t)k1 * n2 * w + w0;
-  const size_t base = kStack ? blockIdx.y * plane + tile0 : tile0;
-  const size_t cbase = kStack ? (blockIdx.y % pc) * plane + tile0 : tile0;
+  const size_t base = (kStack ? blockIdx.y * plane : 0) + (size_t)k1 * n2 * w + w0;
+  const size_t cbase = (kStack ? (blockIdx.y % pc) * plane : 0) + (size_t)k1 * n2 * w + w0;
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {

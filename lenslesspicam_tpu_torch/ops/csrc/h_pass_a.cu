@@ -1,7 +1,9 @@
-// K4: H-axis stage 1 on two complex planes.
+// K4: H-axis stage 1 on two complex planes, and K14 on one.
 //
 // Replaces lenslesspicam_tpu/ops/pallas_kernels2.py `h_passA_pair`
-// (kernel `_h_passA_pair_kernel`).  Each plane (real and imaginary parts)
+// (kernel `_h_passA_pair_kernel`) and `h_passA` (kernel `_h_passA_kernel`,
+// the single-array form the pass-level split backend runs): one kernel,
+// two C entries.  Each plane (real and imaginary parts)
 // is viewed (n1, n2, W) with h = j1*n2 + j2.  Forward: contract j1 with F1,
 // then multiply by the twiddle T[k1, j2].  Inverse: twiddle first, contract
 // with the inverse F1, scale 1/n.  Planes are stored in the io type T (f32
@@ -13,14 +15,17 @@
 // 64 consecutive lanes of W: its loads and stores are runs of 64
 // contiguous elements, and the n1 x 64 column tile sits in shared memory
 // for the DFT.  One launch covers both arrays of every plane of a stack
-// of P planes (grid.y = 2 P).
+// of P planes (K4: grid.y = 2 P) or the one array of each (K14: grid.y =
+// P, the second array's pointers unused); the two forms are two
+// instantiations (kPair), so K4's code is the single-purpose one it was and
+// a profile tells the two apart.
 #include "lpt_dft.cuh"
 
 using namespace lpt;
 
 constexpr int TW = 64;
 
-template <typename T>
+template <typename T, bool kPair>
 __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
     const T* __restrict__ x1r, const T* __restrict__ x1i, const T* __restrict__ x2r,
     const T* __restrict__ x2i, T* __restrict__ o1r, T* __restrict__ o1i, T* __restrict__ o2r,
@@ -34,9 +39,10 @@ __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
   float2* R = D + cap;
   const float2* roots = inverse ? p.r1i : p.r1f;
   for (int i = threadIdx.x; i < n1; i += blockDim.x) R[i] = roots[i];
-  // blockIdx.y = 2 * (plane of the stack) + (first or second array)
-  const int second = blockIdx.y & 1;
-  const size_t po = (size_t)(blockIdx.y >> 1) * n1 * n2 * w;
+  // kPair: blockIdx.y = 2 * (plane of the stack) + (first or second array);
+  // otherwise blockIdx.y = plane
+  const int second = kPair ? (int)(blockIdx.y & 1) : 0;
+  const size_t po = (size_t)(kPair ? blockIdx.y >> 1 : blockIdx.y) * n1 * n2 * w;
   const T* xr = (second ? x2r : x1r) + po;
   const T* xi = (second ? x2i : x1i) + po;
   T* orr = (second ? o2r : o1r) + po;
@@ -86,9 +92,10 @@ __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
 template <typename T>
 static int run(const void* x1r, const void* x1i, const void* x2r, const void* x2i, void* o1r,
                void* o1i, void* o2r, void* o2i, const float2* tab, int planes, int n1, int n2,
-               int w, int inverse, void* stream) {
+               int w, int inverse, bool pair, void* stream) {
   const size_t smem = sizeof(float2) * (2 * ((size_t)n1 * TW + dft_slack(n1)) + n1);
-  return launch(h_pass_a_kernel<T>, dim3(n2 * (w / TW), 2 * planes), dim3(256), smem, stream,
+  return launch(pair ? h_pass_a_kernel<T, true> : h_pass_a_kernel<T, false>,
+                dim3(n2 * (w / TW), (pair ? 2 : 1) * planes), dim3(256), smem, stream,
                 (const T*)x1r, (const T*)x1i, (const T*)x2r, (const T*)x2i, (T*)o1r, (T*)o1i,
                 (T*)o2r, (T*)o2i, tab, n1, n2, w, inverse);
 }
@@ -102,10 +109,26 @@ extern "C" int lpt_h_pass_a_pair(const void* x1r, const void* x1i, const void* x
   switch (io) {
     case F32:
       return run<float>(x1r, x1i, x2r, x2i, o1r, o1i, o2r, o2i, tab, planes, n1, n2, w, inverse,
-                        stream);
+                        true, stream);
     case BF16:
       return run<__nv_bfloat16>(x1r, x1i, x2r, x2i, o1r, o1i, o2r, o2i, tab, planes, n1, n2, w,
-                                inverse, stream);
+                                inverse, true, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K14: one array (xr, xi) -> (or, oi), a stack of `planes` planes of
+// (n1, n2, w).  io: storage code of all four arrays (F32 or BF16).
+extern "C" int lpt_h_pass_a(const void* xr, const void* xi, void* orr, void* oi,
+                            const float2* tab, int planes, int n1, int n2, int w, int inverse,
+                            int io, void* stream) {
+  switch (io) {
+    case F32:
+      return run<float>(xr, xi, xr, xi, orr, oi, orr, oi, tab, planes, n1, n2, w, inverse, false,
+                        stream);
+    case BF16:
+      return run<__nv_bfloat16>(xr, xi, xr, xi, orr, oi, orr, oi, tab, planes, n1, n2, w,
+                                inverse, false, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

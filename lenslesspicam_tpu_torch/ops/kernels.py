@@ -17,6 +17,10 @@ storage mode of the JAX package).
 | ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu`` |
 | ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu`` |
 | ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu`` |
+| ``h_passA`` (K14) | ``h_passA`` / ``_h_passA_kernel`` | ``csrc/h_pass_a.cu`` |
+| ``h_passB`` (K15) | ``h_passB`` / ``_h_passB_kernel`` | ``csrc/h_pass_b.cu`` |
+| ``h_passB_combine`` (K16) | ``h_passB_combine`` / ``_h_passB_combine_kernel`` | ``csrc/h_pass_b.cu`` |
+| ``h_passB_dual`` (K17) | ``h_passB_dual`` / ``_h_passB_dual_kernel`` | ``csrc/h_pass_b.cu`` |
 
 A wrapper given CPU tensors runs the plain version (``*_plain``).  Given
 CUDA tensors it launches its kernel on the current stream or raises: it
@@ -37,10 +41,12 @@ CUDA tensor; nothing is converted quietly.
 
 K1-K9 serve the half-spectrum solver (spatial rows in the even/odd split
 lane layout, half-width spectra); K10-K13 the full-width one (natural
-lane order, full-width complex spectra in split order).
+lane order, full-width complex spectra in split order); K12-K17, K4 and
+the compositions ``fft_h``, ``ifft_h``, ``fft_h_combine``, ``ifft_h_dual``
+and ``filtered_synthesis_pallas2`` its pass-level backend.
 
 Plane axis (the JAX solver's ``vmap`` over B * D * C planes, written
-out).  Every plane operand of K1, K3-K6 and K8-K13 may carry a leading
+out).  Every plane operand of K1, K3-K6 and K8-K17 may carry a leading
 axis P: spatial planes (P, ph, pw), half spectra (P, ph, pw/2), H-axis
 views (P, n1, n2, W), DC columns (P, ph).  The per-PSF constants (the
 filter planes H and R, the support mask) carry Pc with P % Pc == 0, and
@@ -455,11 +461,24 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
 
 
 # ---------------------------------------------------------------------------
-# K4: H-axis stage 1 on two complex planes
+# K4 / K14: H-axis stage 1 on two complex planes / on one
 # ---------------------------------------------------------------------------
 
 
-def _h_passA_plain_one(xr, xi, n, inverse):
+def _h_view(name, t, n, cuda, tw):
+    """(n1, n2, w) of an H-axis view (n1, n2, W) / (P, n1, n2, W) of a
+    length-n axis; raises ValueError where the planes do not view it so,
+    or, on the card, where W is not a multiple of the lane tile ``tw``."""
+    n1, n2, w = t.shape[-3:]
+    if (n1, n2) != factors(n, cuda):
+        raise ValueError(f"{name}: planes {tuple(t.shape)} do not view a length-{n} "
+                         f"axis as {_factor(n)}")
+    if cuda and w % tw:
+        raise ValueError(f"{name}: lane width {w} is not a multiple of {tw}")
+    return n1, n2, w
+
+
+def h_passA_plain(xr, xi, n, inverse):
     F1, _, T, scale = _plan_t(n, inverse, xr.device)
     *lead, n1, n2, w = xr.shape
     x = torch.complex(xr.to(_F32), xi.to(_F32))
@@ -472,8 +491,7 @@ def _h_passA_plain_one(xr, xi, n, inverse):
 
 
 def h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse):
-    return (_h_passA_plain_one(x1r, x1i, n, inverse),
-            _h_passA_plain_one(x2r, x2i, n, inverse))
+    return h_passA_plain(x1r, x1i, n, inverse), h_passA_plain(x2r, x2i, n, inverse)
 
 
 def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
@@ -482,19 +500,13 @@ def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
     twiddle.  Inverse: twiddle, contract with the inverse F1, scale 1/n.
     io dtype in and out.  Returns ((z1r, z1i), (z2r, z2i))."""
     planes = [x1r, x1i, x2r, x2i]
-    n1, n2, w = x1r.shape[-3:]
-    p = _depth("h_passA_pair", x1r, (n1, n2, w))
+    p = _depth("h_passA_pair", x1r, x1r.shape[-3:])
     _check("h_passA_pair", planes, x1r.shape, IO_DTYPES)
     cuda = _on_card("h_passA_pair", planes, tuple(t.dtype for t in planes),
                     {(d,) * 4 for d in IO_DTYPES})
-    if (n1, n2) != factors(n, cuda):
-        raise ValueError(f"h_passA_pair: planes {tuple(x1r.shape)} do not view a "
-                         f"length-{n} axis as {_factor(n)}")
+    n1, n2, w = _h_view("h_passA_pair", x1r, n, cuda, _K4_TW)
     if not cuda:
         return h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse)
-    if w % _K4_TW:
-        raise ValueError(f"h_passA_pair: lane width {w} is not a multiple "
-                         f"of {_K4_TW}")
     outs = [_empty(x1r.shape, x1r) for _ in range(4)]
     _launch("h_pass_a", "lpt_h_pass_a_pair", "ppppppppp" + "iiiiii",
             *planes, *outs, _table(n, False, x1r.device), p, n1, n2, w,
@@ -503,33 +515,165 @@ def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
     return (outs[0], outs[1]), (outs[2], outs[3])
 
 
+def h_passA(xr, xi, n, inverse):
+    """H-axis stage 1 on one complex plane (or stack of planes) viewed
+    (n1, n2, W) / (P, n1, n2, W), as :func:`h_passA_pair` does on two:
+    forward, contract j1 with F1 and twiddle; inverse, twiddle, contract
+    with the inverse F1 and scale 1/n.  io dtype in and out.  Returns
+    (zr, zi)."""
+    p = _depth("h_passA", xr, xr.shape[-3:])
+    _check("h_passA", [xr, xi], xr.shape, IO_DTYPES)
+    cuda = _on_card("h_passA", [xr, xi], (xr.dtype, xi.dtype), {(d, d) for d in IO_DTYPES})
+    n1, n2, w = _h_view("h_passA", xr, n, cuda, _K4_TW)
+    if not cuda:
+        return h_passA_plain(xr, xi, n, inverse)
+    zr, zi = _empty(xr.shape, xr), _empty(xr.shape, xr)
+    _launch("h_pass_a", "lpt_h_pass_a", "ppppp" + "iiiiii", xr, xi, zr, zi,
+            _table(n, False, xr.device), p, n1, n2, w, int(bool(inverse)), _CODE[xr.dtype])
+    h_passA.launches += 1
+    return zr, zi
+
+
+# ---------------------------------------------------------------------------
+# K15-K17: H-axis stage 2 of the pass-level backend
+# ---------------------------------------------------------------------------
+
+
+def _c32(r, i):
+    return torch.complex(r.to(_F32), i.to(_F32))
+
+
+def _stage2(x, n, inverse):
+    """z[..., k1, q, w] = sum_p F2[q, p] x[..., k1, p, w] (F2 symmetric;
+    the inverse F2 unscaled), complex f32."""
+    _, F2, _, _ = _plan_t(n, inverse, x.device)
+    return torch.matmul(F2, x)
+
+
+def _cmul(yr, yi, mr, mi):
+    """(yr + i yi)(mr + i mi) in f32 in the JAX kernels' order, the
+    constant stack m broadcast over the planes of y (:func:`_bc`)."""
+    yr, yi = _bc(yr.to(_F32), mr), _bc(yi.to(_F32), mr)
+    mr, mi = mr.to(_F32), mi.to(_F32)
+    return yr * mr - yi * mi, yr * mi + yi * mr
+
+
+def _out(z, like):
+    return (z.real.reshape(like.shape).contiguous().to(like.dtype),
+            z.imag.reshape(like.shape).contiguous().to(like.dtype))
+
+
+def h_passB_plain(yr, yi, n, inverse, filt_r=None, filt_i=None):
+    if filt_r is None:
+        y = _c32(yr, yi)
+    else:
+        y = torch.complex(*_cmul(yr, yi, filt_r, filt_i))
+    return _out(_stage2(y, n, inverse), yr)
+
+
+def h_passB(yr, yi, n, inverse, filt_r=None, filt_i=None):
+    """H-axis stage 2 on one complex plane (or stack) viewed (n1, n2, W) /
+    (P, n1, n2, W): contract over j2 with F2 (forward) or over k2 with the
+    inverse F2 (``inverse``, unscaled: the 1/n is stage 1's).  With the
+    filter planes ``filt_r``/``filt_i`` (a plane or a stack of Pc, P % Pc
+    == 0) the spectrum is multiplied by the filter in f32 before the
+    contraction.  io dtype in and out.  Returns (zr, zi)."""
+    name = "h_passB"
+    _check(name, [yr, yi], yr.shape, IO_DTYPES)
+    filt = [] if filt_r is None else [filt_r, filt_i]
+    p = _depth(name, yr, yr.shape[-3:])
+    pc = _const_depth(name, filt, yr.shape[-3:], p) if filt else 1
+    ins = [yr, yi, *filt]
+    cuda = _on_card(name, ins, tuple(t.dtype for t in ins),
+                    {(d,) * k for d in IO_DTYPES for k in (2, 4)})
+    n1, n2, w = _h_view(name, yr, n, cuda, _K5_TW)
+    if not cuda:
+        return h_passB_plain(yr, yi, n, inverse, filt_r, filt_i)
+    zr, zi = _empty(yr.shape, yr), _empty(yr.shape, yr)
+    _launch("h_pass_b", "lpt_h_pass_b", "ppppppp" + "iiiiiii", yr, yi,
+            filt_r if filt else None, filt_i if filt else None, zr, zi,
+            _table(n, False, yr.device), p, pc, n1, n2, w, int(bool(inverse)),
+            _CODE[yr.dtype])
+    h_passB.launches += 1
+    return zr, zi
+
+
+def h_passB_combine_plain(yr, yi, ar, ai, hr, hi, rr, n):
+    b = _bc(_stage2(_c32(yr, yi), n, False), hr)
+    br, bi = b.real, b.imag
+    hr, hi, rr = hr.to(_F32), hi.to(_F32), rr.to(_F32)
+    ar, ai = _bc(ar.to(_F32), hr), _bc(ai.to(_F32), hr)
+    fr = rr * (ar + hr * br + hi * bi)
+    fi = rr * (ai + hr * bi - hi * br)
+    return _out(torch.complex(fr, fi), yr)
+
+
+def h_passB_combine(yr, yi, ar, ai, hr, hi, rr, n):
+    """Forward stage 2 of the stage-1 plane y, b = F2 y, fused with the
+    ADMM spectrum combine F = R (a + conj(H) b) in f32; y and the spectrum
+    a (n1, n2, W) or stacks (P, n1, n2, W), the filter planes H and R a
+    plane or a stack of Pc (P % Pc == 0), all at the io dtype.  Returns
+    (fr, fi)."""
+    name = "h_passB_combine"
+    ins = [yr, yi, ar, ai, hr, hi, rr]
+    _check(name, ins[:4], yr.shape, IO_DTYPES)
+    p = _depth(name, yr, yr.shape[-3:])
+    pc = _const_depth(name, ins[4:], yr.shape[-3:], p)
+    cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 7 for d in IO_DTYPES})
+    n1, n2, w = _h_view(name, yr, n, cuda, _K5_TW)
+    if not cuda:
+        return h_passB_combine_plain(*ins, n)
+    fr, fi = _empty(yr.shape, yr), _empty(yr.shape, yr)
+    _launch("h_pass_b", "lpt_h_pass_b_combine", "pppppppppp" + "iiiiii", *ins, fr, fi,
+            _table(n, False, yr.device), p, pc, n1, n2, w, _CODE[yr.dtype])
+    h_passB_combine.launches += 1
+    return fr, fi
+
+
+def h_passB_dual_plain(yr, yi, hr, hi, n):
+    y = _c32(yr, yi)
+    y1 = torch.complex(*_cmul(yr, yi, hr, hi))
+    return (*_out(_stage2(y, n, True), yr), *_out(_stage2(y1, n, True), yr))
+
+
+def h_passB_dual(yr, yi, hr, hi, n):
+    """The inverse stage 2 (unscaled) of the split-order spectrum y and of
+    H y, from one read of y; y (n1, n2, W) or a stack (P, n1, n2, W), H a
+    plane or a stack of Pc (P % Pc == 0), all at the io dtype; H y is
+    formed in f32.  Returns (a0r, a0i, a1r, a1i)."""
+    name = "h_passB_dual"
+    ins = [yr, yi, hr, hi]
+    _check(name, ins[:2], yr.shape, IO_DTYPES)
+    p = _depth(name, yr, yr.shape[-3:])
+    pc = _const_depth(name, ins[2:], yr.shape[-3:], p)
+    cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 4 for d in IO_DTYPES})
+    n1, n2, w = _h_view(name, yr, n, cuda, _K5_TW)
+    if not cuda:
+        return h_passB_dual_plain(*ins, n)
+    outs = [_empty(yr.shape, yr) for _ in range(4)]
+    _launch("h_pass_b", "lpt_h_pass_b_dual", "ppppppppp" + "iiiiii", *ins, *outs,
+            _table(n, False, yr.device), p, pc, n1, n2, w, _CODE[yr.dtype])
+    h_passB_dual.launches += 1
+    return tuple(outs)
+
+
 # ---------------------------------------------------------------------------
 # K5: H-axis stage 2 of both planes, spectrum combine, inverse stage 2
 # ---------------------------------------------------------------------------
 
 
 def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
-    _, F2f, _, _ = _plan_t(n, False, xar.device)
-    _, F2i, _, _ = _plan_t(n, True, xar.device)
-
-    def stage2(x, F2):     # z[..., k1, q, w] = sum_p F2[q, p] x[..., k1, p, w]
-        return torch.matmul(F2, x)
-
-    def c(r, i):
-        return torch.complex(r.to(_F32), i.to(_F32))
-
     hr, hi, rr = hr.to(_F32), hi.to(_F32), rr.to(_F32)
-    a = _bc(stage2(c(xar, xai), F2f), hr)
-    b = _bc(stage2(c(yar, yai), F2f), hr)
+    a = _bc(_stage2(_c32(xar, xai), n, False), hr)
+    b = _bc(_stage2(_c32(yar, yai), n, False), hr)
     ar, ai, br, bi = a.real, a.imag, b.real, b.imag
     fr = rr * (ar + hr * br + hi * bi)
     fi = rr * (ai + hr * bi - hi * br)
     f1r = fr * hr - fi * hi
     f1i = fr * hi + fi * hr
-    g0 = stage2(torch.complex(fr, fi), F2i)
-    g1 = stage2(torch.complex(f1r, f1i), F2i)
-    return tuple(t.reshape(xar.shape).contiguous().to(xar.dtype)
-                 for t in (g0.real, g0.imag, g1.real, g1.imag))
+    g0 = _stage2(torch.complex(fr, fi), n, True)
+    g1 = _stage2(torch.complex(f1r, f1i), n, True)
+    return (*_out(g0, xar), *_out(g1, xar))
 
 
 def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
@@ -540,20 +684,14 @@ def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
     p is filtered by filter plane p % Pc).  Returns (a0r, a0i, a1r,
     a1i)."""
     ins = [xar, xai, yar, yai, hr, hi, rr]
-    n1, n2, w = xar.shape[-3:]
-    p = _depth("h_combine_dual", xar, (n1, n2, w))
+    p = _depth("h_combine_dual", xar, xar.shape[-3:])
     _check("h_combine_dual", ins[:4], xar.shape, IO_DTYPES)
-    pc = _const_depth("h_combine_dual", ins[4:], (n1, n2, w), p)
+    pc = _const_depth("h_combine_dual", ins[4:], xar.shape[-3:], p)
     cuda = _on_card("h_combine_dual", ins, tuple(t.dtype for t in ins),
                     {(d,) * 7 for d in IO_DTYPES})
-    if (n1, n2) != factors(n, cuda):
-        raise ValueError(f"h_combine_dual: planes {tuple(xar.shape)} do not view "
-                         f"a length-{n} axis as {_factor(n)}")
+    n1, n2, w = _h_view("h_combine_dual", xar, n, cuda, _K5_TW)
     if not cuda:
         return h_combine_dual_plain(*ins, n)
-    if w % _K5_TW:
-        raise ValueError(f"h_combine_dual: lane width {w} is not a "
-                         f"multiple of {_K5_TW}")
     outs = [_empty(xar.shape, xar) for _ in range(4)]
     _launch("h_combine", "lpt_h_combine_dual", "pppppppppppp" + "iiiiii",
             *ins, *outs, _table(n, False, xar.device), p, pc, n1, n2, w,
@@ -945,9 +1083,75 @@ def ifft_w_dual(a0r, a0i, a1r, a1i):
     return image, fwd
 
 
+# ---------------------------------------------------------------------------
+# the pass-level compositions (pallas_kernels2.py:668-694, 835-842, 898-909,
+# 2262-2278): kernels only, no kernel of their own.  Planes (h, W) or
+# stacks (P, h, W) in split order, filter planes (h, W) or (Pc, h, W).
+# ---------------------------------------------------------------------------
+
+
+def _hv(t, h):
+    """A (..., h, W) plane viewed (..., n1, n2, W)."""
+    n1, n2 = _factor(h)
+    return t.reshape(tuple(t.shape[:-2]) + (n1, n2, t.shape[-1]))
+
+
+def _flat(like, *ts):
+    return tuple(t.reshape(like.shape) for t in ts)
+
+
+def fft_h(vr, vi, h, ops=None):
+    """Forward H transform to split order: K14 forward, K15 forward."""
+    ops = ops or KERNELS
+    yr, yi = ops.h_passA(_hv(vr, h), _hv(vi, h), h, False)
+    return _flat(vr, *ops.h_passB(yr, yi, h, False))
+
+
+def ifft_h(vr, vi, h, filt_r=None, filt_i=None, ops=None):
+    """Inverse H transform from split order, with the optional filter
+    multiply on the split-order spectrum before it: K15 inverse (filter
+    fused), K14 inverse (twiddle, contraction, 1/h)."""
+    ops = ops or KERNELS
+    f = (None, None) if filt_r is None else (_hv(filt_r, h), _hv(filt_i, h))
+    ar, ai = ops.h_passB(_hv(vr, h), _hv(vi, h), h, True, *f)
+    return _flat(vr, *ops.h_passA(ar, ai, h, True))
+
+
+def fft_h_combine(vr, vi, ar, ai, hr, hi, rr, h, ops=None):
+    """Forward H transform of the second ADMM plane with the spectrum
+    combine fused into its stage 2: K14 forward, K16.  Returns (fr, fi) =
+    R (a + conj(H) b)."""
+    ops = ops or KERNELS
+    yr, yi = ops.h_passA(_hv(vr, h), _hv(vi, h), h, False)
+    return _flat(vr, *ops.h_passB_combine(yr, yi, *(_hv(t, h) for t in (ar, ai, hr, hi, rr)),
+                                          h))
+
+
+def ifft_h_dual(vr, vi, hr, hi, h, ops=None):
+    """(ifft_h(v), ifft_h(H v)) with the spectrum read once and the filter
+    multiply fused: K17, then K4 inverse on both.  Returns ((z0r, z0i),
+    (z1r, z1i))."""
+    ops = ops or KERNELS
+    a0r, a0i, a1r, a1i = ops.h_passB_dual(*(_hv(t, h) for t in (vr, vi, hr, hi)), h)
+    z0, z1 = ops.h_passA_pair(a0r, a0i, a1r, a1i, h, True)
+    return _flat(vr, *z0), _flat(vr, *z1)
+
+
+def filtered_synthesis_pallas2(x, filt_r, filt_i, ops=None):
+    """Re ifft2(fft2(x) F) of (..., h, W) real planes (io dtype) with the
+    filter F in split order on both axes (a plane or a stack of Pc): K12,
+    K14, K15, K15 with the filter, K14, K13; f32 out.  (The JAX function's
+    ``block_rows`` is a TPU VMEM block size and has no counterpart.)"""
+    ops = ops or KERNELS
+    h = x.shape[-2]
+    hr, hi = fft_h(*ops.fft_w(x), h, ops=ops)
+    return ops.ifft_w(*ifft_h(hr, hi, h, filt_r, filt_i, ops=ops))
+
+
 WRAPPERS = (rfft_w, irfft_w, e1_rtv, h_passA_pair, h_combine_dual,
             irfft_w_dual_state, sat_scan_i16, e1_rcarry, irfft_w_dual,
-            e1_carry, ifft_w_dual, fft_w, ifft_w)
+            e1_carry, ifft_w_dual, fft_w, ifft_w, h_passA, h_passB,
+            h_passB_combine, h_passB_dual)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -2,8 +2,9 @@
 fused half-spectrum solver, the system's hot path (:205-525, both kernel
 placements, at every storage mode of the JAX package, for one plane or a
 batched RGB / 3-D stack of planes), and the full-width split solver
-(:30-192, 528-701; ``precompute_split``, ``run_split``,
-``run_split_general``, at the end of this module).
+(:30-192, 528-701; ``precompute_split``, ``run_split`` with its
+``"torch"``, ``"fused"`` and ``"pallas"`` backends, ``run_split_general``,
+at the end of this module).
 
 Spatial planes ride in the even/odd split lane layout; spectra, filter
 constants and all H-axis work are half width (``ops/split_fft.py``).
@@ -53,6 +54,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..ops import kernels
@@ -364,12 +366,16 @@ def run_rsplit_general(pre: RSplitPrecomp, info: dict, data,
 #
 # ``run_split(backend="torch")`` is the JAX package's ``"jax"`` backend: the
 # unfused loop of admm_split.py:534-601 through the plain split transforms,
-# at f32.  ``backend="fused"`` (``run_split_fused``) is the carry-rebuild
-# loop of admm_split.py:161-192: per iteration K10 ``e1_carry`` -> K4/K5/K4
-# ``fft_h_combine_dual`` -> K11 ``ifft_w_dual``, no dc_patch (the spectra
-# are full width).  Its TV carries are f32 or bf16: the JAX kernel stores
-# them at ``_CARRY_DTYPE``, never int16, and has no saturation channel, so
-# neither has the port.
+# at f32.  ``backend="pallas"`` (``run_split_pallas``) is the same loop
+# through the pass-level kernels (admm_split.py:110-133): per iteration K12
+# -> K14 -> K15 for rk, K12 -> K14 -> K16 for v with the spectrum combine,
+# K17 -> K4 -> 2 K13 for the image and the forward plane, the state algebra
+# between them in PyTorch.  ``backend="fused"`` (``run_split_fused``) is the
+# carry-rebuild loop of admm_split.py:161-192: per iteration K10
+# ``e1_carry`` -> K4/K5/K4 ``fft_h_combine_dual`` -> K11 ``ifft_w_dual``, no
+# dc_patch (the spectra are full width).  Its TV carries are f32 or bf16:
+# the JAX kernel stores them at ``_CARRY_DTYPE``, never int16, and has no
+# saturation channel, so neither has the port.
 # ---------------------------------------------------------------------------
 
 
@@ -387,7 +393,7 @@ class SplitPrecomp(NamedTuple):
 
 
 SPLIT_FIELDS = ("Hr", "Hi", "R", "X_divmat", "data_pad")
-BACKENDS = ("torch", "fused")
+BACKENDS = ("torch", "fused", "pallas")
 
 
 def precompute_split_np(psf2d: np.ndarray, data2d: np.ndarray,
@@ -524,26 +530,112 @@ def run_split_fused(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
     return _crop(image, pre)
 
 
+def _diff_to(x, dim, out, back):
+    """The periodic difference of ``x`` along ``dim`` written into ``out``
+    by slices (no rolled copy): ``back`` roll(x, 1) - x, else x -
+    roll(x, -1).  Both are x[r - 1] - x[r] at shifted places."""
+    n = x.shape[dim]
+    head, tail = (1, 0) if back else (0, n - 1)
+    torch.sub(x.narrow(dim, 0, n - 1), x.narrow(dim, 1, n - 1), out=out.narrow(dim, head, n - 1))
+    torch.sub(x.narrow(dim, n - 1, 1), x.narrow(dim, 0, 1), out=out.narrow(dim, tail, 1))
+    return out
+
+
+def run_split_pallas(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
+                     n_iter: int = 100, ops=None, io: str = "f32"):
+    """Full-width split ADMM through the pass-level kernels (the JAX
+    package's ``run_split(backend="pallas")``, admm_split.py:528-601):
+    per iteration K12 ``fft_w`` -> ``fft_h`` (K14, K15) for rk, K12 ->
+    ``fft_h_combine`` (K14, K16) for v, ``ifft_h_dual`` (K17, K4) -> two
+    K13 ``ifft_w`` for the image and the forward plane; one launch each
+    per pass whatever the number of planes.  Returns the cropped image
+    clipped at 0, (H, W) for one plane and (P, H, W) for a stack.
+
+    ``io`` ("f32" or "bf16") is the JAX package's ``_IO_DTYPE``: the filter
+    planes, the spectra, the image, the forward plane and the differences
+    psi (from the io-typed image) ride at it, and mu1 * fwd is rounded to
+    it, as in the JAX loop; the duals xi, rho, eta0, eta1 stay f32.
+
+    The state algebra between the transforms is PyTorch, written for few
+    passes over the planes: each dual is updated in place in two steps
+    around the transforms, eta -= mu2 U before them and eta += mu2 psi'
+    after (JAX: eta + mu2 (psi' - U)), rho -= mu3 W and rho += mu3 image',
+    xi' = mu1 fwd' - v (v = mu1 X - xi); the rolls are slices.  The same
+    values as the JAX loop up to the order of f32 roundings.  ``ops`` is the
+    kernel set, ``kernels.KERNELS`` by default; ``kernels.PLAIN`` runs the
+    same loop through the plain versions."""
+    ops = ops or kernels.KERNELS
+    io_t = kernels.storage_dtype(io, ("f32", "bf16"))
+    _check_planes(pre)
+    mu1, mu2, mu3, tau = params.mu1, params.mu2, params.mu3, params.tau
+    thr = tau / mu2
+    ph = pre.padded_shape[0]
+    shape, dev = tuple(pre.data_pad.shape), pre.Hr.device
+    f32 = torch.float32
+    Hr, Hi, R = pre.Hr.to(io_t), pre.Hi.to(io_t), pre.R.to(io_t)
+    Xd, dp = pre.X_divmat, pre.data_pad
+    image = fwd = psi0 = psi1 = torch.zeros(shape, dtype=io_t, device=dev)
+    xi, rho, eta0, eta1 = (torch.zeros(shape, dtype=f32, device=dev) for _ in range(4))
+    for _ in range(int(n_iter)):
+        # TV: U = soft(psi + eta / mu2); eta <- eta - mu2 U (= -(mu2 U - eta))
+        for eta, psi in ((eta0, psi0), (eta1, psi1)):
+            eta.sub_(F.softshrink(torch.add(psi, eta, alpha=1.0 / mu2), thr), alpha=mu2)
+        # X = Xdiv (xi + mu1 fwd + data), mu1 fwd at io; v = mu1 X - xi
+        mf = fwd * mu1 if io_t != f32 else fwd
+        X = torch.add(xi, mf, alpha=1.0 if io_t != f32 else mu1).add_(dp)
+        X.view((-1,) + tuple(Xd.shape)).mul_(Xd)
+        v = X.mul_(mu1).sub_(xi)
+        del X, mf
+        # W = max(rho / mu3 + image, 0); rho <- rho - mu3 W
+        rho.sub_(torch.add(image, rho, alpha=1.0 / mu3).clamp_(min=0.0), alpha=mu3)
+        # rk = (mu3 W - rho) + adj(mu2 U - eta): the adjoint of the new
+        # -eta's differences, minus the new rho
+        rk = _diff_to(eta0, -2, torch.empty_like(eta0), back=False).add_(eta1)
+        n = rk.shape[-1]
+        rk.narrow(-1, 0, n - 1).sub_(eta1.narrow(-1, 1, n - 1))
+        rk.narrow(-1, n - 1, 1).sub_(eta1.narrow(-1, 0, 1))
+        rk.sub_(rho)
+        ar, ai = kernels.fft_h(*ops.fft_w(rk.to(io_t)), ph, ops=ops)
+        del rk
+        fr, fi = kernels.fft_h_combine(*ops.fft_w(v.to(io_t)), ar, ai, Hr, Hi, R, ph, ops=ops)
+        del ar, ai
+        (a0r, a0i), (a1r, a1i) = kernels.ifft_h_dual(fr, fi, Hr, Hi, ph, ops=ops)
+        del fr, fi
+        image = ops.ifft_w(a0r, a0i, out_dtype=io_t)
+        fwd = ops.ifft_w(a1r, a1i, out_dtype=io_t)
+        del a0r, a0i, a1r, a1i
+        psi0 = _diff_to(image, -2, torch.empty_like(image), back=True)
+        psi1 = _diff_to(image, -1, torch.empty_like(image), back=True)
+        # the duals: xi' = mu1 fwd' - v, rho += mu3 image', eta += mu2 psi'
+        xi = v.neg_().add_(fwd, alpha=mu1)
+        del v
+        rho.add_(image, alpha=mu3)
+        eta0.add_(psi0, alpha=mu2)
+        eta1.add_(psi1, alpha=mu2)
+    return _crop(image, pre)
+
+
 def run_split(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
               n_iter: int = 100, backend: str = "torch", io: str = "f32",
               carry_tv: str = "f32", carry_v: str = "f32"):
     """Full-width split ADMM of one plane (or a stack); returns the cropped
     image clipped at 0.  ``backend``: "torch", the JAX package's "jax"
-    backend (the unfused loop through the plain transforms, f32 only), or
-    "fused" (:func:`run_split_fused`, which takes the storage modes).  The
-    JAX package's "pallas" backend (K12-K17) is not ported yet and raises
-    NotImplementedError."""
+    backend (the unfused loop through the plain transforms, f32 only),
+    "fused" (:func:`run_split_fused`, which takes the storage modes) or
+    "pallas" (:func:`run_split_pallas`, which takes ``io`` and has no
+    carries: ``carry_tv`` and ``carry_v`` must be "f32")."""
     if backend == "fused":
         return run_split_fused(pre, params, n_iter, io=io, carry_tv=carry_tv, carry_v=carry_v)
     if backend == "pallas":
-        raise NotImplementedError("run_split(backend='pallas') runs K12-K17, the JAX "
-                                  "package's pass-level kernels: not ported yet (ROADMAP "
-                                  "item 5b); use 'fused' or 'torch'")
+        if (carry_tv, carry_v) != ("f32", "f32"):
+            raise ValueError("the pallas backend has no carries (its state is f32 duals "
+                             "and io planes); carry_tv and carry_v must be 'f32'")
+        return run_split_pallas(pre, params, n_iter, io=io)
     if backend != "torch":
-        raise ValueError(f"backend {backend!r} is not one of {BACKENDS + ('pallas',)}")
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     if (io, carry_tv, carry_v) != ("f32", "f32", "f32"):
         raise ValueError("the torch backend runs at f32, as the JAX package's jax "
-                         "backend; storage modes are for backend='fused'")
+                         "backend; storage modes are for backend='fused' or 'pallas'")
     _check_planes(pre)
     return _run_split_torch(pre, params, n_iter)
 

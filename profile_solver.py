@@ -1,44 +1,59 @@
-"""In-loop kernel times of the port's fused solvers on one card.
+"""In-loop kernel times of the port's solvers on one card.
 
-    python3 profile_solver.py [--solver rsplit|split] [--mode bench|f32] [--n 20]
+    python3 profile_solver.py [--solver rsplit|split|pallas|rgb|batch4]
+                              [--mode bench|f32] [--n 20]
 
 Builds the port's kernels, makes the 12 MP certification measurement of
 ``chip_smoke.py`` (seed 0), runs one solve to warm up and traces a second
 solve of ``--n`` iterations with ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON line: for every CUDA kernel its device time
-in all and per call and its number of calls, the sum over kernels, the
-traced window's wall time and the device's busy share of it (the sum over
-the window), the solver's it/s by the difference method
-(``chip_smoke.rate``), and the card's name and power limit.  ``--solver
-rsplit`` is the half-spectrum ``run_rsplit``, ``split`` the full-width
-``run_split(backend="fused")``; ``--mode bench`` runs either in the
-storage modes the JAX bench's headline environment gives it (bf16
-spectra, int16 carries; the full-width path keeps f32 TV carries),
-``f32`` at f32.  It
-imports only the package API that both solvers have had since they
-landed, so it also times an older checkout: run it from that checkout's
-root.  Exits non-zero without a CUDA device.
+in all and per call and its number of calls; the sum over kernels, split
+into the port's own CUDA kernels (``port_us``) and PyTorch's (``torch_us``:
+the state algebra, casts, copies, ``dc_patch``'s FFTs); the traced
+window's wall time and the device's busy share of it (the sum over the
+window); per iteration the bytes that PyTorch's operations read and write
+(``torch_bytes_per_iter``, counted by a dispatch mode over a 1- and a
+2-iteration solve: each tensor input read once, each output written once,
+views and allocations nothing); the solver's it/s by the difference method
+(``chip_smoke.rate``); and the card's name and power limit.
+
+``--solver rsplit`` is the half-spectrum ``run_rsplit``, ``split`` the
+full-width ``run_split(backend="fused")``, ``pallas`` the full-width
+``run_split(backend="pallas")``, ``rgb`` and ``batch4`` the JAX bench's RGB
+(3 planes) and gray batch=4 rungs through ``run_rsplit_general`` (always
+in the headline mode); ``--mode bench`` runs a solver in the storage modes
+the JAX bench's headline environment gives it (bf16 spectra, int16
+carries; the full-width fused path keeps f32 TV carries, the pallas path
+has no carries), ``f32`` at f32.  The ``rsplit``, ``split``, ``rgb`` and
+``batch4`` solvers use only package API that they have had since they
+landed, so the script also times an older checkout: run it from that
+checkout's root.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import chip_smoke as cs
 from lenslesspicam_tpu_torch.ops import _build
 from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.recon import admm_split
 
-MODES = {("rsplit", "bench"): dict(io="bf16", carry_tv="i16", carry_v="i16"),
+HEADLINE = dict(io="bf16", carry_tv="i16", carry_v="i16")
+MODES = {("rsplit", "bench"): HEADLINE,
          ("split", "bench"): dict(io="bf16", carry_tv="f32", carry_v="i16"),
-         ("rsplit", "f32"): {}, ("split", "f32"): {}}
+         ("pallas", "bench"): dict(io="bf16"),
+         ("rgb", "bench"): HEADLINE, ("batch4", "bench"): HEADLINE,
+         ("rsplit", "f32"): {}, ("split", "f32"): {}, ("pallas", "f32"): {}}
 
 
 def device_time_us(evt) -> float:
@@ -50,32 +65,90 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
+def port_kernel_names() -> set:
+    """The names of the port's own CUDA kernels, from its sources."""
+    names = set()
+    for path in _build.CSRC.glob("*.cu"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                path.read_text()))
+    return names
+
+
+class ByteCount(TorchDispatchMode):
+    """Counts the bytes that the aten operations run under it read and
+    write: each tensor input once (an ``out=`` tensor is not read), each
+    output once; views and ``empty`` allocations move nothing.  The port's
+    CUDA kernels run through ``ctypes`` and are not seen."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if not (func.is_view or name.startswith("empty")):
+            ins = [a for a in (*args, *(v for k, v in kwargs.items() if k != "out"))
+                   if isinstance(a, torch.Tensor)]
+            outs = [t for t in (out if isinstance(out, (tuple, list)) else (out,))
+                    if isinstance(t, torch.Tensor)]
+            self.bytes += sum(t.numel() * t.element_size() for t in ins + outs)
+        return out
+
+
+def measurement(solver, scene, psf2d):
+    """The solver's measurement: gray (H, W), or the bench rung's (B, 1,
+    H, W, C) planes scaled per plane and normalized per plane, as
+    ``chip_smoke.mode_phase`` makes them; with the PSF it takes."""
+    if solver not in ("rgb", "batch4"):
+        fwd = FFTConvolver.from_psf(psf2d[None, :, :, None], pad=True, norm="backward")
+        meas = fwd.convolve(torch.from_numpy(scene)[None, None, :, :, None].to("cuda"))
+        return (meas / meas.max().clamp_min(1e-9))[0, 0, :, :, 0].cpu().numpy(), psf2d
+    ch, b = (3, 1) if solver == "rgb" else (1, 4)
+    scales = np.linspace(1.0, 0.55, b * ch).astype(np.float32)
+    scenes = np.stack([scene * s for s in scales]).reshape(b, ch, *cs.SENSOR).transpose(0, 2, 3, 1)
+    psf = np.repeat(psf2d[None, :, :, None], ch, axis=-1)
+    fwd = FFTConvolver.from_psf(psf, pad=True, norm="backward")
+    meas = fwd.convolve(torch.from_numpy(np.ascontiguousarray(scenes[:, None])).to("cuda"))
+    meas = meas / meas.amax(dim=(-3, -2), keepdim=True).clamp_min(1e-9)
+    return meas.cpu().numpy(), psf
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--solver", choices=("rsplit", "split"), default="rsplit")
+    ap.add_argument("--solver", choices=("rsplit", "split", "pallas", "rgb", "batch4"),
+                    default="rsplit")
     ap.add_argument("--mode", choices=("bench", "f32"), default="bench")
     ap.add_argument("--n", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_solver: no CUDA device", file=sys.stderr)
         return 1
+    if (args.solver, args.mode) not in MODES:
+        print(f"profile_solver: {args.solver} runs in the bench mode only", file=sys.stderr)
+        return 2
     _build.build_all()
     scene, psf2d = cs.cert_scene_psf(cs.SENSOR, np.random.RandomState(0))
-    fwd = FFTConvolver.from_psf(psf2d[None, :, :, None], pad=True, norm="backward")
-    meas = fwd.convolve(torch.from_numpy(scene)[None, None, :, :, None].to("cuda"))
-    meas = (meas / meas.max().clamp_min(1e-9))[0, 0, :, :, 0].cpu().numpy()
-    del fwd
+    meas, psf = measurement(args.solver, scene, psf2d)
     modes = MODES[(args.solver, args.mode)]
     if args.solver == "rsplit":
-        pre = admm_split.precompute_rsplit(psf2d, meas)
+        pre = admm_split.precompute_rsplit(psf, meas)
 
         def solve(k):
             return admm_split.run_rsplit(pre, n_iter=k, **modes)
-    else:
-        pre = admm_split.precompute_split(psf2d, meas)
+    elif args.solver in ("rgb", "batch4"):
+        pre, info = admm_split.precompute_rsplit_general(psf, meas)
+        meas_t = torch.from_numpy(meas).to("cuda")
 
         def solve(k):
-            return admm_split.run_split(pre, n_iter=k, backend="fused", **modes)
+            return admm_split.run_rsplit_general(pre, info, meas_t, n_iter=k, **modes)
+    else:
+        pre = admm_split.precompute_split(psf, meas)
+        backend = "fused" if args.solver == "split" else "pallas"
+
+        def solve(k):
+            return admm_split.run_split(pre, n_iter=k, backend=backend, **modes)
 
     solve(args.n)
     torch.cuda.synchronize()
@@ -85,17 +158,27 @@ def main():
         solve(args.n)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
+    own = port_kernel_names()
+    kernels, port_us = {}, 0.0
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).endswith("CUDA"):
             us = device_time_us(evt)
             kernels[evt.key] = {"us": us, "calls": evt.count, "us_per_call": us / max(evt.count, 1)}
+            if any(re.search(rf"\b{n}\b", evt.key) for n in own):
+                port_us += us
     total = sum(k["us"] for k in kernels.values())
+    counted = []
+    for k in (1, 2):
+        with ByteCount() as bc:
+            solve(k)
+        counted.append(bc.bytes)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"solver": args.solver, "mode": args.mode, "modes": modes,
-                      "n_iter": args.n,
-                      "grid": list(cs.SENSOR), "kernels": kernels, "kernel_us": total,
+                      "n_iter": args.n, "grid": list(cs.SENSOR), "kernels": kernels,
+                      "kernel_us": total, "port_us": port_us, "torch_us": total - port_us,
+                      "torch_us_per_iter": (total - port_us) / args.n,
+                      "torch_bytes_per_iter": counted[1] - counted[0],
                       "wall_us": wall_us, "busy_share": total / wall_us if wall_us else None,
                       "it_per_s": cs.rate(solve), "card": smi}), flush=True)
     return 0

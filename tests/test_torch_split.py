@@ -376,8 +376,8 @@ def test_split_modes_and_backends_are_validated(monkeypatch):
     pre = tsplit.precompute_split(psf, data, device="cpu")
     with pytest.raises(ValueError, match="no int16 TV carries"):
         tsplit.run_split(pre, P, 1, backend="fused", io="bf16", carry_tv="i16", carry_v="i16")
-    with pytest.raises(NotImplementedError, match="5b"):
-        tsplit.run_split(pre, P, 1, backend="pallas")
+    with pytest.raises(ValueError, match="no carries"):
+        tsplit.run_split(pre, P, 1, backend="pallas", io="bf16", carry_v="i16")
     with pytest.raises(ValueError):
         tsplit.run_split(pre, P, 1, backend="jax")
     with pytest.raises(ValueError):
