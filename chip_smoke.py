@@ -21,13 +21,20 @@ built storage combination at 96 x 512, a 6-over-3 stack, both modes at
 12 MP, the K12 -> K13 round trip, the f32 and bench-mode solves against
 the exact one, their rates), runs its pass-level backend
 (``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
-``split_pallas``: K14-K17 against their plain versions at 96 x 512 in both
+``split_pallas``: K14-K18 against their plain versions at 96 x 512 in both
 io modes and as a 6-over-3 stack and at 12 MP with kernel rows, the
-``fft_h`` and ``ifft_h_dual`` chains against torch.fft,
+``fft_h`` and ``ifft_h_dual`` chains against torch.fft, K18's composition
+``fft_h_combine2`` against ``fft_h`` then ``fft_h_combine``,
 ``filtered_synthesis_pallas2`` at 12 MP against torch.fft, the f32 and bf16
-solves against the exact one, launch counts, rates), checks that each
-counted run went through every kernel of its path, measures the solvers'
-rates, and prints one JSON line per phase.
+solves against the exact one, launch counts, rates), runs the bandwidth
+probe P1-P3 (phase ``bandwidth``: every reading of the JAX script at
+6144 x 8192 bit-equal to its plain version, then timed beside the library
+copies; the best P1 reading is the card's measured streaming rate, and
+every kernel row gets a bound at that rate beside the data sheet's),
+passes CUDA tensors that require grad to the public entry points against
+numpy inputs (phase ``device_inputs``), checks that each counted run went
+through every kernel of its path, measures the solvers' rates, and prints
+one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without a CUDA device it exits non-zero before
 printing any result.
@@ -45,11 +52,12 @@ import time
 import numpy as np
 import torch
 
-from lenslesspicam_tpu_torch.ops import _build, kernels as K
+from lenslesspicam_tpu_torch.ops import _build, kernels as K, probe_bw as PB
 from lenslesspicam_tpu_torch.ops import split_fft as sf
 from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.recon import admm, admm_split
 from lenslesspicam_tpu_torch.recon.admm import ADMMParams
+from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
@@ -132,7 +140,16 @@ PALLAS_IO = {"f32": F32, "bf16": BF16}
 PALLAS_NAMES = ("fft_w", "ifft_w", "h_passA", "h_passB", "h_passB_combine", "h_passB_dual")
 TOL_SYNTHESIS = 1e-4         # filtered_synthesis_pallas2 vs torch.fft (tests/test_pallas_fft.py:93)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+# a streaming reading above the data sheet's rate by more than 5 % is a
+# clock that does not scale with the work, not a result
+MAX_BYTES_PER_S = 1.05 * HBM_BYTES_PER_S
 F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
+# the bandwidth probe's readings that stream a plane once in and once out,
+# with no other reads: P1, P2 and their library calls
+STREAM_PROBES = ("pure_copy_plane", "copy_plane")
+MS_METHOD = ("median of 7 single calls after a warm-up, CUDA events, each call enqueued "
+             "while the card spins so that the host's launch time is not counted")
+SPIN_CYCLES = 2_000_000      # about 1 ms of the card's clock, for time_ms
 
 KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
     "rfft_w": ("K1", "lenslesspicam_tpu_torch/ops/csrc/rfft_w.cu",
@@ -169,6 +186,31 @@ KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
                         "lenslesspicam_tpu/ops/pallas_kernels2.py:876"),
     "h_passB_dual": ("K17", "lenslesspicam_tpu_torch/ops/csrc/h_pass_b.cu",
                      "lenslesspicam_tpu/ops/pallas_kernels2.py:1143"),
+    "h_passB_combine2": ("K18", "lenslesspicam_tpu_torch/ops/csrc/h_pass_b.cu",
+                         "lenslesspicam_tpu/ops/pallas_kernels2.py:936"),
+    "pure_copy_plane": ("P1", "lenslesspicam_tpu_torch/ops/csrc/probe_bw.cu",
+                        "scripts/dev/_probe_bw.py:27"),
+    "copy_plane": ("P2", "lenslesspicam_tpu_torch/ops/csrc/probe_bw.cu",
+                   "scripts/dev/_probe_bw.py:36"),
+    "copy_plane_consts": ("P3", "lenslesspicam_tpu_torch/ops/csrc/probe_bw.cu",
+                          "scripts/dev/_probe_bw.py:65"),
+}
+
+
+# why a kernel row has no library_ms: no one PyTorch call computes the
+# kernel's function
+LIBRARY_NONE = {
+    "e1_rtv": "a TV step fused with a packed real transform",
+    "h_passA_pair": "a stage of a factored transform with its twiddles",
+    "h_combine_dual": "two stage-2 contractions, a spectrum combine and two inverse stages",
+    "irfft_w_dual_state": "two inverse transforms fused with the X/v update and a forward one",
+    "e1_rcarry": "a TV step, the X/v update and two forward transforms fused",
+    "e1_carry": "a TV step, the X/v update and two forward transforms fused",
+    "h_passA": "a stage of a factored transform with its twiddles",
+    "h_passB_combine": "a stage-2 contraction fused with a spectrum combine",
+    "h_passB_dual": "two inverse stage-2 contractions, one of them filtered",
+    "h_passB_combine2": "two stage-2 contractions of two spectra and their combine",
+    "copy_plane_consts": "a copy that also reads n constant planes per block",
 }
 
 
@@ -177,13 +219,17 @@ def emit(obj):
 
 
 def time_ms(fn, reps=7):
-    """Median device time of one call, CUDA events, after a warm-up."""
+    """Median device time of one call, CUDA events, after a warm-up
+    (MS_METHOD): each call and its events are enqueued behind a spin of
+    SPIN_CYCLES, so the card starts the call as soon as the first event
+    and the host's time to launch it stays outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -351,7 +397,8 @@ def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
     (ph, pw) plane at ``io``, R at its loop scale (up to 1/mu3); with
     ``planes`` = (P, Pc) stacks.  A key "name:form" is the wrapper
     ``name`` in another form than the one of the loop's forward passes
-    (K14 and K15 inverse, K15 with its filter).  Operations: 5 log2 n per
+    (K14 and K15 inverse, K15 with its filter); K18 takes the stage-1 planes
+    of rk and v, as ``fft_h_combine2`` gives them.  Operations: 5 log2 n per
     point of a length-n stage, 6 per twiddle and per complex product,
     F_OPS per point of the combine."""
     dev = "cuda"
@@ -377,7 +424,21 @@ def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
         "h_passB_combine": ((rn(*lp), rn(*lp), rn(*lp), rn(*lp), rn(*lc), rn(*lc), rr, ph),
                             s2 + F_OPS * pts),
         "h_passB_dual": ((rn(*lp), rn(*lp), rn(*lc), rn(*lc), ph), 2 * s2 + CMUL_OPS * pts),
+        "h_passB_combine2": ((rn(*lp), rn(*lp), rn(*lp), rn(*lp), rn(*lc), rn(*lc), rr, ph),
+                             2 * s2 + F_OPS * pts),
     }
+
+
+def probe_kernel_cases(ph, pw, gen, io, *_, planes=None):
+    """The bandwidth probe's inputs: a seeded (ph, pw) plane at ``io``
+    streamed in blocks of 16 rows, P3 with 40 constant planes.  Operations:
+    P2 one multiply per element, P3 one add per element and one per
+    constant plane, P1 none."""
+    x = torch.rand(ph, pw, generator=gen, device="cuda").to(io)
+    br, n = PB.BRS[0], PB.N_CONSTS[-1]
+    return {"pure_copy_plane": ((x, br), 0),
+            "copy_plane": ((x, br), x.numel()),
+            "copy_plane_consts": ((x, br, PB.const_planes(n, "cuda")), x.numel() + n)}
 
 
 def library_call(name, args):
@@ -409,16 +470,21 @@ def library_call(name, args):
         # filtered inverse form is a product and an ifft: no one call)
         z = torch.complex(args[0].float(), args[1].float())
         return lambda: torch.fft.fft(z, dim=-2)
+    lib = probe_library(name)[1]
+    if lib:
+        return lambda: lib(args[0])
     return None
 
 
 def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=None,
-                  cases=kernel_cases):
-    """Each kernel (of ``names``, default all) against its plain version on
-    the inputs of ``cases`` (:func:`kernel_cases` or
-    :func:`split_kernel_cases`); with ``timed`` also its time, the plain
-    version's, the library call's and the bound.  One JSON line per
-    kernel; returns the rows by kernel."""
+                  cases=kernel_cases, ops=K):
+    """Each kernel (of ``names``, default all) of the module ``ops``
+    (``kernels`` or ``probe_bw``) against its plain version on the inputs
+    of ``cases`` (:func:`kernel_cases`, :func:`split_kernel_cases`,
+    :func:`pallas_kernel_cases` or :func:`probe_kernel_cases`); with
+    ``timed`` also its time, the plain version's, the library call's (each
+    by MS_METHOD) and the bound.  One JSON line per kernel; returns the
+    rows by kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(ph)
     rows = {}
@@ -426,7 +492,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
         if names is not None and name not in names:
             continue
         fn = name.split(":")[0]     # "name:form": another form of the wrapper name
-        wrapper, plain = getattr(K, fn), getattr(K, fn + "_plain")
+        wrapper, plain = getattr(ops, fn), getattr(ops, fn + "_plain")
         out = wrapper(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
@@ -448,7 +514,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
             t_bytes = byt / HBM_BYTES_PER_S * 1e3
             t_ops = flops / F32_FLOP_PER_S * 1e3
             lib = library_call(name, args)
-            row.update(ms=time_ms(lambda: wrapper(*args)),
+            row.update(ms=time_ms(lambda: wrapper(*args)), ms_method=MS_METHOD,
                        plain_ms=time_ms(lambda: plain(*args)),
                        bytes=byt, flops=flops, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -470,8 +536,7 @@ def round_trip(ph, pw, fwd=K.rfft_w, inv=K.irfft_w, seed=7):
     names = (fwd.__name__, inv.__name__)
     for dtype in (torch.float32, torch.bfloat16):
         x = x0.to(dtype)
-        back, counts = counted(lambda: inv(*fwd(x)),
-                               {name: int(name in names) for name in K.launch_counts()},
+        back, counts = counted(lambda: inv(*fwd(x)), zero_counts(**dict.fromkeys(names, 1)),
                                " -> ".join(names))
         err = float((back - x.float()).abs().max() / x.float().abs().max())
         if not err <= TOL_ROUND_TRIP[dtype]:
@@ -598,8 +663,7 @@ def want_counts(n, placement="v3", sat_scans=0):
     once, K3, 2 K4, K5, K6 per iteration; v2 K8, 2 K4, K5, K9 per
     iteration; and ``sat_scans`` K7 scans.  Whatever the number of
     planes."""
-    counts = dict.fromkeys(K.launch_counts(), 0)
-    counts.update(h_passA_pair=2 * n, h_combine_dual=n, sat_scan_i16=sat_scans)
+    counts = zero_counts(h_passA_pair=2 * n, h_combine_dual=n, sat_scan_i16=sat_scans)
     if placement == "v3":
         counts.update(rfft_w=1, e1_rtv=n, irfft_w_dual_state=n)
     else:
@@ -607,13 +671,27 @@ def want_counts(n, placement="v3", sat_scans=0):
     return counts
 
 
+def all_counts():
+    """The launch counts of every wrapper: the solver kernels' and the
+    bandwidth probe's."""
+    return {**K.launch_counts(), **PB.launch_counts()}
+
+
+def zero_counts(**nonzero):
+    """Launch counts of a run that launches only the kernels ``nonzero``."""
+    return {**dict.fromkeys(all_counts(), 0), **nonzero}
+
+
 def counted(fn, want, label):
     """Run ``fn`` with every launch count set to 0 just before and read
-    just after; raises unless the counts are ``want``."""
+    just after; raises unless the counts are ``want`` (or ``want(out)``
+    where it is a function of ``fn``'s result)."""
     K.reset_launches()
+    PB.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    counts = K.launch_counts()
+    counts = all_counts()
+    want = want(out) if callable(want) else want
     if counts != want:
         raise AssertionError(f"{label} launch counts {counts} != {want}")
     return out, counts
@@ -792,9 +870,7 @@ def mode_phase(mode, scene, psf2d, conv):
 def want_split_counts(n):
     """Launches of an n-iteration full-width fused solve: K10, 2 K4, K5,
     K11 per iteration, whatever the number of planes."""
-    counts = dict.fromkeys(K.launch_counts(), 0)
-    counts.update(e1_carry=n, h_passA_pair=2 * n, h_combine_dual=n, ifft_w_dual=n)
-    return counts
+    return zero_counts(e1_carry=n, h_passA_pair=2 * n, h_combine_dual=n, ifft_w_dual=n)
 
 
 def split_small_loop():
@@ -876,10 +952,8 @@ def want_pallas_counts(n):
     """Launches of an n-iteration pallas solve: per iteration K12 twice,
     K14 twice, K15, K16, K17, K4 once, K13 twice, whatever the number of
     planes."""
-    counts = dict.fromkeys(K.launch_counts(), 0)
-    counts.update(fft_w=2 * n, h_passA=2 * n, h_passB=n, h_passB_combine=n, h_passB_dual=n,
-                  h_passA_pair=n, ifft_w=2 * n)
-    return counts
+    return zero_counts(fft_w=2 * n, h_passA=2 * n, h_passB=n, h_passB_combine=n,
+                       h_passB_dual=n, h_passA_pair=n, ifft_w=2 * n)
 
 
 def pallas_chains(ph, pw):
@@ -900,6 +974,47 @@ def pallas_chains(ph, pw):
               "note": "library_ms: torch.fft along H (natural order) of the same function"})
 
 
+def combine2_chain(ph, pw):
+    """K18's composition ``fft_h_combine2`` (K14 twice, K18) against
+    ``fft_h`` then ``fft_h_combine`` (K14, K15; K14, K16) on the same 12 MP
+    planes (R at its loop scale) at f32 and bf16 io: their normalized
+    difference within kernels.TOL_COMBINE2, the launch counts and the ms of
+    each;
+    one ``chain`` line per io.  Returns the launch counts of
+    ``fft_h_combine2`` by io."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    planes = [torch.randn(ph, pw, generator=gen, device="cuda") for _ in range(6)]
+    planes.append(torch.rand(ph, pw, generator=gen, device="cuda") / ADMMParams().mu3)
+    counts = {}
+    for mode, io in PALLAS_IO.items():
+        rkr, rki, vr, vi, hr, hi, rr = (t.to(io) for t in planes)
+
+        def fused():
+            return K.fft_h_combine2(rkr, rki, vr, vi, hr, hi, rr, ph)
+
+        def apart():
+            return K.fft_h_combine(vr, vi, *K.fft_h(rkr, rki, ph), hr, hi, rr, ph)
+
+        f2, counts[mode] = counted(fused, zero_counts(h_passA=2, h_passB_combine2=1),
+                                   f"fft_h_combine2 ({mode})")
+        f1, counts_apart = counted(apart, zero_counts(h_passA=2, h_passB=1, h_passB_combine=1),
+                                   f"fft_h + fft_h_combine ({mode})")
+        gap, tol = K.spectra_gap(f2, f1), K.TOL_COMBINE2[io]
+        if not (gap <= tol and all(t.dtype == io and tuple(t.shape) == (ph, pw)
+                                                and bool(torch.isfinite(t).all()) for t in f2)):
+            raise AssertionError(f"fft_h_combine2 vs fft_h + fft_h_combine ({mode}) at "
+                                 f"{ph}x{pw}: {gap:.3e} > {tol}")
+        emit({"phase": "chain", "name": "fft_h_combine2 (K14, K14, K18)", "io": mode,
+              "grid": [ph, pw], "ms": time_ms(fused),
+              "vs": "fft_h, fft_h_combine (K14, K15, K14, K16)", "vs_ms": time_ms(apart),
+              "launches": {k: c for k, c in counts[mode].items() if c},
+              "vs_launches": {k: c for k, c in counts_apart.items() if c},
+              "max_rel_diff": gap, "tol": tol})
+        del f1, f2
+    return counts
+
+
 def filtered_synthesis_check(ph, pw):
     """``filtered_synthesis_pallas2`` (K12, K14, K15, K15 with the filter,
     K14, K13) on a 12 MP plane against torch.fft's ifft2(fft2(x) fft2(k)),
@@ -913,9 +1028,8 @@ def filtered_synthesis_check(ph, pw):
     iw = torch.from_numpy(sf.split_order_indices(pw)).to("cuda")
     Hs = Hk[ih][:, iw]
     fr, fi = Hs.real.contiguous(), Hs.imag.contiguous()
-    want = dict.fromkeys(K.launch_counts(), 0)
-    want.update(fft_w=1, h_passA=2, h_passB=2, ifft_w=1)
-    out, counts = counted(lambda: K.filtered_synthesis_pallas2(x, fr, fi), want,
+    out, counts = counted(lambda: K.filtered_synthesis_pallas2(x, fr, fi),
+                          zero_counts(fft_w=1, h_passA=2, h_passB=2, ifft_w=1),
                           "filtered_synthesis_pallas2")
 
     def lib():
@@ -1007,6 +1121,123 @@ def split_pallas_phase(pre, scene_n, p_exact10, p_exact100):
     return rec
 
 
+def bits(x):
+    """The bits of a tensor, as integers of its element's width."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def probe_library(name):
+    """One PyTorch call computing the probe ``name``'s function, chained as
+    ``probe_bw.timed`` chains it, or None where there is none."""
+    if name == "pure_copy_plane":
+        return "x.clone()", lambda s: s.clone()
+    if name == "copy_plane":
+        return f"torch.mul(x, {PB.SCALE})", lambda s: torch.mul(s, PB.SCALE)
+    return None, None
+
+
+def bandwidth_phase(smi):
+    """The bandwidth probe P1-P3 at 6144 x 8192 in every reading of the JAX
+    script's three modes (``probe_bw.sweep``), and P3 at f32 (br = 16,
+    n = 40) for the kernels line's f32 column: each kernel's output
+    bit-equal to its plain version's, then its rate by ``probe_bw.timed``
+    with the launch counts set to 0 just before and read just after; beside
+    it the rates of its plain version and of the library call (P1
+    ``x.clone()``, P2 ``torch.mul(x, 1.0001)``, P3 none).  Rates count two
+    plane-bytes a call, as the JAX script does; a rate above
+    MAX_BYTES_PER_S raises.  ``measured_bytes_per_s``, the card's streaming
+    ceiling, is the largest reading of a kernel or library call of
+    STREAM_PROBES; the line names the reading.  Returns
+    (measured_bytes_per_s, launch counts of all timed runs, of the f32
+    ones)."""
+    t0 = time.perf_counter()
+    configs = [*PB.sweep("pure"), *PB.sweep("mul"), *PB.sweep("consts"),
+               ("copy_plane_consts", F32, 16, PB.N_CONSTS[-1])]
+    readings = []
+    counts, counts_f32 = zero_counts(), zero_counts()
+    for seed, (name, dtype, br, n) in enumerate(configs):
+        x = PB.plane(dtype, "cuda", seed)
+        consts = PB.const_planes(n, "cuda") if n is not None else None
+        out = PB.step(name, br, consts)(x)
+        ref = PB.step(name, br, consts, PB.PLAIN)(x)
+        if not (out.dtype == ref.dtype and torch.equal(bits(out), bits(ref))):
+            raise AssertionError(f"{name} {dtype} br={br} n={n}: not bit-equal to its plain "
+                                 "version")
+        del out, ref
+        gb = PB.plane_gbytes(x)
+        r, c = counted(lambda: PB.timed(PB.step(name, br, consts), x, gb),
+                       lambda r: zero_counts(**{name: r["calls"]}), f"{name} {dtype} br={br}")
+        plain = PB.timed(PB.step(name, br, consts, PB.PLAIN), x, gb)
+        lib_name, lib = probe_library(name)
+        lib_r = PB.timed(lib, x, gb) if lib else None
+        rates = [r["gb_per_s"], plain["gb_per_s"]] + ([lib_r["gb_per_s"]] if lib_r else [])
+        if not max(rates) * 1e9 <= MAX_BYTES_PER_S:
+            raise AssertionError(f"{name} {dtype} br={br} n={n}: {max(rates):.1f} GB/s is above "
+                                 f"{MAX_BYTES_PER_S / 1e9:.1f}: the clock does not scale")
+        for k in counts:
+            counts[k] += c[k]
+            counts_f32[k] += c[k] if dtype == F32 else 0
+        readings.append({"probe": KERNEL_INFO[name][0], "name": name,
+                         "dtype": str(dtype).removeprefix("torch."), "br": br, "n_consts": n,
+                         "ms": r["ms"], "gb_per_s": r["gb_per_s"], "plain_ms": plain["ms"],
+                         "plain_gb_per_s": plain["gb_per_s"], "library": lib_name,
+                         "library_ms": lib_r["ms"] if lib_r else None,
+                         "library_gb_per_s": lib_r["gb_per_s"] if lib_r else None})
+        del x, consts
+    streams = [(rd[key], {"call": rd["library"] if key == "library_gb_per_s" else rd["probe"],
+                          "dtype": rd["dtype"], "br": rd["br"]})
+               for rd in readings if rd["name"] in STREAM_PROBES
+               for key in ("gb_per_s", "library_gb_per_s")]
+    ceiling, ceiling_from = max(streams, key=lambda t: t[0])
+    best_p1 = max(rd["gb_per_s"] for rd in readings if rd["name"] == "pure_copy_plane")
+    measured = ceiling * 1e9
+    emit({"phase": "bandwidth", "grid": list(PB.PLANE),
+          "method": "probe_bw.timed: (52 calls - 2 calls) chained, best of 3 pairs, "
+                    "2 plane-bytes a call", "readings": readings,
+          "measured_bytes_per_s": measured, "measured_from": ceiling_from,
+          "best_p1_bytes_per_s": best_p1 * 1e9, "best_p1_share_of_measured": best_p1 / ceiling,
+          "data_sheet_bytes_per_s": HBM_BYTES_PER_S,
+          "measured_share_of_data_sheet": measured / HBM_BYTES_PER_S,
+          "max_bytes_per_s": MAX_BYTES_PER_S, "launches": counts, "card": smi,
+          "seconds": time.perf_counter() - t0})
+    return measured, counts, counts_f32
+
+
+def device_inputs_check():
+    """The public entry points given CUDA tensors that require grad, held
+    to the same values given as numpy arrays, bit for bit: ``ADMM(psf)``
+    with ``set_data`` and ``apply`` and ``apply_admm`` (48 x 64, n = 5;
+    the image must not require grad), every array of
+    ``precompute_rsplit`` (48 x 64) and of ``precompute_split``
+    (48 x 256)."""
+    rng = np.random.RandomState(15)
+
+    def cuda(a):
+        return torch.from_numpy(a).to("cuda").requires_grad_()
+
+    checks = {}
+    psf, data = (rng.rand(1, *SMALL, 1).astype(np.float32) for _ in range(2))
+    ref = ADMM(psf)
+    ref.set_data(data)
+    rec = ADMM(cuda(psf))
+    rec.set_data(cuda(data))
+    out = rec.apply(n_iter=5)
+    checks["ADMM.set_data"] = torch.equal(out, ref.apply(n_iter=5)) and not out.requires_grad
+    checks["apply_admm"] = torch.equal(apply_admm(cuda(psf), cuda(data), n_iter=5),
+                                       apply_admm(psf, data, n_iter=5))
+    for name, fn, shape, fields in (
+            ("precompute_rsplit", admm_split.precompute_rsplit, SMALL, admm_split.ARRAY_FIELDS),
+            ("precompute_split", admm_split.precompute_split, SMALL_SPLIT,
+             admm_split.SPLIT_FIELDS)):
+        p2, d2 = (rng.rand(*shape).astype(np.float32) for _ in range(2))
+        a, b = fn(cuda(p2), cuda(d2)), fn(p2, d2)
+        checks[name] = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+    if not all(checks.values()):
+        raise AssertionError(f"CUDA tensor inputs differ from numpy inputs: {checks}")
+    emit({"phase": "device_inputs", "inputs": "CUDA tensors with requires_grad",
+          "bit_equal_to_numpy_inputs": checks})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1031,9 +1262,15 @@ def main():
     seconds["build"] = time.perf_counter() - t0
     emit({"phase": "build", "seconds": seconds["build"], "built": sorted(logs),
           "seconds_by_library": {n: r["seconds"] for n, r in logs.items()}, "ptxas": regs})
-
     t0 = time.perf_counter()
     ph, pw = 6144, 8192
+    measured, counts_bw, counts_bw_f32 = bandwidth_phase(smi)
+    probe_rows = {mode: check_kernels(ph, pw, True, io, F32, F32, F32, mode,
+                                      cases=probe_kernel_cases, ops=PB)
+                  for mode, io in (("f32", F32), ("headline", BF16))}
+    seconds["bandwidth"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     sh, sw = 2 * SMALL[0], 2 * SMALL[1]
     for io, tv, v, k2_out in COMBOS:
         check_kernels(sh, sw, False, io, tv, v, k2_out,
@@ -1074,12 +1311,14 @@ def main():
                                        cases=pallas_kernel_cases)
                    for mode, io in PALLAS_IO.items()}
     pallas_chains(ph, pw)
+    counts_c2 = combine2_chain(ph, pw)
     synthesis = filtered_synthesis_check(ph, pw)
     seconds["split_pallas_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     counts_rt = round_trip(ph, pw)
     chain_yardstick(ph, pw)
     small_end_to_end()
+    device_inputs_check()
     seconds["small_and_round_trip"] = time.perf_counter() - t0
 
     # end to end at 12 MP: scene, PSF and measurement from seed 0
@@ -1171,28 +1410,47 @@ def main():
     # trip, no solver calls it), and those of every counted main path
     # (K10, K11: the split phase's bench mode, f32 beside it; K12-K17: the
     # pallas backend at bf16 io, f32 io beside it; the numbers of K12 and
-    # K13 those of the split phase's kernel rows, of K14-K17 those of the
-    # bf16 and f32 io rows, K14 and K15 in their forward form)
+    # K13 those of the split phase's kernel rows, of K14-K18 those of the
+    # bf16 and f32 io rows, K14 and K15 in their forward form; K18: its
+    # composition fft_h_combine2 at bf16 io, f32 beside it; P1-P3: the
+    # bandwidth phase's timed runs, the numbers its bf16 and f32 rows at
+    # br = 16, P3 with 40 constant planes).  bound_measured_ms is the bound
+    # at the card's measured streaming ceiling (the bandwidth phase's
+    # measured_bytes_per_s) instead of the data sheet's rate
     paths = {"end_to_end_headline": counts, "v2_headline": counts_v2,
              "rgb": modes["rgb"]["launches"], "batch4": modes["batch4"]["launches"],
              "round_trip": counts_rt, "split_bench": split["launches_bench"],
              "split_round_trip": counts_srt, "split_pallas_bf16": pallas["launches_bf16"],
-             "filtered_synthesis": synthesis["launches"]}
-    keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "bytes", "flops")
+             "filtered_synthesis": synthesis["launches"], "fft_h_combine2": counts_c2["bf16"],
+             "bandwidth": counts_bw}
+    keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else
                    "v2_headline" if name in ("e1_rcarry", "irfft_w_dual") else
                    "split_bench" if name in ("e1_carry", "ifft_w_dual") else
                    "split_pallas_bf16" if name in PALLAS_NAMES else
+                   "fft_h_combine2" if name == "h_passB_combine2" else
+                   "bandwidth" if name in PB.launch_counts() else
                    "end_to_end_headline") for name in KERNEL_INFO}
     f32_launches = {**counts_f32, **{k: counts_v2_f32[k] for k in ("e1_rcarry", "irfft_w_dual")},
                     "irfft_w": counts_rt["irfft_w"],
                     **{k: split["launches_f32"][k] for k in ("e1_carry", "ifft_w_dual")},
-                    **{k: pallas["launches_f32"][k] for k in PALLAS_NAMES}}
+                    **{k: pallas["launches_f32"][k] for k in PALLAS_NAMES},
+                    "h_passB_combine2": counts_c2["f32"]["h_passB_combine2"],
+                    **{k: counts_bw_f32[k] for k in PB.launch_counts()}}
+    pallas_row_names = (*PALLAS_NAMES[2:], "h_passB_combine2")
     krows["headline"].update(split_rows["bench"])
     krows["f32"].update(split_rows["f32"])
-    krows["headline"].update({k: pallas_rows["bf16"][k] for k in PALLAS_NAMES[2:]})
-    krows["f32"].update({k: pallas_rows["f32"][k] for k in PALLAS_NAMES[2:]})
+    krows["headline"].update({k: pallas_rows["bf16"][k] for k in pallas_row_names})
+    krows["f32"].update({k: pallas_rows["f32"][k] for k in pallas_row_names})
+    for mode, rows in probe_rows.items():
+        krows[mode].update(rows)
+
+    def row(name, mode):
+        r = krows[mode][name]
+        bound_measured = max(r["bytes"] / measured, r["flops"] / F32_FLOP_PER_S) * 1e3
+        return {**{k: r[k] for k in keys}, "bound_measured_ms": bound_measured}
+
     seconds["total"] = time.perf_counter() - t_start
     emit({"phase": "seconds", **seconds})
     emit({"kernels": [
@@ -1200,9 +1458,8 @@ def main():
          "replaces": KERNEL_INFO[name][2], "label": KERNEL_INFO[name][0],
          "launches": paths[path[name]][name], "path": path[name],
          "launches_by_path": {p: c[name] for p, c in paths.items()},
-         **{k: krows["headline"][name][k] for k in keys},
-         "f32": {"launches": f32_launches[name],
-                 **{k: krows["f32"][name][k] for k in keys}}}
+         **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
+         "f32": {"launches": f32_launches[name], **row(name, "f32")}}
         for name in KERNEL_INFO]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

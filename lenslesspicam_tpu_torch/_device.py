@@ -1,12 +1,19 @@
-"""Device selection for the port's entry points.
+"""Device selection and input conversion for the port's entry points.
 
 ``device=None`` means the CUDA card.  Without one the entry points raise:
 they never carry on quietly on the CPU.  The CPU runs only when a caller
 asks for it by name (``device="cpu"``), as the parity tests do.
+
+The entry points take numpy arrays, array-likes and tensors on any
+device, as the reference takes its own device arrays.  A tensor is
+detached first: the solvers are not differentiated through (the reference
+entry points take plain arrays too), and an n-iteration solve would
+otherwise build an autograd graph.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +25,21 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def as_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``: a tensor is detached and
+    moved without a round trip through the host, anything else goes
+    through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x.detach(), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+
+def as_host(x, dtype=np.float32) -> np.ndarray:
+    """``x`` as a ``dtype`` numpy array on the host, for the float64 host
+    precomputes: a tensor on any device is detached and copied over."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x, dtype)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("rfft_w", "irfft_w", "e1_rtv", "h_pass_a", "h_combine", "w_dual_state",
            "sat_scan", "e1_rcarry", "irfft_w_dual", "e1_carry", "ifft_w_dual", "fft_w",
-           "ifft_w", "h_pass_b")
+           "ifft_w", "h_pass_b", "probe_bw")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,5 +1,5 @@
-// K15, K16, K17: H-axis stage 2 (the n2 x n2 contraction over j2, or over
-// k2 for the inverse) of the pass-level split backend.
+// K15, K16, K17, K18: H-axis stage 2 (the n2 x n2 contraction over j2, or
+// over k2 for the inverse) of the pass-level split backend.
 //
 // Replaces lenslesspicam_tpu/ops/pallas_kernels2.py
 //   K15 `h_passB` (kernel `_h_passB_kernel`): stage 2 of one complex plane,
@@ -10,19 +10,22 @@
 //       2 of y, b = F2 y, fused with F = R (a + conj(H) b), a read from
 //       device memory;
 //   K17 `h_passB_dual` (kernel `_h_passB_dual_kernel`): the inverse stage 2
-//       of y and of H y from one read of y.
+//       of y and of H y from one read of y;
+//   K18 `fft_h_combine2` (kernel `_h_passB_combine2_kernel`): K16 with its
+//       spectrum a computed in the block, a = F2 x of the rk stage-1 plane
+//       x, instead of read: the rk spectrum never reaches device memory.
 // Planes are viewed (n1, n2, W) with h = k1 + n1 k2 in split order; all
 // planes, the filter planes included, are stored in the io type T (f32 or
 // bf16) and every product and contraction runs in f32 (FFMA).
 //
 // Bound on the H100: bytes (K15 16 bytes per point at f32, 24 with the
-// filter; K16 36; K17 32; half at bf16; a length-128 DFT runs as an 8 x 16
+// filter; K16 and K18 36; K17 32; half at bf16; a length-128 DFT runs as an 8 x 16
 // split stage, 24 complex multiply-adds per point).  The contraction runs
 // down the strided H columns, so a block takes one k1 and 32 consecutive
 // lanes of W, as K5 does: loads and stores are runs of 32 contiguous
 // elements and the n2 x 32 tile stays in shared memory for the DFT (two
-// tiles, 66 KB at 12 MP, three blocks per SM; K17 three tiles, 99 KB, two
-// blocks).  The planes may be a stack of P (grid.y = P); the constant
+// tiles, 66 KB at 12 MP, three blocks per SM; K17 and K18 three tiles,
+// 99 KB, two blocks).  The planes may be a stack of P (grid.y = P); the constant
 // planes (filter, H, R) a stack of Pc, P % Pc == 0, plane p reading
 // constant plane p % Pc.
 #include "lpt_dft.cuh"
@@ -217,6 +220,58 @@ __global__ void __launch_bounds__(THREADS) h_pass_b_dual_kernel(
   store_tile<T>(t, g1, a1r, a1i);
 }
 
+// K18: a = forward stage 2 of (xr, xi), b = forward stage 2 of (yr, yi);
+// F = R (a + conj(H) b).  Both contractions read F2 from the same roots.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) h_pass_b_combine2_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xi, const T* __restrict__ yr,
+    const T* __restrict__ yi, const T* __restrict__ hr, const T* __restrict__ hi,
+    const T* __restrict__ rr, T* __restrict__ fr_out, T* __restrict__ fi_out,
+    const float2* __restrict__ tab, int pc, int n1, int n2, int w) {
+  constexpr int V = vec_len<T>();
+  extern __shared__ float2 sm[];
+  const Plan p = make_plan(tab, n1, n2);
+  const Tile t = make_tile(n1, n2, w, pc);
+  const int cap = t.size + dft_slack(n2);
+  float2* S1 = sm;
+  float2* S2 = S1 + cap;
+  float2* S3 = S2 + cap;
+  float2* R = S3 + cap;
+  for (int i = threadIdx.x; i < n2; i += blockDim.x) R[i] = p.r2f[i];
+  load_tile<T>(t, xr, xi, nullptr, nullptr, S1, nullptr);
+  load_tile<T>(t, yr, yi, nullptr, nullptr, S2, nullptr);
+  __syncthreads();
+  // each stage leaves its result in its source (split) or its spare (direct)
+  const float2* a = dft(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  __syncthreads();
+  // y, through the tile that holds neither y nor a
+  const float2* b = dft(S2, a == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  __syncthreads();
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int i0 = threadIdx.x * V; i0 < t.size; i0 += blockDim.x * V) {
+    const size_t off = tile_off(t, i0);
+    float h_r[V], h_i[V], rv[V], o_r[V], o_i[V];
+    ldv<V>(hr + t.cbase + off, h_r);
+    ldv<V>(hi + t.cbase + off, h_i);
+    ldv<V>(rr + t.cbase + off, rv);
+    rot(h_r, s);
+    rot(h_i, s);
+    rot(rv, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = i0 + ((k + s) & (V - 1));
+      const float2 A = a[i], B = b[i];
+      o_r[k] = rv[k] * (A.x + h_r[k] * B.x + h_i[k] * B.y);
+      o_i[k] = rv[k] * (A.y + h_r[k] * B.y - h_i[k] * B.x);
+    }
+    unrot(o_r, s);
+    unrot(o_i, s);
+    stv<V>(fr_out + t.base + off, o_r);
+    stv<V>(fi_out + t.base + off, o_i);
+  }
+}
+
 static dim3 grid_of(int planes, int n1, int w) { return dim3(n1 * (w / TW), planes); }
 
 // Every array is a stack of `planes` planes of (n1, n2, w) but the constant
@@ -283,6 +338,30 @@ extern "C" int lpt_h_pass_b_dual(const void* yr, const void* yi, const void* hr,
       return launch(h_pass_b_dual_kernel<B>, grid_of(planes, n1, w), dim3(THREADS), smem,
                     stream, (const B*)yr, (const B*)yi, (const B*)hr, (const B*)hi, (B*)a0r,
                     (B*)a0i, (B*)a1r, (B*)a1i, tab, pc, n1, n2, w);
+    }
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K18.
+extern "C" int lpt_h_pass_b_combine2(const void* xr, const void* xi, const void* yr,
+                                     const void* yi, const void* hr, const void* hi,
+                                     const void* rr, void* fr, void* fi, const float2* tab,
+                                     int planes, int pc, int n1, int n2, int w, int io,
+                                     void* stream) {
+  const size_t smem = smem_bytes(3, n2);
+  switch (io) {
+    case F32:
+      return launch(h_pass_b_combine2_kernel<float>, grid_of(planes, n1, w), dim3(THREADS),
+                    smem, stream, (const float*)xr, (const float*)xi, (const float*)yr,
+                    (const float*)yi, (const float*)hr, (const float*)hi, (const float*)rr,
+                    (float*)fr, (float*)fi, tab, pc, n1, n2, w);
+    case BF16: {
+      using B = __nv_bfloat16;
+      return launch(h_pass_b_combine2_kernel<B>, grid_of(planes, n1, w), dim3(THREADS), smem,
+                    stream, (const B*)xr, (const B*)xi, (const B*)yr, (const B*)yi,
+                    (const B*)hr, (const B*)hi, (const B*)rr, (B*)fr, (B*)fi, tab, pc, n1, n2,
+                    w);
     }
     default: return (int)cudaErrorInvalidValue;
   }

@@ -21,6 +21,7 @@ storage mode of the JAX package).
 | ``h_passB`` (K15) | ``h_passB`` / ``_h_passB_kernel`` | ``csrc/h_pass_b.cu`` |
 | ``h_passB_combine`` (K16) | ``h_passB_combine`` / ``_h_passB_combine_kernel`` | ``csrc/h_pass_b.cu`` |
 | ``h_passB_dual`` (K17) | ``h_passB_dual`` / ``_h_passB_dual_kernel`` | ``csrc/h_pass_b.cu`` |
+| ``h_passB_combine2`` (K18) | ``fft_h_combine2`` / ``_h_passB_combine2_kernel`` | ``csrc/h_pass_b.cu`` |
 
 A wrapper given CPU tensors runs the plain version (``*_plain``).  Given
 CUDA tensors it launches its kernel on the current stream or raises: it
@@ -43,10 +44,12 @@ K1-K9 serve the half-spectrum solver (spatial rows in the even/odd split
 lane layout, half-width spectra); K10-K13 the full-width one (natural
 lane order, full-width complex spectra in split order); K12-K17, K4 and
 the compositions ``fft_h``, ``ifft_h``, ``fft_h_combine``, ``ifft_h_dual``
-and ``filtered_synthesis_pallas2`` its pass-level backend.
+and ``filtered_synthesis_pallas2`` its pass-level backend.  K18 runs only
+in its own composition ``fft_h_combine2``, which no solver calls (nor in
+the JAX package).
 
 Plane axis (the JAX solver's ``vmap`` over B * D * C planes, written
-out).  Every plane operand of K1, K3-K6 and K8-K17 may carry a leading
+out).  Every plane operand of K1, K3-K6 and K8-K18 may carry a leading
 axis P: spatial planes (P, ph, pw), half spectra (P, ph, pw/2), H-axis
 views (P, n1, n2, W), DC columns (P, ph).  The per-PSF constants (the
 filter planes H and R, the support mask) carry Pc with P % Pc == 0, and
@@ -535,7 +538,7 @@ def h_passA(xr, xi, n, inverse):
 
 
 # ---------------------------------------------------------------------------
-# K15-K17: H-axis stage 2 of the pass-level backend
+# K15-K18: H-axis stage 2 of the pass-level backend
 # ---------------------------------------------------------------------------
 
 
@@ -598,14 +601,19 @@ def h_passB(yr, yi, n, inverse, filt_r=None, filt_i=None):
     return zr, zi
 
 
-def h_passB_combine_plain(yr, yi, ar, ai, hr, hi, rr, n):
-    b = _bc(_stage2(_c32(yr, yi), n, False), hr)
+def _combine(ar, ai, b, hr, hi, rr):
+    """F = R (a + conj(H) b) in f32 in the JAX kernels' order, a (r/i) and
+    the complex b already viewed against the constant stacks (:func:`_bc`).
+    Returns (fr, fi)."""
     br, bi = b.real, b.imag
     hr, hi, rr = hr.to(_F32), hi.to(_F32), rr.to(_F32)
+    return rr * (ar + hr * br + hi * bi), rr * (ai + hr * bi - hi * br)
+
+
+def h_passB_combine_plain(yr, yi, ar, ai, hr, hi, rr, n):
+    b = _bc(_stage2(_c32(yr, yi), n, False), hr)
     ar, ai = _bc(ar.to(_F32), hr), _bc(ai.to(_F32), hr)
-    fr = rr * (ar + hr * br + hi * bi)
-    fi = rr * (ai + hr * bi - hi * br)
-    return _out(torch.complex(fr, fi), yr)
+    return _out(torch.complex(*_combine(ar, ai, b, hr, hi, rr)), yr)
 
 
 def h_passB_combine(yr, yi, ar, ai, hr, hi, rr, n):
@@ -657,18 +665,45 @@ def h_passB_dual(yr, yi, hr, hi, n):
     return tuple(outs)
 
 
+def h_passB_combine2_plain(xr, xi, yr, yi, hr, hi, rr, n):
+    a = _bc(_stage2(_c32(xr, xi), n, False), hr)
+    b = _bc(_stage2(_c32(yr, yi), n, False), hr)
+    return _out(torch.complex(*_combine(a.real, a.imag, b, hr, hi, rr)), xr)
+
+
+def h_passB_combine2(xr, xi, yr, yi, hr, hi, rr, n):
+    """Forward stage 2 of both stage-1 planes, a = F2 x (rk) and b = F2 y
+    (v), fused with the ADMM spectrum combine F = R (a + conj(H) b) in
+    f32: K16 with its spectrum a computed instead of read, so that it is
+    never stored.  x and y (n1, n2, W) or stacks (P, n1, n2, W), the
+    filter planes H and R a plane or a stack of Pc (P % Pc == 0), all at
+    the io dtype.  Returns (fr, fi)."""
+    name = "h_passB_combine2"
+    ins = [xr, xi, yr, yi, hr, hi, rr]
+    _check(name, ins[:4], xr.shape, IO_DTYPES)
+    p = _depth(name, xr, xr.shape[-3:])
+    pc = _const_depth(name, ins[4:], xr.shape[-3:], p)
+    cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 7 for d in IO_DTYPES})
+    n1, n2, w = _h_view(name, xr, n, cuda, _K5_TW)
+    if not cuda:
+        return h_passB_combine2_plain(*ins, n)
+    fr, fi = _empty(xr.shape, xr), _empty(xr.shape, xr)
+    _launch("h_pass_b", "lpt_h_pass_b_combine2", "pppppppppp" + "iiiiii", *ins, fr, fi,
+            _table(n, False, xr.device), p, pc, n1, n2, w, _CODE[xr.dtype])
+    h_passB_combine2.launches += 1
+    return fr, fi
+
+
 # ---------------------------------------------------------------------------
 # K5: H-axis stage 2 of both planes, spectrum combine, inverse stage 2
 # ---------------------------------------------------------------------------
 
 
 def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
-    hr, hi, rr = hr.to(_F32), hi.to(_F32), rr.to(_F32)
     a = _bc(_stage2(_c32(xar, xai), n, False), hr)
     b = _bc(_stage2(_c32(yar, yai), n, False), hr)
-    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
-    fr = rr * (ar + hr * br + hi * bi)
-    fi = rr * (ai + hr * bi - hi * br)
+    fr, fi = _combine(a.real, a.imag, b, hr, hi, rr)
+    hr, hi = hr.to(_F32), hi.to(_F32)
     f1r = fr * hr - fi * hi
     f1i = fr * hi + fi * hr
     g0 = _stage2(torch.complex(fr, fi), n, True)
@@ -1085,7 +1120,7 @@ def ifft_w_dual(a0r, a0i, a1r, a1i):
 
 # ---------------------------------------------------------------------------
 # the pass-level compositions (pallas_kernels2.py:668-694, 835-842, 898-909,
-# 2262-2278): kernels only, no kernel of their own.  Planes (h, W) or
+# 936-954, 2262-2278): kernels only, no kernel of their own.  Planes (h, W) or
 # stacks (P, h, W) in split order, filter planes (h, W) or (Pc, h, W).
 # ---------------------------------------------------------------------------
 
@@ -1127,6 +1162,33 @@ def fft_h_combine(vr, vi, ar, ai, hr, hi, rr, h, ops=None):
                                           h))
 
 
+def fft_h_combine2(rkr, rki, vr, vi, hr, hi, rr, h, ops=None):
+    """Forward H transforms of both ADMM planes with the spectrum combine
+    fused into one stage 2 (pallas_kernels2.py:936): K14 forward on rk and
+    on v, then K18.  Returns (fr, fi) = R (a + conj(H) b), a and b the
+    split-order H spectra of rk and v, as ``fft_h_combine(v, *fft_h(rk),
+    ...)`` gives it, with the rk spectrum kept in f32 and never stored."""
+    ops = ops or KERNELS
+    xr, xi = ops.h_passA(_hv(rkr, h), _hv(rki, h), h, False)
+    yr, yi = ops.h_passA(_hv(vr, h), _hv(vi, h), h, False)
+    return _flat(vr, *ops.h_passB_combine2(xr, xi, yr, yi,
+                                           *(_hv(t, h) for t in (hr, hi, rr)), h))
+
+
+# How far fft_h_combine2 may lie from fft_h then fft_h_combine, as a
+# spectra_gap by io dtype: the same arithmetic at f32; at bf16 io fft_h
+# stores the rk spectrum at bf16 and K18 keeps it in f32, which moves F by
+# the rounding of a (at most 2^-8 of max |R a|) and one flip of the
+# output's rounding (at most 2^-7 of max |F|): two bf16 ulps.
+TOL_COMBINE2 = {_F32: 1e-5, _BF16: 2 * 2.0 ** -7}
+
+
+def spectra_gap(out, ref):
+    """max |out - ref| / max |ref| over all the planes of two tuples."""
+    return (max(float((a.float() - b.float()).abs().max()) for a, b in zip(out, ref))
+            / max(float(b.float().abs().max()) for b in ref))
+
+
 def ifft_h_dual(vr, vi, hr, hi, h, ops=None):
     """(ifft_h(v), ifft_h(H v)) with the spectrum read once and the filter
     multiply fused: K17, then K4 inverse on both.  Returns ((z0r, z0i),
@@ -1151,7 +1213,7 @@ def filtered_synthesis_pallas2(x, filt_r, filt_i, ops=None):
 WRAPPERS = (rfft_w, irfft_w, e1_rtv, h_passA_pair, h_combine_dual,
             irfft_w_dual_state, sat_scan_i16, e1_rcarry, irfft_w_dual,
             e1_carry, ifft_w_dual, fft_w, ifft_w, h_passA, h_passB,
-            h_passB_combine, h_passB_dual)
+            h_passB_combine, h_passB_dual, h_passB_combine2)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import resolve_device
+from .._device import as_device, as_host, resolve_device
 from ..ops import kernels
 from ..ops import split_fft as sf
 from ..ops.padding import padded_size
@@ -153,8 +153,7 @@ def precompute_rsplit(psf2d, data2d, params: ADMMParams = ADMMParams(),
     """Half-spectrum precompute for a (H, W) grayscale PSF and
     measurement, placed on ``device`` (None: the CUDA card)."""
     device = resolve_device(device)
-    arrs = precompute_rsplit_np(np.asarray(psf2d, np.float32),
-                                np.asarray(data2d, np.float32), params)
+    arrs = precompute_rsplit_np(as_host(psf2d), as_host(data2d), params)
     return RSplitPrecomp(
         *[torch.from_numpy(arrs[f]).to(device) for f in ARRAY_FIELDS],
         psf_shape=arrs["psf_shape"], padded_shape=arrs["padded_shape"],
@@ -310,8 +309,8 @@ def precompute_rsplit_general(psf, data, params: ADMMParams = ADMMParams(),
     plane (data_pad from the first batch entry; depth-1 data serves every
     depth), and ``info = {"batch", "depth", "channels"}``."""
     device = resolve_device(device)
-    psf = np.asarray(psf, np.float32)
-    data = _as_5d(np.asarray(data, np.float32))
+    psf = as_host(psf)
+    data = _as_5d(as_host(data))
     depth, _, _, ch = psf.shape
     arrs = [precompute_rsplit_np(psf[d, :, :, c],
                                  data[0, min(d, data.shape[1] - 1), :, :, c], params)
@@ -339,7 +338,7 @@ def run_rsplit_general(pre: RSplitPrecomp, info: dict, data,
     device and run as one stack through :func:`run_split_rfused`, the
     per-PSF constants broadcast over the batch."""
     dev = pre.Hr.device
-    data = _as_5d(torch.as_tensor(data, dtype=torch.float32, device=dev))
+    data = _as_5d(as_device(data, torch.float32, dev))
     batch, depth, ch = info["batch"], info["depth"], info["channels"]
     if data.shape[1] == 1 and depth > 1:
         data = data.expand(data.shape[0], depth, *data.shape[2:])
@@ -429,8 +428,7 @@ def precompute_split(psf2d, data2d, params: ADMMParams = ADMMParams(),
     """Full-width split precompute for a (H, W) grayscale PSF and
     measurement, placed on ``device`` (None: the CUDA card)."""
     device = resolve_device(device)
-    return _split_from_np([precompute_split_np(np.asarray(psf2d, np.float32),
-                                               np.asarray(data2d, np.float32), params)],
+    return _split_from_np([precompute_split_np(as_host(psf2d), as_host(data2d), params)],
                           device)
 
 
@@ -649,8 +647,8 @@ def precompute_split_general(psf, data, params: ADMMParams = ADMMParams(), devic
     (data_pad from the first batch entry; depth-1 data serves every
     depth), and ``info = {"batch", "depth", "channels"}``."""
     device = resolve_device(device)
-    psf = np.asarray(psf, np.float32)
-    data = _as_5d(np.asarray(data, np.float32))
+    psf = as_host(psf)
+    data = _as_5d(as_host(data))
     depth, _, _, ch = psf.shape
     arrs = [precompute_split_np(psf[d, :, :, c],
                                 data[0, min(d, data.shape[1] - 1), :, :, c], params)
@@ -672,7 +670,7 @@ def run_split_general(pre: SplitPrecomp, info: dict, data,
     run as one stack through :func:`run_split`, the per-PSF constants
     broadcast over the batch: one launch per kernel per pass."""
     dev = pre.Hr.device
-    data = _as_5d(torch.as_tensor(data, dtype=torch.float32, device=dev))
+    data = _as_5d(as_device(data, torch.float32, dev))
     batch, depth, ch = info["batch"], info["depth"], info["channels"]
     if data.shape[1] == 1 and depth > 1:
         data = data.expand(data.shape[0], depth, *data.shape[2:])

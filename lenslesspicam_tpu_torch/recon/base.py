@@ -16,7 +16,7 @@ import abc
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import as_device, resolve_device
 from ..ops.fft_conv import FFTConvolver
 from . import admm as _admm
 
@@ -26,14 +26,15 @@ class ReconstructionAlgorithm(abc.ABC):
 
     def __init__(self, psf, dtype=torch.float32, n_iter=100, pad_policy="ref",
                  device=None):
-        psf = np.asarray(psf)
+        if not isinstance(psf, torch.Tensor):
+            psf = np.asarray(psf)
         if psf.ndim != 4:
             raise ValueError("PSF must be 4D: (depth, height, width, channels).")
         if psf.shape[3] not in (1, 3):
             raise ValueError("PSF must be rgb (3) or grayscale (1)")
         self._device = resolve_device(device)
         self._dtype = dtype
-        self._psf = torch.as_tensor(psf, dtype=dtype).to(self._device)
+        self._psf = as_device(psf, dtype, self._device)
         self._psf_shape = tuple(psf.shape)
         self._n_iter = n_iter
         self._pad_policy = pad_policy
@@ -50,7 +51,7 @@ class ReconstructionAlgorithm(abc.ABC):
 
     def set_data(self, data):
         """Set the lensless measurement; promoted to 5-D."""
-        data = torch.as_tensor(np.asarray(data), dtype=self._dtype).to(self._device)
+        data = as_device(data, self._dtype, self._device)
         if data.ndim < 3:
             raise ValueError("Data must be at least 3D: [..., H, W, C].")
         if tuple(data.shape[-3:-1]) != self._psf_shape[-3:-1]:
@@ -69,13 +70,13 @@ class ReconstructionAlgorithm(abc.ABC):
             raise ValueError("apply() processes a single image; use batch_apply()")
         data = self._data
         if background is not None:
-            bg = torch.as_tensor(np.asarray(background), dtype=self._dtype).to(self._device)
+            bg = as_device(background, self._dtype, self._device)
             data = torch.clamp(data - bg, min=0.0)
         return self._run(data, self._n_iter if n_iter is None else n_iter)[0]
 
     def batch_apply(self, data, n_iter=None):
         """Batched reconstruction ``(B, D, H, W, C) -> (B, D, H, W, C)``."""
-        data = torch.as_tensor(np.asarray(data), dtype=self._dtype).to(self._device)
+        data = as_device(data, self._dtype, self._device)
         return self._run(data, self._n_iter if n_iter is None else n_iter)
 
 
@@ -98,6 +99,6 @@ class ADMM(ReconstructionAlgorithm):
 
 def apply_admm(psf, data, n_iter=100, **kwargs):
     """One-shot ADMM."""
-    recon = ADMM(np.asarray(psf), **kwargs)
+    recon = ADMM(psf, **kwargs)
     recon.set_data(data)
     return recon.apply(n_iter=n_iter)

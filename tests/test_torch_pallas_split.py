@@ -1,7 +1,8 @@
 """The port's pass-level split backend on the CPU: K14 ``h_passA``, K15
 ``h_passB`` (with and without the filter, both directions), K16
 ``h_passB_combine`` and K17 ``h_passB_dual`` (plain versions) against their
-Pallas kernels in interpret mode, the compositions ``fft_h``, ``ifft_h``,
+Pallas kernels in interpret mode (K18 ``h_passB_combine2`` in
+tests/test_torch_combine2.py; here in the plane-axis test), the compositions ``fft_h``, ``ifft_h``,
 ``fft_h_combine``, ``ifft_h_dual`` and ``filtered_synthesis_pallas2``, and
 ``run_split(backend="pallas")`` / ``run_split_general`` against the JAX
 package's.
@@ -106,11 +107,13 @@ def _stack_cases(rng, io, n=6, nc=3):
         "h_passB": ((st(n), st(n), H, True, st(nc), st(nc)), (4, 5)),
         "h_passB_combine": ((st(n), st(n), st(n), st(n), st(nc), st(nc), st(nc), H), (4, 5, 6)),
         "h_passB_dual": ((st(n), st(n), st(nc), st(nc), H), (2, 3)),
+        "h_passB_combine2": ((st(n), st(n), st(n), st(n), st(nc), st(nc), st(nc), H), (4, 5, 6)),
     }
 
 
 @pytest.mark.parametrize("io", ["f32", "bf16"])
-@pytest.mark.parametrize("name", ["h_passA", "h_passB", "h_passB_combine", "h_passB_dual"])
+@pytest.mark.parametrize("name", ["h_passA", "h_passB", "h_passB_combine", "h_passB_dual",
+                                  "h_passB_combine2"])
 def test_pass_kernels_plane_axis_equal_per_plane_calls(one_thread, name, io):  # noqa: F811
     """A stack of 6 planes (the constants 3 deep) through the wrapper
     equals six single-plane calls, plane p with constant plane p % 3, bit
