@@ -9,7 +9,9 @@ entries).  Both are built with ``nvcc``, then every kernel of
 ``chip_smoke.kernel_cases`` is timed at 12 MP in each mode, in the order
 A, B, B, A per round (CUDA events, median of 7 after a warm-up, as
 ``chip_smoke.time_ms``), and its output is checked against the plain
-version as ``chip_smoke.check_kernels`` checks it.  ``--planes`` times
+version as ``chip_smoke.check_kernels`` checks it.  Each tree's build
+prints one JSON line with ptxas's entry functions, registers and spills
+per library (libraries already built print none).  ``--planes`` times
 the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``) on
 stacks of P planes over Pc constant planes instead of one plane;
 ``--kernels`` keeps only the kernels named.  Prints one JSON line per
@@ -53,9 +55,13 @@ def main():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
     trees = {"A": _build.CSRC, "B": args.other_csrc.resolve()}
-    for tree in trees.values():
+    for label, tree in trees.items():
         use(tree)
-        _build.build_all()
+        logs = _build.build_all()
+        print(json.dumps({"tree": label, "csrc": str(tree), "ptxas": {
+            n: [ln.strip() for ln in r["log"].splitlines()
+                if any(w in ln for w in ("entry function", "registers", "spill"))]
+            for n, r in sorted(logs.items())}}), flush=True)
     ph, pw = 6144, 8192
     for mode, planes in [(m, st) for m in args.modes.split(",") for st in stacks or [None]]:
         gen = torch.Generator(device="cuda")

@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
-grid in every storage-dtype combination the kernels are built for; at
-the 12 MP grid in the f32 mode and in the JAX bench's headline storage
+grid in every storage-dtype combination the kernels are built for, K1
+also at 96 x 384, where it runs its split design instead of the radix
+FFT; at the 12 MP grid in the f32 mode and in the JAX bench's headline storage
 mode, bf16 spectra with int16 carries; each kernel that takes a plane
 axis also on a stack of 6 planes over 3 constant planes at the small
 grid and on the RGB and batch=4 rungs' stacks at 12 MP), runs the small-grid
@@ -61,6 +62,9 @@ from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
+# padded to 96 x 384: M = 192 is no power of two, so K1 runs its split
+# design there (kernels.rfft_w_design) and the radix design everywhere else
+K1_SPLIT = (48, 192)
 # padded to 96 x 512: the full-width kernels need both factors of W
 # divisible by 4 and n1 > 1 (kernels.factors), and W = 128 or 256 factors
 # as 1 x 128 or 2 x 128; W = 512 = 4 x 128
@@ -504,6 +508,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
         shares = [e[2] for e in errs if e[2] is not None]
         row = {"kernel": name, "mode": mode, "grid": [ph, pw],
                "planes": list(planes) if planes else None,
+               **({"design": K.rfft_w_design(pw // 2)} if fn == "rfft_w" else {}),
                "dtypes": sorted({str(t.dtype) for t in tensors((args, out))}),
                "max_abs_err": max(e[0] for e in val),
                "max_rel_err": max(e[1] for e in val),
@@ -1281,6 +1286,9 @@ def main():
     for mode, dts in MODES.items():
         check_kernels(sh, sw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
                       planes=PLANES)
+        check_kernels(2 * K1_SPLIT[0], 2 * K1_SPLIT[1], False, *dts, mode, names=("rfft_w",))
+        check_kernels(2 * K1_SPLIT[0], 2 * K1_SPLIT[1], False, *dts, f"planes,{mode}",
+                      names=("rfft_w",), planes=PLANES)
     krows = {mode: check_kernels(ph, pw, True, *dts, mode) for mode, dts in MODES.items()}
     for mode, dts in MODES.items():
         for planes in PLANES_12MP:
@@ -1458,6 +1466,7 @@ def main():
          "replaces": KERNEL_INFO[name][2], "label": KERNEL_INFO[name][0],
          "launches": paths[path[name]][name], "path": path[name],
          "launches_by_path": {p: c[name] for p, c in paths.items()},
+         **({"design": K.rfft_w_design(pw // 2)} if name == "rfft_w" else {}),
          **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
          "f32": {"launches": f32_launches[name], **row(name, "f32")}}
         for name in KERNEL_INFO]})

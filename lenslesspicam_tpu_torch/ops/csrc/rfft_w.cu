@@ -1,21 +1,35 @@
 // K1: packed-real forward W transform.
 //
-// Replaces lenslesspicam_tpu/ops/pallas_kernels2.py `rfft_w` (kernel
-// `_w_rfwd_kernel`, core `_w_rfwd_core`).  (rows, N) real rows in the
-// even/odd split lane layout -> (rows, N/2) half spectrum, real and
+// Replaces lenslesspicam_tpu/ops/pallas_kernels2.py `rfft_w` (:1810; kernel
+// `_w_rfwd_kernel` :1760, core `_w_rfwd_core` :1518).  (rows, N) real rows
+// in the even/odd split lane layout -> (rows, N/2) half spectrum, real and
 // imaginary planes, split order, Z[N/2] packed into Im of lane 0.  Input
 // and output are stored in the io type T (f32 or bf16); the transform
-// runs in f32.
+// runs in f32.  Bound on the H100: bytes, 16 per packed point at f32 and
+// 8 at bf16 (402.7 / 201.3 MB at 12 MP, M = 4096).
 //
-// Bound on the H100: bytes (16 per packed point at f32, 8 at bf16; the
-// split DFT stages do 36 complex multiply-adds per point at 12 MP, about a
-// quarter of the f32 byte bound's time at the f32 FFMA peak).  One block
-// per row keeps the packed row, both stage outputs and the mirror unpack
-// in shared memory: the plane is read once and the half spectrum written
-// once.  The row's load, DFT passes and store run one after another, so
-// the kernel hides latency only across blocks: registers are capped for
-// three blocks per SM, which the 69 KB of shared memory per block allows.
-#include "lpt_dft.cuh"
+// Two designs, chosen by M = N/2 alone in `lpt_rfft_w` (kernels.rfft_w_design;
+// neither falls back on the other):
+//
+// radix (M a power of two from 64 to 4096; the 12 MP grid): the
+//   register-resident radix FFT of lpt_fft.cuh.  One block of M/16 threads
+//   per row, 16 points a thread in registers, radix-16 passes (4096 =
+//   16^3) exchanging through one padded shared buffer, twiddles
+//   from the host table.  A point costs about 47 flops (three radix-16
+//   butterfly passes of 11.75 and two twiddle multiplies of 5.6) against
+//   the split design's 36 complex multiply-adds (144 FFMA).  At M = 4096
+//   the block has 256 threads and 34.8 KB of shared memory, and ptxas
+//   fits it in 64 registers without spills (the cap that leaves four
+//   resident rows an SM; a cap of 48 for five spilled and ran slower, as
+//   did a persistent grid prefetching the next row with cp.async).
+// split (any other M whose factors n1, n2 are multiples of 4): the
+//   two-stage DFT of lpt_dft.cuh.  One block per row keeps the packed
+//   row, both stage outputs and the mirror unpack in shared memory; the
+//   row's load, DFT passes and store run one after another, so latency
+//   hides only across blocks.  At 12 MP (69 KB, three blocks an SM) it
+//   took 0.465 / 0.429 ms, f32 / bf16 io, against the radix design's
+//   0.149 / 0.130 (H100 80GB HBM3, 700 W).
+#include "lpt_fft.cuh"
 
 using namespace lpt;
 
@@ -55,9 +69,51 @@ static int run(const void* x, void* zr, void* zi, const float2* tab, int rows, i
                 (const T*)x, (T*)zr, (T*)zi, tab, m, n1, n2);
 }
 
-// io: storage code of x, zr and zi (F32 or BF16).
+template <typename T, int M>
+__global__ void __launch_bounds__(fft::Plan<M>::THREADS, M == 4096 ? 4 : 1)
+    rfft_w_radix_kernel(const T* __restrict__ x, T* __restrict__ zr, T* __restrict__ zi,
+                        const float2* __restrict__ e, const float2* __restrict__ tw, int n1,
+                        int n2) {
+  extern __shared__ float2 sm[];
+  const size_t row = blockIdx.x;
+  fft::rfft_row<T, M>(x + row * 2 * M, zr + row * M, zi + row * M, e, tw, n1, n2, sm);
+}
+
+// The table: the split design's [r1f | r2f | r1i | r2i | Tf | Ti | E]
+// (make_plan), then the radix twiddles.
+template <int M>
+static int run_radix(const void* x, void* zr, void* zi, const float2* tab, int rows, int n1,
+                     int n2, int io, void* stream) {
+  const float2* e = make_plan(tab, n1, n2).e;
+  const float2* tw = e + M;
+  const size_t smem = fft::smem_bytes(M, n1, n2);
+  const dim3 block(fft::Plan<M>::THREADS);
+  switch (io) {
+    case F32:
+      return launch(rfft_w_radix_kernel<float, M>, dim3(rows), block, smem, stream,
+                    (const float*)x, (float*)zr, (float*)zi, e, tw, n1, n2);
+    case BF16:
+      return launch(rfft_w_radix_kernel<__nv_bfloat16, M>, dim3(rows), block, smem, stream,
+                    (const __nv_bfloat16*)x, (__nv_bfloat16*)zr, (__nv_bfloat16*)zi, e, tw,
+                    n1, n2);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// io: storage code of x, zr and zi (F32 or BF16).  The design is chosen by
+// m alone (see the header note).
 extern "C" int lpt_rfft_w(const void* x, void* zr, void* zi, const float2* tab, int rows, int m,
                           int n1, int n2, int io, void* stream) {
+  switch (m) {
+    case 64: return run_radix<64>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    case 128: return run_radix<128>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    case 256: return run_radix<256>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    case 512: return run_radix<512>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    case 1024: return run_radix<1024>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    case 2048: return run_radix<2048>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    case 4096: return run_radix<4096>(x, zr, zi, tab, rows, n1, n2, io, stream);
+    default: break;
+  }
   switch (io) {
     case F32: return run<float>(x, zr, zi, tab, rows, m, n1, n2, stream);
     case BF16: return run<__nv_bfloat16>(x, zr, zi, tab, rows, m, n1, n2, stream);

@@ -4,7 +4,7 @@ storage mode of the JAX package).
 
 | wrapper | TPU kernel it replaces | CUDA source |
 |---|---|---|
-| ``rfft_w`` (K1) | ``rfft_w`` / ``_w_rfwd_kernel`` | ``csrc/rfft_w.cu`` |
+| ``rfft_w`` (K1) | ``rfft_w`` / ``_w_rfwd_kernel`` | ``csrc/rfft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu`` |
 | ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu`` |
 | ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu`` |
@@ -327,6 +327,58 @@ def _sat_zero(like):
 
 _IO_BUILT = {(_F32,), (_BF16,)}
 
+# K1's radix design (csrc/lpt_fft.cuh): every pass but the last has radix
+# RADIX, the last the rest; one block of M / RADIX threads per row, each
+# thread RADIX points.
+RADIX = 16
+RADIX_LENGTHS = tuple(2 ** e for e in range(6, 13))     # M = 64 .. 4096
+
+
+def rfft_w_design(m: int) -> str:
+    """K1's design for half width M, by shape alone: "radix" (the
+    register-resident radix FFT of ``csrc/lpt_fft.cuh``) for M in
+    ``RADIX_LENGTHS``, "split" (the two-stage DFT of ``csrc/lpt_dft.cuh``,
+    which needs both factors of M divisible by 4) for any other M.
+    ``lpt_rfft_w`` makes the same choice; neither design falls back on
+    the other."""
+    return "radix" if m in RADIX_LENGTHS else "split"
+
+
+def radix_plan(m: int):
+    """Radices of the radix design's passes over length M = 2^e:
+    ``RADIX`` for every pass but the last, which takes the rest."""
+    passes = (m.bit_length() - 1 + 3) // 4
+    return (RADIX,) * (passes - 1) + (m // RADIX ** (passes - 1),)
+
+
+@lru_cache(maxsize=None)
+def _radix_twiddles_np(m: int) -> np.ndarray:
+    """The radix design's twiddles, complex64 from float64: for each pass
+    but the last, with input length L and radix R, the entry (c - 1) *
+    (L/R) + u is exp(-2 pi i k / M), k = u c M / L (c = 1..R-1, u <
+    L/R), so a warp's loads of one c are consecutive."""
+    parts, length = [], m
+    for r in radix_plan(m)[:-1]:
+        q = length // r
+        c, u = np.meshgrid(np.arange(1, r), np.arange(q), indexing="ij")
+        k = (u * c * (m // length)).reshape(-1)
+        parts.append(np.exp(-2j * np.pi * k / m).astype(np.complex64))
+        length = q
+    return np.concatenate(parts)
+
+
+@lru_cache(maxsize=None)
+def _rfft_table(m: int, device: torch.device):
+    """K1's table: the split-order table of length M (:func:`_table_np`,
+    whose unpack factors E both designs read), followed in the radix
+    design by :func:`_radix_twiddles_np`.  The prefix is the split
+    design's whole table, so a build of either design reads its
+    constants from the same argument."""
+    t = _table_np(m, True)
+    if rfft_w_design(m) == "radix":
+        t = np.concatenate([t, _radix_twiddles_np(m)])
+    return torch.view_as_real(torch.from_numpy(t)).contiguous().to(device)
+
 
 def rfft_w_plain(x):
     """(..., N) split-layout real rows -> half-spectrum (..., N/2) r/i,
@@ -339,18 +391,21 @@ def rfft_w(x):
     """(..., N) split-layout real rows (a plane or a stack of planes) ->
     half-spectrum (..., N/2) r/i pair in split order, Z[N/2] packed into
     Im of lane 0; io dtype (f32 or bf16) in and out.  All rows of all
-    planes go to one launch."""
+    planes go to one launch.  The kernel's design follows M = N/2 alone
+    (:func:`rfft_w_design`): the radix FFT for a power of two M from 64
+    to 4096 (the 12 MP grid's M = 4096 among them), the two-stage split
+    DFT for any other M, whose factors must then be divisible by 4."""
     rows, n_full = _rows("rfft_w", x)
     m = n_full // 2
     _check("rfft_w", [x], dtypes=IO_DTYPES)
     cuda = _on_card("rfft_w", [x], (x.dtype,), _IO_BUILT)
-    n1, n2 = factors(m, cuda)
+    n1, n2 = factors(m, cuda and rfft_w_design(m) == "split")
     if not cuda:
         return rfft_w_plain(x)
     half = tuple(x.shape[:-1]) + (m,)
     zr, zi = _empty(half, x), _empty(half, x)
     _launch("rfft_w", "lpt_rfft_w", "ppppiiiii", x, zr, zi,
-            _table(m, True, x.device), rows, m, n1, n2, _CODE[x.dtype])
+            _rfft_table(m, x.device), rows, m, n1, n2, _CODE[x.dtype])
     rfft_w.launches += 1
     return zr, zi
 
