@@ -6,14 +6,17 @@
 A is ``lenslesspicam_tpu_torch/ops/csrc`` of this checkout, B the
 directory OTHER_CSRC holding the same sources changed (the same C
 entries).  Both are built with ``nvcc``, then every kernel of
-``chip_smoke.kernel_cases`` is timed at 12 MP in each mode, in the order
-A, B, B, A per round (CUDA events, median of 7 after a warm-up, as
-``chip_smoke.time_ms``), and its output is checked against the plain
-version as ``chip_smoke.check_kernels`` checks it.  Each tree's build
-prints one JSON line with ptxas's entry functions, registers and spills
-per library (libraries already built print none).  ``--planes`` times
-the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``) on
-stacks of P planes over Pc constant planes instead of one plane;
+``chip_smoke.kernel_cases`` (a mode of ``chip_smoke.MODES``: headline,
+f32) and of ``chip_smoke.split_kernel_cases`` (a mode of
+``chip_smoke.SPLIT_MODES``: f32, bench) is timed at 12 MP in each mode
+named, in the order A, B, B, A per round (CUDA events, median of 7 after
+a warm-up, as ``chip_smoke.time_ms``), and its output is checked against
+the plain version as ``chip_smoke.check_kernels`` checks it.  Each tree's
+build prints one JSON line with ptxas's entry functions, registers and
+spills per library (libraries already built print none).  ``--planes``
+times the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``
+and the full-width ``chip_smoke.SPLIT_KERNELS``) on stacks of P planes
+over Pc constant planes instead of one plane;
 ``--kernels`` keeps only the kernels named.  Prints one JSON line per
 kernel, mode and stack with both medians and B / A, then the card's name
 and power limit.  Exits non-zero without a CUDA device.
@@ -63,12 +66,16 @@ def main():
                 if any(w in ln for w in ("entry function", "registers", "spill"))]
             for n, r in sorted(logs.items())}}), flush=True)
     ph, pw = 6144, 8192
-    for mode, planes in [(m, st) for m in args.modes.split(",") for st in stacks or [None]]:
+    families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
+                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS))
+    for mode, planes, (modes, case_fn, plane_names) in [
+            (m, st, fam) for m in args.modes.split(",") for st in stacks or [None]
+            for fam in families if m in fam[0]]:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(ph)
-        cases = cs.kernel_cases(ph, pw, gen, *cs.MODES[mode], planes=planes)
+        cases = case_fn(ph, pw, gen, *modes[mode], planes=planes)
         for name, (inputs, _) in cases.items():
-            if (planes and name not in cs.PLANE_KERNELS) or (keep and name not in keep):
+            if (planes and name not in plane_names) or (keep and name not in keep):
                 continue
             wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
             ref = plain(*inputs)

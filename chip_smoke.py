@@ -5,12 +5,12 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
 grid in every storage-dtype combination the kernels are built for, K1
-also at 96 x 384, where it runs its split design instead of the radix
-FFT; at the 12 MP grid in the f32 mode and in the JAX bench's headline storage
-mode, bf16 spectra with int16 carries; each kernel that takes a plane
-axis also on a stack of 6 planes over 3 constant planes at the small
-grid and on the RGB and batch=4 rungs' stacks at 12 MP), runs the small-grid
-fused loop through the kernels against the plain loop in every storage
+also at 96 x 384 and K11 at 96 x 1536, where each runs its split design
+instead of the radix FFT; at the 12 MP grid in the f32 mode and in the JAX
+bench's headline storage mode, bf16 spectra with int16 carries; each
+kernel that takes a plane axis also on a stack of 6 planes over 3
+constant planes at the small grid and on the RGB and batch=4 rungs'
+stacks at 12 MP), runs the small-grid fused loop through the kernels against the plain loop in every storage
 mode, runs K1 -> K2 round trips at 12 MP, reconstructs a 12 MP
 measurement with the exact solver and with the fused solver through the
 kernels in both modes and both kernel placements (v3, v2), passes the
@@ -18,10 +18,10 @@ JAX bench's gates (bench.py:376-435) in the headline mode, runs its RGB
 and gray batch=4 rungs (bench.py:573-700) per plane in the headline
 mode, runs the full-width split solver (``run_split(backend="fused")``,
 K10, K4, K5, K4, K11) and its kernels K10-K13 (phase ``split``: every
-built storage combination at 96 x 512, a 6-over-3 stack, both modes at
-12 MP, the K12 -> K13 round trip, the f32 and bench-mode solves against
-the exact one, their rates), runs its pass-level backend
-(``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
+built storage combination at 96 x 512, a 6-over-3 stack, K11 also at
+96 x 1536 alone and stacked, both modes at 12 MP, the K12 -> K13 round
+trip, the f32 and bench-mode solves against the exact one, their rates),
+runs its pass-level backend (``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
 ``split_pallas``: K14-K18 against their plain versions at 96 x 512 in both
 io modes and as a 6-over-3 stack and at 12 MP with kernel rows, the
 ``fft_h`` and ``ifft_h_dual`` chains against torch.fft, K18's composition
@@ -69,6 +69,10 @@ K1_SPLIT = (48, 192)
 # divisible by 4 and n1 > 1 (kernels.factors), and W = 128 or 256 factors
 # as 1 x 128 or 2 x 128; W = 512 = 4 x 128
 SMALL_SPLIT = (48, 256)
+# padded to 96 x 1536: W = 12 x 128 is no power of two, so K11 runs its
+# split design there (kernels.ifft_w_dual_design) and the radix design at
+# 512 and 8192
+K11_SPLIT = (48, 768)
 TOL_KERNEL = 1e-4            # f32 outputs: max |kernel - plain| / max |plain|
 TOL_PSNR_DB = 0.1            # |PSNR exact - PSNR fused| at n = 10
 TOL_SMALL = 1e-5             # fused vs exact, normalized, small grid, n = 10
@@ -480,6 +484,16 @@ def library_call(name, args):
     return None
 
 
+def design(name, pw):
+    """{"design": ...} of a kernel with two designs chosen by shape (K1
+    by M = pw / 2, K11 by W = pw), else {}."""
+    if name == "rfft_w":
+        return {"design": K.rfft_w_design(pw // 2)}
+    if name == "ifft_w_dual":
+        return {"design": K.ifft_w_dual_design(pw)}
+    return {}
+
+
 def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=None,
                   cases=kernel_cases, ops=K):
     """Each kernel (of ``names``, default all) of the module ``ops``
@@ -508,7 +522,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
         shares = [e[2] for e in errs if e[2] is not None]
         row = {"kernel": name, "mode": mode, "grid": [ph, pw],
                "planes": list(planes) if planes else None,
-               **({"design": K.rfft_w_design(pw // 2)} if fn == "rfft_w" else {}),
+               **design(fn, pw),
                "dtypes": sorted({str(t.dtype) for t in tensors((args, out))}),
                "max_abs_err": max(e[0] for e in val),
                "max_rel_err": max(e[1] for e in val),
@@ -1305,6 +1319,10 @@ def main():
     for mode, dts in SPLIT_MODES.items():
         check_kernels(ssh, ssw, False, *dts, f"planes,{mode}", planes=PLANES,
                       cases=split_kernel_cases)
+        for planes in (None, PLANES):
+            check_kernels(2 * K11_SPLIT[0], 2 * K11_SPLIT[1], False, *dts,
+                          f"planes,{mode}" if planes else mode, names=("ifft_w_dual",),
+                          planes=planes, cases=split_kernel_cases)
     split_rows = {mode: check_kernels(ph, pw, True, *dts, mode, cases=split_kernel_cases)
                   for mode, dts in SPLIT_MODES.items()}
     counts_srt = round_trip(ph, pw, K.fft_w, K.ifft_w, seed=8)
@@ -1466,8 +1484,7 @@ def main():
          "replaces": KERNEL_INFO[name][2], "label": KERNEL_INFO[name][0],
          "launches": paths[path[name]][name], "path": path[name],
          "launches_by_path": {p: c[name] for p, c in paths.items()},
-         **({"design": K.rfft_w_design(pw // 2)} if name == "rfft_w" else {}),
-         **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
+         **design(name, pw), **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
          "f32": {"launches": f32_launches[name], **row(name, "f32")}}
         for name in KERNEL_INFO]})
     print(json.dumps({"ok": True, "device": {

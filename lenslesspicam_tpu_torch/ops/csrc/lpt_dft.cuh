@@ -317,14 +317,15 @@ __device__ float2* w_inv_core(const T* zr, const T* zi, float2 z0, float2* A, fl
 
 constexpr int FW_THREADS = 512;
 
-// (max a, max b) over the block's FW_THREADS threads, by a shared-memory
-// tree; every thread gets it.  Ends synchronised.
+// (max a, max b) over the block's NT threads (a power of two), by a
+// shared-memory tree; every thread gets it.  Ends synchronised.
+template <int NT = FW_THREADS>
 __device__ inline float2 block_max2(float a, float b) {
-  __shared__ float2 red[FW_THREADS];
+  __shared__ float2 red[NT];
   const int t = threadIdx.x;
   red[t] = make_float2(a, b);
   __syncthreads();
-  for (int h = FW_THREADS / 2; h > 0; h >>= 1) {
+  for (int h = NT / 2; h > 0; h >>= 1) {
     if (t < h) red[t] = make_float2(fmaxf(red[t].x, red[t + h].x), fmaxf(red[t].y, red[t + h].y));
     __syncthreads();
   }

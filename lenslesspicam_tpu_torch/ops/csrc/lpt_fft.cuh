@@ -1,6 +1,7 @@
 // Register-resident radix FFT of one complex row of length M = 2^e per
-// block (64 <= M <= 4096), and the packed-real forward W transform built
-// on it (K1's radix design).
+// block (64 <= M <= 8192), the packed-real forward W transform built on it
+// (K1's radix design, M <= 4096) and the inverse of two full-width
+// spectra (K11's radix design, 512 <= M <= 8192).
 //
 // Schedule (decimation in frequency, in place).  Pass s has radix R_s =
 // 16, except the last, which takes the rest (2, 4, 8 or 16), and input
@@ -34,14 +35,15 @@ constexpr int RADIX = 16;  // radix of every pass but the last; points a thread
 
 __host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n / 2); }
 
-// The lengths of the radix design: powers of two from 64 to 4096.
+// The lengths of the radix FFT: powers of two from 64 to 8192 (at most
+// 512 threads a row).
 __host__ __device__ constexpr bool radix_length(int m) {
-  return m >= 64 && m <= 4096 && (m & (m - 1)) == 0;
+  return m >= 64 && m <= 8192 && (m & (m - 1)) == 0;
 }
 
 template <int M>
 struct Plan {
-  static_assert(radix_length(M), "M is a power of two from 64 to 4096");
+  static_assert(radix_length(M), "M is a power of two from 64 to 8192");
   static constexpr int PASSES = (ilog2(M) + 3) / 4;
   static constexpr int THREADS = M / RADIX;
   // radix and input length of pass s
@@ -253,6 +255,183 @@ __device__ void rfft_row(const T* __restrict__ x, T* __restrict__ zr, T* __restr
     stv<V>(zr + p0, outr);
     stv<V>(zi + p0, outi);
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// Inverse of two full-width split-order spectra (K11's radix design).
+//
+// image = Re ifft(a0) and fwd = Re ifft(a1) for any spectra a0, a1 of a
+// row of W = M = n1 n2 points (n2 = 128, n1 = M / 128), through the one
+// complex inverse of C = herm(a0) + i s herm(a1) (lpt_dft.cuh's
+// full-width note; s the balancing power of two).  Taken by conjugation,
+// ifft(C) = conj(fft(conj C)) / M, so the forward passes and twiddle
+// table above serve as they are.  Every phase exchanges through one
+// padded buffer of M + M/16 float2:
+//   1. mirror pairs.  Split position (k1, k2) holds frequency f = k1 +
+//      n1 k2; its mirror M - f sits at (n1 - k1, n2 - 1 - k2) for k1 != 0,
+//      so a thread loads a vector of V = 16 / sizeof(T) positions of row
+//      k1 (1 <= k1 < n1/2, and k1 = n1/2 for k2 < n2/2) and its mirror
+//      vector of row n1 - k1, both aligned 16-byte loads, the mirror read
+//      backwards.  Row 0 (f = n1 k2 against n1 (n2 - k2)) goes by scalar
+//      loads.  For each pair it writes the Hermitian parts 2 herm(a0) and
+//      2 herm(a1) at q = min(f, M - f) as one float4 (the half spectra,
+//      q <= M/2) and takes the block max of the raw values.
+//   2. gather.  Thread t reads conj(2 C) at its pass-0 positions f = t + T
+//      r from the half spectra (herm(a)[M - q] = conj(herm(a)[q])).
+//   3. the forward passes; then one exchange puts the row in natural
+//      order j (slot j + j / 256: the last pass's writes lie 256 apart
+//      across a warp), and the stores write Re / 2M to image and
+//      -Im / (2 M s) to fwd, V' = vec_len<T>() outputs a thread a trip.
+// Units of phase 1 go to threads so that lanes l and l + 8 read the two
+// halves of one 32-byte sector and the eight lanes of a 16-byte shared
+// access write eight consecutive q.
+// ---------------------------------------------------------------------------
+
+// The lengths of the inverse's radix design (n1 = M / 128 >= 4).
+__host__ __device__ constexpr bool inv_length(int m) {
+  return radix_length(m) && m >= 512;
+}
+
+// Shared bytes of the inverse row: the padded passes' buffer, which also
+// holds the half spectra (M/2 + 1 float4) and the natural-order exchange.
+__host__ inline size_t inv_smem_bytes(int m) { return sizeof(float2) * (size_t)(m + m / 16); }
+
+// Slot of natural index j in the output exchange.
+__device__ __forceinline__ int out_slot(int j) { return j + (j >> 8); }
+
+// Split position (k1, first k2) of phase 1's unit u: units u < NR NKV pair
+// row k1 = 1 + p % NR with row n1 - k1, at vector 2 (p / NR) + lo, where p
+// and lo split u as (u >> 4) << 3 | (u & 7) and bit 3 of u; the NKV / 2
+// after them pair the first half of row n1/2 with its second half.
+template <int M, int V>
+__device__ __forceinline__ void unit_pos(int u, int& k1, int& k2) {
+  constexpr int N2 = 128, N1 = M / N2, NR = N1 / 2 - 1, NKV = N2 / V;
+  if (u < NR * NKV) {
+    const int p = ((u >> 4) << 3) | (u & 7);
+    k1 = 1 + p % NR;
+    k2 = (2 * (p / NR) + ((u >> 3) & 1)) * V;
+  } else {
+    k1 = N1 / 2;
+    k2 = (u - NR * NKV) * V;
+  }
+}
+
+// Phase 1 (see above) for the row's planes a0 (r, i) and a1 (r, i): the
+// half spectra into h; returns the balancing power of two.  Ends
+// synchronised.
+template <typename T, int M>
+__device__ float load_half_spectra(const T* __restrict__ a0r, const T* __restrict__ a0i,
+                                   const T* __restrict__ a1r, const T* __restrict__ a1i,
+                                   float4* h) {
+  constexpr int NT = Plan<M>::THREADS, N2 = 128, N1 = M / N2, V = 16 / sizeof(T);
+  constexpr int NU = (N1 / 2 - 1) * (N2 / V) + N2 / V / 2;
+  static_assert(inv_length(M) && N2 % (2 * V) == 0, "K11's radix lengths");
+  const T* __restrict__ pl[4] = {a0r, a0i, a1r, a1i};
+  const int t = threadIdx.x;
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll 1
+  for (int u = t; u < NU; u += NT) {
+    int k1, k2;
+    unit_pos<M, V>(u, k1, k2);
+    const int p = k1 * N2 + k2, pm = (N1 - k1) * N2 + N2 - V - k2;
+    float x[4][V], y[4][V];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ldv<V>(pl[c] + p, x[c]);
+      ldv<V>(pl[c] + pm, y[c]);
+    }
+    const bool lower = k2 < N2 / 2;  // f < M/2 over the whole vector
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int f = k1 + N1 * (k2 + e), em = V - 1 - e;
+      // a[f] = x[.][e], a[M - f] = y[.][em]; 2 herm(a) at q = min(f, M - f)
+      const float s0 = x[0][e] + y[0][em], d0 = x[1][e] - y[1][em];
+      const float s1 = x[2][e] + y[2][em], d1 = x[3][e] - y[3][em];
+      h[lower ? f : M - f] = lower ? make_float4(s0, d0, s1, d1) : make_float4(s0, -d0, s1, -d1);
+      m0 = fmaxf(m0, fmaxf(fmaxf(fabsf(x[0][e]), fabsf(x[1][e])),
+                           fmaxf(fabsf(y[0][em]), fabsf(y[1][em]))));
+      m1 = fmaxf(m1, fmaxf(fmaxf(fabsf(x[2][e]), fabsf(x[3][e])),
+                           fmaxf(fabsf(y[2][em]), fabsf(y[3][em]))));
+    }
+  }
+  // row 0: f = n1 k2 pairs with n1 (n2 - k2) mod M; k2 = 0 and n2/2 with themselves
+  for (int k2 = t; k2 <= N2 / 2; k2 += NT) {
+    const int km = (N2 - k2) & (N2 - 1);
+    float x[4], y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      x[c] = ld1(pl[c] + k2, Fix{});
+      y[c] = ld1(pl[c] + km, Fix{});
+    }
+    h[N1 * k2] = make_float4(x[0] + y[0], x[1] - y[1], x[2] + y[2], x[3] - y[3]);
+    m0 = fmaxf(m0, fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(y[0]), fabsf(y[1]))));
+    m1 = fmaxf(m1, fmaxf(fmaxf(fabsf(x[2]), fabsf(x[3])), fmaxf(fabsf(y[2]), fabsf(y[3]))));
+  }
+  return pow2_balance(block_max2<NT>(m0, m1));
+}
+
+// Image = Re and fwd = Im of the natural-order row in the output exchange,
+// times sc0 and sc1, as T.
+template <typename T, int M>
+__device__ __forceinline__ void store_two(const float2* sm, T* __restrict__ o0,
+                                          T* __restrict__ o1, float sc0, float sc1) {
+  constexpr int NT = Plan<M>::THREADS, V = vec_len<T>();
+  const int s = lane_rot<V, 1>();
+#pragma unroll
+  for (int j0 = threadIdx.x * V; j0 < M; j0 += NT * V) {
+    float re[V], im[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float2 x = sm[out_slot(j0 + ((k + s) & (V - 1)))];
+      re[k] = x.x * sc0;
+      im[k] = x.y * sc1;
+    }
+    unrot(re, s);
+    unrot(im, s);
+    stv<V>(o0 + j0, re);
+    stv<V>(o1 + j0, im);
+  }
+}
+
+// image = Re ifft(a0), fwd = Re ifft(a1) of one row (split-order spectra,
+// io type T, natural-order outputs), T = M / 16 threads; `tw` the radix
+// twiddles, sm the buffer of inv_smem_bytes(M), 16-byte aligned.
+template <typename T, int M>
+__device__ void ifft_two_rows(const T* __restrict__ a0r, const T* __restrict__ a0i,
+                              const T* __restrict__ a1r, const T* __restrict__ a1i,
+                              T* __restrict__ img, T* __restrict__ fwd,
+                              const float2* __restrict__ tw, float2* sm) {
+  using P = Plan<M>;
+  constexpr int NT = P::THREADS, R = P::radix(P::PASSES - 1);
+  const int t = threadIdx.x;
+  float4* h = reinterpret_cast<float4*>(sm);
+  const float sc = load_half_spectra<T, M>(a0r, a0i, a1r, a1i, h);
+  // conj(2 C) at f = t + NT r: f < M/2 for r < 8, f >= M/2 from r = 8
+  float2 v[RADIX];
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    const int f = t + NT * r;
+    if (r < RADIX / 2) {
+      const float4 g = h[f];
+      v[r] = make_float2(g.x - sc * g.w, -(g.y + sc * g.z));
+    } else {
+      const float4 g = h[M - f];
+      v[r] = make_float2(g.x + sc * g.w, g.y - sc * g.z);
+    }
+  }
+  butterflies<M, 0>(v, tw, t);
+  __syncthreads();  // every gather read is done: the buffer takes pass 0's outputs
+  to_shared<M, 0>(v, sm, t);
+  __syncthreads();
+  passes<M, 1>(v, sm, tw, t);
+  __syncthreads();  // every read of the last pass is done
+#pragma unroll
+  for (int i = 0; i < RADIX / R; ++i)
+#pragma unroll
+    for (int c = 0; c < R; ++c) sm[out_slot(frequency<M>(t + NT * i, c))] = v[i * R + c];
+  __syncthreads();
+  store_two<T, M>(sm, img, fwd, 0.5f / M, -0.5f / (M * sc));
 }
 
 }  // namespace fft

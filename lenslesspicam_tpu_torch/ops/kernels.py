@@ -14,7 +14,7 @@ storage mode of the JAX package).
 | ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cu`` |
 | ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu`` |
 | ``e1_carry`` (K10) | ``e1_carry`` / ``_e1c_kernel`` | ``csrc/e1_carry.cu`` |
-| ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu`` |
+| ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu``, ``csrc/lpt_fft.cuh`` |
 | ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu`` |
 | ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu`` |
 | ``h_passA`` (K14) | ``h_passA`` / ``_h_passA_kernel`` | ``csrc/h_pass_a.cu`` |
@@ -368,15 +368,16 @@ def _radix_twiddles_np(m: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _rfft_table(m: int, device: torch.device):
-    """K1's table: the split-order table of length M (:func:`_table_np`,
-    whose unpack factors E both designs read), followed in the radix
-    design by :func:`_radix_twiddles_np`.  The prefix is the split
-    design's whole table, so a build of either design reads its
+def _design_table(n: int, with_unpack: bool, design: str, device: torch.device):
+    """The table of a kernel with two designs (K1: length M with the
+    unpack factors E both designs read; K11: length W without them): the
+    split-order table (:func:`_table_np`), followed in the "radix" design
+    by :func:`_radix_twiddles_np` of the same length.  The prefix is the
+    split design's whole table, so a build of either design reads its
     constants from the same argument."""
-    t = _table_np(m, True)
-    if rfft_w_design(m) == "radix":
-        t = np.concatenate([t, _radix_twiddles_np(m)])
+    t = _table_np(n, with_unpack)
+    if design == "radix":
+        t = np.concatenate([t, _radix_twiddles_np(n)])
     return torch.view_as_real(torch.from_numpy(t)).contiguous().to(device)
 
 
@@ -405,7 +406,8 @@ def rfft_w(x):
     half = tuple(x.shape[:-1]) + (m,)
     zr, zi = _empty(half, x), _empty(half, x)
     _launch("rfft_w", "lpt_rfft_w", "ppppiiiii", x, zr, zi,
-            _rfft_table(m, x.device), rows, m, n1, n2, _CODE[x.dtype])
+            _design_table(m, True, rfft_w_design(m), x.device), rows, m, n1, n2,
+            _CODE[x.dtype])
     rfft_w.launches += 1
     return zr, zi
 
@@ -1148,6 +1150,22 @@ def e1_carry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
 # ---------------------------------------------------------------------------
 
 
+# K11's radix design (csrc/lpt_fft.cuh, ``ifft_two_rows``): the inverse by
+# conjugation through the forward radix passes of length W, one block of
+# W / RADIX threads per row; W = n1 * 128 with n1 >= 4.
+IFFT_RADIX_WIDTHS = tuple(2 ** e for e in range(9, 14))     # W = 512 .. 8192
+
+
+def ifft_w_dual_design(w: int) -> str:
+    """K11's design for width W, by shape alone: "radix" (the register-
+    resident radix FFT of ``csrc/lpt_fft.cuh``) for W in
+    ``IFFT_RADIX_WIDTHS``, "split" (the two-stage DFT of
+    ``csrc/lpt_dft.cuh``, which needs both factors of W divisible by 4)
+    for any other W.  ``lpt_ifft_w_dual`` makes the same choice; neither
+    design falls back on the other."""
+    return "radix" if w in IFFT_RADIX_WIDTHS else "split"
+
+
 def ifft_w_dual_plain(a0r, a0i, a1r, a1i):
     io = a0r.dtype
     return ifft_w_plain(a0r, a0i, io), ifft_w_plain(a1r, a1i, io)
@@ -1157,18 +1175,22 @@ def ifft_w_dual(a0r, a0i, a1r, a1i):
     """Full-width post-transform step: (image, fwd) = the real parts of
     the inverse W transforms of the split-order spectra a0 and a1, natural
     order, at a0r's dtype.  Planes (ph, pw) or stacks (P, ph, pw).  No
-    spectrum is assumed Hermitian."""
+    spectrum is assumed Hermitian.  The kernel's design follows W alone
+    (:func:`ifft_w_dual_design`): the radix FFT for a power of two W from
+    512 to 8192 (the 12 MP grid's 8192 among them), the two-stage split
+    DFT for any other W, whose factors must then be divisible by 4."""
     name = "ifft_w_dual"
     ins = [a0r, a0i, a1r, a1i]
     rows, w = _rows(name, a0r)
     _check(name, ins, a0r.shape, IO_DTYPES)
     cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 4 for d in IO_DTYPES})
-    n1, n2 = factors(w, cuda)
+    n1, n2 = factors(w, cuda and ifft_w_dual_design(w) == "split")
     if not cuda:
         return ifft_w_dual_plain(*ins)
     image, fwd = _empty(a0r.shape, a0r), _empty(a0r.shape, a0r)
     _launch("ifft_w_dual", "lpt_ifft_w_dual", "pppppppiiii", *ins, image, fwd,
-            _table(w, False, a0r.device), rows, n1, n2, _CODE[a0r.dtype])
+            _design_table(w, False, ifft_w_dual_design(w), a0r.device), rows, n1, n2,
+            _CODE[a0r.dtype])
     ifft_w_dual.launches += 1
     return image, fwd
 

@@ -3,7 +3,7 @@
 A numpy model of the kernel's schedule runs the same passes as the CUDA
 code: the same radices (``kernels.radix_plan``), the same map from a
 thread's butterflies to positions of the row, the same f32 twiddle table
-(``kernels._rfft_table``) and the same final digit order and its map to
+(``kernels._design_table``) and the same final digit order and its map to
 split positions, then the mirror unpack of ``w_fwd_core``.  It is held to
 the JAX package's ``rfft_w`` in interpret mode, so an index or twiddle
 mistake in the schedule shows here before the kernel reaches a card.
@@ -23,7 +23,7 @@ from lenslesspicam_tpu_torch.ops import split_fft as sf
 # the kernel to (at M = 4096 the spectra reach ~300, so an absolute 1e-4
 # would ask for 3e-7 relative, below f32 rounding of either summation order)
 TOL_KERNEL = 1e-4
-RADIX_MS = (64, 256, 4096)
+RADIX_MS = (64, 256, 4096)    # 8192 (K11's radix design) in the generic schedule tests
 
 
 @pytest.fixture
@@ -33,6 +33,12 @@ def interpret():
         yield
     finally:
         pk2._set_interpret(False)
+
+
+def _k1_table(m):
+    """K1's constant table as complex64, as the wrapper passes it."""
+    t = K._design_table(m, True, K.rfft_w_design(m), torch.device("cpu"))
+    return torch.view_as_complex(t).numpy()
 
 
 def _passes(m):
@@ -103,7 +109,7 @@ def model_rfft_w(x):
     rows, n = x.shape
     m = n // 2
     n1, n2 = K.factors(m)
-    tab = torch.view_as_complex(K._rfft_table(m, torch.device("cpu"))).numpy()
+    tab = _k1_table(m)
     e = tab[2 * (n1 + n2) + 2 * m:2 * (n1 + n2) + 3 * m]
     tw = tab[2 * (n1 + n2) + 3 * m:]
     buf = (x[:, :m] + 1j * x[:, m:]).astype(np.complex64)
@@ -128,7 +134,7 @@ def model_rfft_w(x):
     return zr.astype(np.float32), zi.astype(np.float32)
 
 
-@pytest.mark.parametrize("m", RADIX_MS)
+@pytest.mark.parametrize("m", RADIX_MS + (8192,))
 def test_radix_twiddles_are_rounded_roots(m):
     """Every twiddle of the table is exp(-2 pi i k / M) from float64,
     rounded to f32, at the k = u c M / L its pass reads it for."""
@@ -148,13 +154,13 @@ def test_radix_twiddles_are_rounded_roots(m):
 def test_rfft_table_keeps_the_split_table_as_prefix(m):
     """The radix table extends the split design's table, so the C entry's
     argument reads the same constants for either design."""
-    full = torch.view_as_complex(K._rfft_table(m, torch.device("cpu"))).numpy()
+    full = _k1_table(m)
     base = K._table_np(m, True)
     assert np.array_equal(full[:base.size], base)
     assert np.array_equal(full[base.size:], K._radix_twiddles_np(m))
 
 
-@pytest.mark.parametrize("m", K.RADIX_LENGTHS)
+@pytest.mark.parametrize("m", K.RADIX_LENGTHS + (8192,))
 def test_radix_schedule_covers_the_row(m):
     """Each pass's butterflies read every position of the row once, and
     the final digit order is a permutation of the frequencies."""
