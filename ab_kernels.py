@@ -8,7 +8,8 @@ directory OTHER_CSRC holding the same sources changed (the same C
 entries).  Both are built with ``nvcc``, then every kernel of
 ``chip_smoke.kernel_cases`` (a mode of ``chip_smoke.MODES``: headline,
 f32) and of ``chip_smoke.split_kernel_cases`` (a mode of
-``chip_smoke.SPLIT_MODES``: f32, bench) is timed at 12 MP in each mode
+``chip_smoke.SPLIT_MODES``: f32, bench; K13 alone in
+``chip_smoke.PALLAS_K13_MODES``: pallas_bf16) is timed at 12 MP in each mode
 named, in the order A, B, B, A per round (CUDA events, median of 7 after
 a warm-up, as ``chip_smoke.time_ms``), and its output is checked against
 the plain version as ``chip_smoke.check_kernels`` checks it.  Each tree's
@@ -67,15 +68,17 @@ def main():
             for n, r in sorted(logs.items())}}), flush=True)
     ph, pw = 6144, 8192
     families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
-                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS))
-    for mode, planes, (modes, case_fn, plane_names) in [
+                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS),
+                (cs.PALLAS_K13_MODES, cs.split_kernel_cases, ("ifft_w",)))
+    for mode, planes, (modes, case_fn, names) in [
             (m, st, fam) for m in args.modes.split(",") for st in stacks or [None]
             for fam in families if m in fam[0]]:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(ph)
         cases = case_fn(ph, pw, gen, *modes[mode], planes=planes)
         for name, (inputs, _) in cases.items():
-            if (planes and name not in plane_names) or (keep and name not in keep):
+            if (name not in names and (planes or modes is cs.PALLAS_K13_MODES)) or (
+                    keep and name not in keep):
                 continue
             wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
             ref = plain(*inputs)

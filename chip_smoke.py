@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
 grid in every storage-dtype combination the kernels are built for, K1
-also at 96 x 384 and K11 at 96 x 1536, where each runs its split design
+also at 96 x 384 and K11-K13 at 96 x 1536, where each runs its split design
 instead of the radix FFT; at the 12 MP grid in the f32 mode and in the JAX
 bench's headline storage mode, bf16 spectra with int16 carries; each
 kernel that takes a plane axis also on a stack of 6 planes over 3
@@ -18,9 +18,11 @@ JAX bench's gates (bench.py:376-435) in the headline mode, runs its RGB
 and gray batch=4 rungs (bench.py:573-700) per plane in the headline
 mode, runs the full-width split solver (``run_split(backend="fused")``,
 K10, K4, K5, K4, K11) and its kernels K10-K13 (phase ``split``: every
-built storage combination at 96 x 512, a 6-over-3 stack, K11 also at
-96 x 1536 alone and stacked, both modes at 12 MP, the K12 -> K13 round
-trip, the f32 and bench-mode solves against the exact one, their rates),
+built storage combination at 96 x 512, a 6-over-3 stack, K11-K13 also at
+96 x 1536 alone and stacked, K12 and K13 at an odd row count at W = 512
+and 8192, both modes at 12 MP, K13 also bf16 in and out as the pallas
+loop runs it, the K12 -> K13 round trip, the f32 and bench-mode solves
+against the exact one, their rates),
 runs its pass-level backend (``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
 ``split_pallas``: K14-K18 against their plain versions at 96 x 512 in both
 io modes and as a 6-over-3 stack and at 12 MP with kernel rows, the
@@ -69,10 +71,13 @@ K1_SPLIT = (48, 192)
 # divisible by 4 and n1 > 1 (kernels.factors), and W = 128 or 256 factors
 # as 1 x 128 or 2 x 128; W = 512 = 4 x 128
 SMALL_SPLIT = (48, 256)
-# padded to 96 x 1536: W = 12 x 128 is no power of two, so K11 runs its
-# split design there (kernels.ifft_w_dual_design) and the radix design at
-# 512 and 8192
-K11_SPLIT = (48, 768)
+# padded to 96 x 1536: W = 12 x 128 is no power of two, so K11, K12 and
+# K13 run their split designs there (kernels.ifft_w_dual_design,
+# fft_w_design, ifft_w_design) and their radix designs at 512 and 8192
+W_SPLIT = (48, 768)
+W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w")
+# K12 and K13 at an odd row count: the last block of each holds one row
+ODD_ROWS = 95
 TOL_KERNEL = 1e-4            # f32 outputs: max |kernel - plain| / max |plain|
 TOL_PSNR_DB = 0.1            # |PSNR exact - PSNR fused| at n = 10
 TOL_SMALL = 1e-5             # fused vs exact, normalized, small grid, n = 10
@@ -133,6 +138,9 @@ TOL_LOOP_MODES = 5e-2        # normalized, n = 20 (tests/test_pallas_fft.py:249)
 # bench's headline environment gives it (bench.py:844-846: io bf16, v int16;
 # e1_carry keeps the TV carries at _CARRY_DTYPE, f32)
 SPLIT_MODES = {"f32": (F32, F32, F32, F32), "bench": (BF16, F32, I16, F32)}
+# K13 as the pallas loop runs it at bf16 io: bf16 in and out
+# (admm_split.run_split_pallas); the bench mode's K13 row stores f32
+PALLAS_K13_MODES = {"pallas_bf16": (BF16, F32, I16, BF16)}
 SPLIT_BENCH = dict(io="bf16", carry_tv="f32", carry_v="i16")
 # K10 in all 12 (io, carry_tv, carry_v) it is built for; K11-K13 in every
 # io and K13 in every (io, out) pair
@@ -486,11 +494,11 @@ def library_call(name, args):
 
 def design(name, pw):
     """{"design": ...} of a kernel with two designs chosen by shape (K1
-    by M = pw / 2, K11 by W = pw), else {}."""
+    by M = pw / 2, K11-K13 by W = pw, one rule), else {}."""
     if name == "rfft_w":
         return {"design": K.rfft_w_design(pw // 2)}
-    if name == "ifft_w_dual":
-        return {"design": K.ifft_w_dual_design(pw)}
+    if name in W_SPLIT_NAMES:
+        return {"design": K.fft_w_design(pw)}
     return {}
 
 
@@ -545,7 +553,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
 
 def round_trip(ph, pw, fwd=K.rfft_w, inv=K.irfft_w, seed=7):
     """A forward W transform and its standalone inverse on their own path
-    (K1 -> K2, or K12 -> K13; no solver calls K2, K12 or K13): ``inv(fwd(x))
+    (K1 -> K2, or K12 -> K13; no solver calls K2): ``inv(fwd(x))
     == x`` at 12 MP through the two entry points, at f32 and at bf16 io,
     each run with the launch counts set to 0 just before it and read just
     after.  Returns the counts of the bf16 run."""
@@ -1320,11 +1328,19 @@ def main():
         check_kernels(ssh, ssw, False, *dts, f"planes,{mode}", planes=PLANES,
                       cases=split_kernel_cases)
         for planes in (None, PLANES):
-            check_kernels(2 * K11_SPLIT[0], 2 * K11_SPLIT[1], False, *dts,
-                          f"planes,{mode}" if planes else mode, names=("ifft_w_dual",),
+            check_kernels(2 * W_SPLIT[0], 2 * W_SPLIT[1], False, *dts,
+                          f"planes,{mode}" if planes else mode, names=W_SPLIT_NAMES,
                           planes=planes, cases=split_kernel_cases)
+    for io, tv, v, out in W_COMBOS:
+        for w in (ssw, pw):
+            check_kernels(ODD_ROWS, w, False, io, tv, v, out,
+                          f"odd_rows,io={NAME[io]},out={NAME[out]}", names=("fft_w", "ifft_w"),
+                          cases=split_kernel_cases)
     split_rows = {mode: check_kernels(ph, pw, True, *dts, mode, cases=split_kernel_cases)
                   for mode, dts in SPLIT_MODES.items()}
+    k13_loop_rows = {mode: check_kernels(ph, pw, True, *dts, mode, names=("ifft_w",),
+                                         cases=split_kernel_cases)["ifft_w"]
+                     for mode, dts in PALLAS_K13_MODES.items()}
     counts_srt = round_trip(ph, pw, K.fft_w, K.ifft_w, seed=8)
     seconds["split_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1440,7 +1456,8 @@ def main():
     # bf16 and f32 io rows, K14 and K15 in their forward form; K18: its
     # composition fft_h_combine2 at bf16 io, f32 beside it; P1-P3: the
     # bandwidth phase's timed runs, the numbers its bf16 and f32 rows at
-    # br = 16, P3 with 40 constant planes).  bound_measured_ms is the bound
+    # br = 16, P3 with 40 constant planes; K13 also under "pallas_bf16",
+    # bf16 in and out as the pallas loop runs it).  bound_measured_ms is the bound
     # at the card's measured streaming ceiling (the bandwidth phase's
     # measured_bytes_per_s) instead of the data sheet's rate
     paths = {"end_to_end_headline": counts, "v2_headline": counts_v2,
@@ -1471,6 +1488,7 @@ def main():
     krows["f32"].update({k: pallas_rows["f32"][k] for k in pallas_row_names})
     for mode, rows in probe_rows.items():
         krows[mode].update(rows)
+    krows.update({mode: {"ifft_w": r} for mode, r in k13_loop_rows.items()})
 
     def row(name, mode):
         r = krows[mode][name]
@@ -1485,7 +1503,8 @@ def main():
          "launches": paths[path[name]][name], "path": path[name],
          "launches_by_path": {p: c[name] for p, c in paths.items()},
          **design(name, pw), **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
-         "f32": {"launches": f32_launches[name], **row(name, "f32")}}
+         "f32": {"launches": f32_launches[name], **row(name, "f32")},
+         **{mode: row(name, mode) for mode in PALLAS_K13_MODES if name in krows[mode]}}
         for name in KERNEL_INFO]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

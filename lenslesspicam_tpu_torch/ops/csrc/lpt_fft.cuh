@@ -1,7 +1,8 @@
 // Register-resident radix FFT of one complex row of length M = 2^e per
 // block (64 <= M <= 8192), the packed-real forward W transform built on it
-// (K1's radix design, M <= 4096) and the inverse of two full-width
-// spectra (K11's radix design, 512 <= M <= 8192).
+// (K1's radix design, M <= 4096), the inverse of two full-width spectra
+// (the radix designs of K11 and K13, 512 <= M <= 8192) and the forward
+// transform of two real rows (K12's radix design, 512 <= M <= 8192).
 //
 // Schedule (decimation in frequency, in place).  Pass s has radix R_s =
 // 16, except the last, which takes the rest (2, 4, 8 or 16), and input
@@ -259,7 +260,8 @@ __device__ void rfft_row(const T* __restrict__ x, T* __restrict__ zr, T* __restr
 
 
 // ---------------------------------------------------------------------------
-// Inverse of two full-width split-order spectra (K11's radix design).
+// Inverse of two full-width split-order spectra (the radix designs of K11,
+// one row's two spectra, and K13, two rows' spectra).
 //
 // image = Re ifft(a0) and fwd = Re ifft(a1) for any spectra a0, a1 of a
 // row of W = M = n1 n2 points (n2 = 128, n1 = M / 128), through the one
@@ -282,13 +284,15 @@ __device__ void rfft_row(const T* __restrict__ x, T* __restrict__ zr, T* __restr
 //   3. the forward passes; then one exchange puts the row in natural
 //      order j (slot j + j / 256: the last pass's writes lie 256 apart
 //      across a warp), and the stores write Re / 2M to image and
-//      -Im / (2 M s) to fwd, V' = vec_len<T>() outputs a thread a trip.
+//      -Im / (2 M s) to fwd, V' = vec_len<TO>() outputs a thread a trip
+//      (TO the output type).
 // Units of phase 1 go to threads so that lanes l and l + 8 read the two
 // halves of one 32-byte sector and the eight lanes of a 16-byte shared
 // access write eight consecutive q.
 // ---------------------------------------------------------------------------
 
-// The lengths of the inverse's radix design (n1 = M / 128 >= 4).
+// The lengths of the full-width radix designs, K11's, K12's and K13's
+// (n1 = M / 128 >= 4).
 __host__ __device__ constexpr bool inv_length(int m) {
   return radix_length(m) && m >= 512;
 }
@@ -372,8 +376,8 @@ __device__ float load_half_spectra(const T* __restrict__ a0r, const T* __restric
 }
 
 // Image = Re and fwd = Im of the natural-order row in the output exchange,
-// times sc0 and sc1, as T.
-template <typename T, int M>
+// times sc0 and sc1, as T (TWO false: image alone, o1 unused).
+template <typename T, int M, bool TWO = true>
 __device__ __forceinline__ void store_two(const float2* sm, T* __restrict__ o0,
                                           T* __restrict__ o1, float sc0, float sc1) {
   constexpr int NT = Plan<M>::THREADS, V = vec_len<T>();
@@ -388,19 +392,20 @@ __device__ __forceinline__ void store_two(const float2* sm, T* __restrict__ o0,
       im[k] = x.y * sc1;
     }
     unrot(re, s);
-    unrot(im, s);
+    if constexpr (TWO) unrot(im, s);
     stv<V>(o0 + j0, re);
-    stv<V>(o1 + j0, im);
+    if constexpr (TWO) stv<V>(o1 + j0, im);
   }
 }
 
 // image = Re ifft(a0), fwd = Re ifft(a1) of one row (split-order spectra,
-// io type T, natural-order outputs), T = M / 16 threads; `tw` the radix
-// twiddles, sm the buffer of inv_smem_bytes(M), 16-byte aligned.
-template <typename T, int M>
+// io type T, natural-order outputs stored as TO), T = M / 16 threads; `tw`
+// the radix twiddles, sm the buffer of inv_smem_bytes(M), 16-byte aligned.
+// TWO false: image alone is stored (fwd unused).
+template <typename T, int M, typename TO = T, bool TWO = true>
 __device__ void ifft_two_rows(const T* __restrict__ a0r, const T* __restrict__ a0i,
                               const T* __restrict__ a1r, const T* __restrict__ a1i,
-                              T* __restrict__ img, T* __restrict__ fwd,
+                              TO* __restrict__ img, TO* __restrict__ fwd,
                               const float2* __restrict__ tw, float2* sm) {
   using P = Plan<M>;
   constexpr int NT = P::THREADS, R = P::radix(P::PASSES - 1);
@@ -431,7 +436,92 @@ __device__ void ifft_two_rows(const T* __restrict__ a0r, const T* __restrict__ a
 #pragma unroll
     for (int c = 0; c < R; ++c) sm[out_slot(frequency<M>(t + NT * i, c))] = v[i * R + c];
   __syncthreads();
-  store_two<T, M>(sm, img, fwd, 0.5f / M, -0.5f / (M * sc));
+  store_two<TO, M, TWO>(sm, img, fwd, 0.5f / M, -0.5f / (M * sc));
+}
+
+
+// ---------------------------------------------------------------------------
+// Forward transform of two real rows (K12's radix design).
+//
+// X0 = fft(x0) and X1 = fft(x1) of two real rows of W = M = n1 n2 points
+// (n2 = 128, n1 = M / 128), split order, from the one complex forward
+// transform of z = x0 + i s x1 (lpt_dft.cuh's full-width note; s the
+// balancing power of two).  Pass 0 loads z straight from device memory as
+// rfft_row loads a row, and the block max of |x0| and |x1| is taken on
+// those registers before the first butterfly (the power of two
+// balance_imag gives).  After the passes one exchange puts frequency f at
+// split position (f % n1, f / n1) of the layout [k1 (n2+1) + k2], and the
+// store separates the two spectra through the mirror as
+// store_two_spectra does: X0[k] = (Z[k] + conj Z[-k]) / 2, X1[k] = (Z[k] -
+// conj Z[-k]) / 2i s, V = vec_len<T>() positions a thread a trip.
+// ---------------------------------------------------------------------------
+
+// X0 and X1 of the rows x0 and x1 (io type T; x1 null: a row of zeros,
+// and x1r, x1i unused), T = M / 16 threads; `tw` the radix twiddles, sm
+// the buffer of smem_bytes(M, M / 128, 128).
+template <typename T, int M>
+__device__ void fft_two_real_rows(const T* __restrict__ x0, const T* __restrict__ x1,
+                                  T* __restrict__ x0r, T* __restrict__ x0i,
+                                  T* __restrict__ x1r, T* __restrict__ x1i,
+                                  const float2* __restrict__ tw, float2* sm) {
+  using P = Plan<M>;
+  constexpr int NT = P::THREADS, R = P::radix(P::PASSES - 1), V = vec_len<T>();
+  constexpr int N2 = 128, N1 = M / N2, L1 = ilog2(N1), L2 = ilog2(N2);
+  static_assert(inv_length(M), "K12's radix lengths");
+  const int t = threadIdx.x;
+  const bool two = x1 != nullptr;
+  float2 v[RADIX];
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    v[r].x = ld1(x0 + t + NT * r, Fix{});
+    v[r].y = two ? ld1(x1 + t + NT * r, Fix{}) : 0.f;
+    m0 = fmaxf(m0, fabsf(v[r].x));
+    m1 = fmaxf(m1, fabsf(v[r].y));
+  }
+  const float sc = pow2_balance(block_max2<NT>(m0, m1));
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) v[r].y *= sc;
+  butterflies<M, 0>(v, tw, t);
+  to_shared<M, 0>(v, sm, t);
+  __syncthreads();
+  passes<M, 1>(v, sm, tw, t);
+  __syncthreads();  // every read of the last pass is done: the buffer is free
+#pragma unroll
+  for (int i = 0; i < RADIX / R; ++i)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int f = frequency<M>(t + NT * i, c);
+      sm[(f & (N1 - 1)) * (N2 + 1) + (f >> L1)] = v[i * R + c];
+    }
+  __syncthreads();
+  const float inv_s = 1.f / sc;
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int p0 = t * V; p0 < M; p0 += NT * V) {
+    float ar[V], ai[V], br[V], bi[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int pos = p0 + ((k + s) & (V - 1));
+      const int k1 = pos >> L2, k2 = pos & (N2 - 1);
+      const int mp = mirror_pos(k1, k2, N1, N2);
+      const float2 z = sm[k1 * (N2 + 1) + k2], q = sm[(mp >> L2) * (N2 + 1) + (mp & (N2 - 1))];
+      ar[k] = 0.5f * (z.x + q.x);
+      ai[k] = 0.5f * (z.y - q.y);
+      br[k] = 0.5f * (z.y + q.y) * inv_s;
+      bi[k] = 0.5f * (q.x - z.x) * inv_s;
+    }
+    unrot(ar, s);
+    unrot(ai, s);
+    stv<V>(x0r + p0, ar);
+    stv<V>(x0i + p0, ai);
+    if (two) {
+      unrot(br, s);
+      unrot(bi, s);
+      stv<V>(x1r + p0, br);
+      stv<V>(x1i + p0, bi);
+    }
+  }
 }
 
 }  // namespace fft

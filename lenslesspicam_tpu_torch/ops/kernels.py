@@ -15,8 +15,8 @@ storage mode of the JAX package).
 | ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu`` |
 | ``e1_carry`` (K10) | ``e1_carry`` / ``_e1c_kernel`` | ``csrc/e1_carry.cu`` |
 | ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu``, ``csrc/lpt_fft.cuh`` |
-| ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu`` |
-| ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu`` |
+| ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu``, ``csrc/lpt_fft.cuh`` |
+| ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_passA`` (K14) | ``h_passA`` / ``_h_passA_kernel`` | ``csrc/h_pass_a.cu`` |
 | ``h_passB`` (K15) | ``h_passB`` / ``_h_passB_kernel`` | ``csrc/h_pass_b.cu`` |
 | ``h_passB_combine`` (K16) | ``h_passB_combine`` / ``_h_passB_combine_kernel`` | ``csrc/h_pass_b.cu`` |
@@ -370,7 +370,7 @@ def _radix_twiddles_np(m: int) -> np.ndarray:
 @lru_cache(maxsize=None)
 def _design_table(n: int, with_unpack: bool, design: str, device: torch.device):
     """The table of a kernel with two designs (K1: length M with the
-    unpack factors E both designs read; K11: length W without them): the
+    unpack factors E both designs read; K11-K13: length W without them): the
     split-order table (:func:`_table_np`), followed in the "radix" design
     by :func:`_radix_twiddles_np` of the same length.  The prefix is the
     split design's whole table, so a build of either design reads its
@@ -1035,6 +1035,27 @@ def irfft_w_dual(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
 # ---------------------------------------------------------------------------
 
 
+# The full-width radix designs (csrc/lpt_fft.cuh): K11's ``ifft_two_rows``,
+# the inverse by conjugation through the forward radix passes of length W,
+# one block of W / RADIX threads per row (K13: per pair of rows, on the
+# same function), and K12's ``fft_two_real_rows``, the forward passes on
+# two real rows; W = n1 * 128 with n1 >= 4.
+IFFT_RADIX_WIDTHS = tuple(2 ** e for e in range(9, 14))     # W = 512 .. 8192
+
+
+def fft_w_design(w: int) -> str:
+    """The design of K12, and of K11 and K13, for width W, by shape alone:
+    "radix" (the register-resident radix FFT of ``csrc/lpt_fft.cuh``) for
+    W in ``IFFT_RADIX_WIDTHS``, "split" (the two-stage DFT of
+    ``csrc/lpt_dft.cuh``, which needs both factors of W divisible by 4)
+    for any other W.  ``lpt_fft_w``, ``lpt_ifft_w_dual`` and ``lpt_ifft_w``
+    make the same choice; neither design falls back on the other."""
+    return "radix" if w in IFFT_RADIX_WIDTHS else "split"
+
+
+ifft_w_design = fft_w_design      # K13's rule
+
+
 def fft_w_plain(x):
     """(..., W) real rows -> split-order spectrum r/i, computed in f32 and
     stored at the input's dtype."""
@@ -1045,16 +1066,20 @@ def fft_w_plain(x):
 def fft_w(x):
     """(..., W) real rows in natural order (a plane or a stack of planes)
     -> the split-order W spectrum (..., W) as r/i planes; io dtype (f32 or
-    bf16) in and out.  All rows of all planes go to one launch."""
+    bf16) in and out.  All rows of all planes go to one launch.  The
+    kernel's design follows W alone (:func:`fft_w_design`): the radix FFT
+    for a power of two W from 512 to 8192 (the 12 MP grid's 8192 among
+    them), the two-stage split DFT for any other W, whose factors must
+    then be divisible by 4."""
     rows, w = _rows("fft_w", x)
     _check("fft_w", [x], dtypes=IO_DTYPES)
     cuda = _on_card("fft_w", [x], (x.dtype,), _IO_BUILT)
-    n1, n2 = factors(w, cuda)
+    n1, n2 = factors(w, cuda and fft_w_design(w) == "split")
     if not cuda:
         return fft_w_plain(x)
     zr, zi = _empty(x.shape, x), _empty(x.shape, x)
-    _launch("fft_w", "lpt_fft_w", "ppppiiii", x, zr, zi, _table(w, False, x.device),
-            rows, n1, n2, _CODE[x.dtype])
+    _launch("fft_w", "lpt_fft_w", "ppppiiii", x, zr, zi,
+            _design_table(w, False, fft_w_design(w), x.device), rows, n1, n2, _CODE[x.dtype])
     fft_w.launches += 1
     return zr, zi
 
@@ -1068,19 +1093,21 @@ def ifft_w_plain(vr, vi, out_dtype=_F32):
 def ifft_w(vr, vi, out_dtype=_F32):
     """(..., W) split-order spectrum r/i (io dtype) -> (..., W) real part
     of its inverse W transform, natural order, as ``out_dtype`` (f32 or
-    bf16).  No spectrum is assumed Hermitian."""
+    bf16).  No spectrum is assumed Hermitian.  The kernel's design follows
+    W alone (:func:`ifft_w_design`), as :func:`fft_w`'s."""
     rows, w = _rows("ifft_w", vr)
     _check("ifft_w", [vr, vi], vr.shape, IO_DTYPES)
     if out_dtype not in IO_DTYPES:
         raise TypeError(f"ifft_w: out_dtype {out_dtype} is not one of {IO_DTYPES}")
     cuda = _on_card("ifft_w", [vr, vi], (vr.dtype, vi.dtype, out_dtype),
                     {(a, a, o) for a in IO_DTYPES for o in IO_DTYPES})
-    n1, n2 = factors(w, cuda)
+    n1, n2 = factors(w, cuda and ifft_w_design(w) == "split")
     if not cuda:
         return ifft_w_plain(vr, vi, out_dtype)
     out = _empty(vr.shape, vr, out_dtype)
     _launch("ifft_w", "lpt_ifft_w", "pppp" + "iiiii", vr, vi, out,
-            _table(w, False, vr.device), rows, n1, n2, _CODE[vr.dtype], _CODE[out_dtype])
+            _design_table(w, False, ifft_w_design(w), vr.device), rows, n1, n2,
+            _CODE[vr.dtype], _CODE[out_dtype])
     ifft_w.launches += 1
     return out
 
@@ -1150,20 +1177,7 @@ def e1_carry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
 # ---------------------------------------------------------------------------
 
 
-# K11's radix design (csrc/lpt_fft.cuh, ``ifft_two_rows``): the inverse by
-# conjugation through the forward radix passes of length W, one block of
-# W / RADIX threads per row; W = n1 * 128 with n1 >= 4.
-IFFT_RADIX_WIDTHS = tuple(2 ** e for e in range(9, 14))     # W = 512 .. 8192
-
-
-def ifft_w_dual_design(w: int) -> str:
-    """K11's design for width W, by shape alone: "radix" (the register-
-    resident radix FFT of ``csrc/lpt_fft.cuh``) for W in
-    ``IFFT_RADIX_WIDTHS``, "split" (the two-stage DFT of
-    ``csrc/lpt_dft.cuh``, which needs both factors of W divisible by 4)
-    for any other W.  ``lpt_ifft_w_dual`` makes the same choice; neither
-    design falls back on the other."""
-    return "radix" if w in IFFT_RADIX_WIDTHS else "split"
+ifft_w_dual_design = fft_w_design     # K11's rule (:func:`fft_w_design`)
 
 
 def ifft_w_dual_plain(a0r, a0i, a1r, a1i):
