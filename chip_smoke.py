@@ -4,10 +4,11 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
-grid in every storage-dtype combination the kernels are built for, K1
-also at 96 x 384 and K11-K13 at 96 x 1536, where each runs its split design
-instead of the radix FFT; at the 12 MP grid in the f32 mode and in the JAX
-bench's headline storage mode, bf16 spectra with int16 carries; each
+grid in every storage-dtype combination the kernels are built for, K1, K2
+and K6 also at 96 x 384 and 96 x 1536 and K11-K13 at 96 x 1536, where each
+runs its split design instead of the radix FFT; at the 12 MP grid in the
+f32 mode and in the JAX bench's headline storage mode, bf16 spectra with
+int16 carries, K2 and K6 there in every combination; each
 kernel that takes a plane axis also on a stack of 6 planes over 3
 constant planes at the small grid and on the RGB and batch=4 rungs'
 stacks at 12 MP), runs the small-grid fused loop through the kernels against the plain loop in every storage
@@ -34,8 +35,11 @@ probe P1-P3 (phase ``bandwidth``: every reading of the JAX script at
 6144 x 8192 bit-equal to its plain version, then timed beside the library
 copies; the best P1 reading is the card's measured streaming rate, and
 every kernel row gets a bound at that rate beside the data sheet's),
-passes CUDA tensors that require grad to the public entry points against
-numpy inputs (phase ``device_inputs``), checks that each counted run went
+runs every kernel and the v3, full-width fused and pallas solvers at the
+padded grids of GRIDS, where the split designs take their general form
+(phase ``grids``: the published baseline's 540 x 960, 768 x 1024, 480 x
+640, 96 x 270), passes CUDA tensors that require grad to the public entry
+points against numpy inputs (phase ``device_inputs``), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -58,24 +62,37 @@ import torch
 from lenslesspicam_tpu_torch.ops import _build, kernels as K, probe_bw as PB
 from lenslesspicam_tpu_torch.ops import split_fft as sf
 from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
+from lenslesspicam_tpu_torch.ops.padding import padded_size
 from lenslesspicam_tpu_torch.recon import admm, admm_split
 from lenslesspicam_tpu_torch.recon.admm import ADMMParams
 from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
-# padded to 96 x 384: M = 192 is no power of two, so K1 runs its split
-# design there (kernels.rfft_w_design) and the radix design everywhere else
+# padded to 96 x 384: M = 192 = 16 x 12 is no power of two, so K1, K2 and
+# K6 run their split designs there (kernels.rfft_w_design, one rule for
+# the three), in the fast form (both factors multiples of 4), and their
+# radix designs at M = 64 and 4096
 K1_SPLIT = (48, 192)
-# padded to 96 x 512: the full-width kernels need both factors of W
-# divisible by 4 and n1 > 1 (kernels.factors), and W = 128 or 256 factors
-# as 1 x 128 or 2 x 128; W = 512 = 4 x 128
+M_NAMES = ("rfft_w", "irfft_w", "irfft_w_dual_state")
+# padded to 96 x 512: W = 512 = 4 x 128, the full-width kernels' small grid
 SMALL_SPLIT = (48, 256)
 # padded to 96 x 1536: W = 12 x 128 is no power of two, so K11, K12 and
 # K13 run their split designs there (kernels.ifft_w_dual_design,
-# fft_w_design, ifft_w_design) and their radix designs at 512 and 8192
+# fft_w_design, ifft_w_design) and their radix designs at 512 and 8192;
+# K2 and K6 (M = 768 = 6 x 128) their split designs in the general form
 W_SPLIT = (48, 768)
 W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w")
+# sensors whose padded grids take the general form of the split designs
+# (csrc/lpt_dft.cuh general_form: a factor not a multiple of 4 or n1 = 1,
+# a lane width not a multiple of an H kernel's tile, an odd half width),
+# each run through every kernel and the solvers in phase ``grids``: the
+# DiffuserCam-MirFlickr grid of the published baseline (bench.py:34
+# REF_RESOLUTION; 540 x 960: H = 27 x 20, W = 32 x 30, K4's lane width
+# 480), 12 MP at 1/8 (MULTICHIP_r05.json's parity grid; 768 x 1024: H =
+# 6 x 128), 240 x 320 (480 x 640: W = 5 x 128) and an odd half width
+# (96 x 270: M = 135 = 15 x 9, every row 2-byte unaligned)
+GRIDS = ((270, 480), (380, 507), (240, 320), (48, 135))
 # K12 and K13 at an odd row count: the last block of each holds one row
 ODD_ROWS = 95
 TOL_KERNEL = 1e-4            # f32 outputs: max |kernel - plain| / max |plain|
@@ -312,17 +329,18 @@ F_OPS = 10         # per point, K16's F = R (a + conj(H) b)
 
 
 def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
-    """Seeded inputs at the shapes the fused loop gives each kernel, the
-    spectra and static planes at ``io``, the TV carries at ``tv``, the v
-    carry at ``v``, K2's output at ``k2_out``; with ``planes`` = (P, Pc)
+    """Seeded inputs, on the device of ``gen``, at the shapes the fused
+    loop gives each kernel, the spectra and static planes at ``io``, the
+    TV carries at ``tv``, the v carry at ``v``, K2's output at
+    ``k2_out``; with ``planes`` = (P, Pc)
     a stack of P planes and of Pc constant planes (filter planes, mask)
     for each kernel that takes a plane axis.  With the operations each
     function needs, counted from the function and not from the kernels'
     design: 5 n log2 n per complex length-n FFT, UNPACK_OPS per bin of a
     packed real transform, and the elementwise algebra around them."""
-    dev = "cuda"
+    dev = gen.device
     m = pw // 2
-    h1, h2 = K.factors(ph, True)
+    h1, h2 = K.factors(ph)
     p = ADMMParams()
     npl, npc = planes or (1, 1)
     lp = (npl,) if planes else ()          # leading axis of the plane operands
@@ -381,7 +399,7 @@ def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
     length-W transform is counted as the packed complex length-W/2 one
     and its unpack; the real part of an inverse of any spectrum adds
     HERM_OPS per bin."""
-    dev = "cuda"
+    dev = gen.device
     p = ADMMParams()
     npl, npc = planes or (1, 1)
     lp = (npl,) if planes else ()
@@ -417,12 +435,12 @@ def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
     of rk and v, as ``fft_h_combine2`` gives them.  Operations: 5 log2 n per
     point of a length-n stage, 6 per twiddle and per complex product,
     F_OPS per point of the combine."""
-    dev = "cuda"
+    dev = gen.device
     p = ADMMParams()
     npl, npc = planes or (1, 1)
     lp = (npl,) if planes else ()
     lc = (npc,) if planes else ()
-    h1, h2 = K.factors(ph, True)
+    h1, h2 = K.factors(ph)
 
     def rn(*lead, scale=1.0):
         return (torch.randn(*lead, h1, h2, pw, generator=gen, device=dev) * scale).to(io)
@@ -493,9 +511,9 @@ def library_call(name, args):
 
 
 def design(name, pw):
-    """{"design": ...} of a kernel with two designs chosen by shape (K1
-    by M = pw / 2, K11-K13 by W = pw, one rule), else {}."""
-    if name == "rfft_w":
+    """{"design": ...} of a kernel with two designs chosen by shape (K1,
+    K2 and K6 by M = pw / 2, K11-K13 by W = pw, one rule each), else {}."""
+    if name in M_NAMES:
         return {"design": K.rfft_w_design(pw // 2)}
     if name in W_SPLIT_NAMES:
         return {"design": K.fft_w_design(pw)}
@@ -1265,6 +1283,88 @@ def device_inputs_check():
           "bit_equal_to_numpy_inputs": checks})
 
 
+def want_grid_counts(n, solver):
+    """Launches of one n-iteration solve of ``solver`` at a grid of
+    :func:`grids_phase`."""
+    if solver == "fused":
+        return want_split_counts(n)
+    if solver == "pallas":
+        return want_pallas_counts(n)
+    return want_counts(n, sat_scans=2 if solver == "v3_headline" else 0)
+
+
+def grids_phase():
+    """Every sensor of GRIDS at its padded grid, where the split designs
+    run their general form: each kernel against its plain version (the
+    rsplit kernels in MODES, the full-width ones in SPLIT_MODES, the
+    pass-level ones in PALLAS_IO), then the cert scene through the exact
+    solver and, at n = 10, finite at the sensor shape and with its launch
+    counts: the fused v3 solver at f32 and the full-width ``"fused"`` and
+    ``"pallas"`` solvers (f32) within TOL_PSNR_DB of the exact solver's
+    PSNR; the fused v3 solver in the headline mode no more than
+    TOL_PSNR_DB below it (below 0.77 MP, the JAX bench's smallest
+    certified rung, the mode's int16 TV carries move PSNR at n = 10 by
+    more than 0.1 dB in the plain versions too: +0.23 dB at 540 x 960), its
+    PSNR beside the plain versions', and its n = 3 loop within
+    TOL_LOOP_HEADLINE of the same loop through the plain versions.
+    One ``grids`` line per sensor; returns the records."""
+    recs = []
+    n = 10
+    for sensor in GRIDS:
+        t0 = time.perf_counter()
+        ph, pw = (padded_size(s) for s in sensor)
+        for cases, modes in ((kernel_cases, MODES), (split_kernel_cases, SPLIT_MODES),
+                             (pallas_kernel_cases,
+                              {m: (io, F32, F32, F32) for m, io in PALLAS_IO.items()})):
+            for mode, dts in modes.items():
+                check_kernels(ph, pw, False, *dts, f"grid,{mode}", cases=cases)
+        rng = np.random.RandomState(16)
+        scene, psf = cert_scene_psf(sensor, rng)
+        fwd = FFTConvolver.from_psf(psf[None, :, :, None], pad=True, norm="backward")
+        meas = fwd.convolve(torch.from_numpy(scene)[None, None, :, :, None].to("cuda"))
+        meas = (meas / meas.max().clamp_min(1e-9))[0, 0, :, :, 0]
+        scene_n = torch.from_numpy(scene / scene.max()).to("cuda")
+        conv = admm.make_convolver(psf[None, :, :, None])
+        p_exact = psnr_db(admm.run(conv, meas[None, None, :, :, None], n_iter=n)[0, 0, :, :, 0],
+                          scene_n)
+        data = meas.cpu().numpy()
+        pre, spre = admm_split.precompute_rsplit(psf, data), admm_split.precompute_split(psf, data)
+        solves = {"v3_f32": lambda: admm_split.run_rsplit(pre, n_iter=n),
+                  "v3_headline": lambda: admm_split.run_rsplit(pre, n_iter=n, **HEADLINE),
+                  "fused": lambda: admm_split.run_split(spre, n_iter=n, backend="fused"),
+                  "pallas": lambda: admm_split.run_split(spre, n_iter=n, backend="pallas")}
+        psnr, launches = {}, {}
+        for name, solve in solves.items():
+            out, counts = counted(solve, want_grid_counts(n, name), f"{name} at {ph}x{pw}")
+            if tuple(out.shape) != sensor or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} at {ph}x{pw}: output not finite at {sensor}")
+            psnr[name] = psnr_db(out, scene_n)
+            launches[name] = {k: c for k, c in counts.items() if c}
+            gap = psnr[name] - p_exact
+            if not (gap >= -TOL_PSNR_DB if name == "v3_headline" else abs(gap) <= TOL_PSNR_DB):
+                raise AssertionError(f"{name} at {ph}x{pw} (n={n}): {psnr[name]:.3f} dB against "
+                                     f"exact {p_exact:.3f} dB")
+            if name == "v3_headline":
+                psnr["v3_headline_plain"] = psnr_db(admm_split.run_split_rfused(
+                    pre, n_iter=n, ops=K.PLAIN, **HEADLINE), scene_n)
+                loop_err = nerr(admm_split.run_split_rfused(pre, n_iter=3, **HEADLINE),
+                                admm_split.run_split_rfused(pre, n_iter=3, ops=K.PLAIN,
+                                                            **HEADLINE))
+                if not loop_err <= TOL_LOOP_HEADLINE:
+                    raise AssertionError(f"headline loop at {ph}x{pw} kernels vs plain (n=3): "
+                                         f"{loop_err:.3e}")
+        h, w = K.factors(ph), K.factors(pw)
+        rec = {"phase": "grids", "sensor": list(sensor), "padded": [ph, pw],
+               "factors": {"h": h, "w": w, "m": K.factors(pw // 2)}, "n_iter": n,
+               "psnr_exact_db": p_exact, "psnr_db": psnr, "tol_db": TOL_PSNR_DB,
+               "headline_loop_kernels_vs_plain_n3": loop_err, "tol_loop": TOL_LOOP_HEADLINE,
+               "launches": launches, "seconds": time.perf_counter() - t0}
+        emit(rec)
+        recs.append(rec)
+        del pre, spre, meas, conv
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1308,14 +1408,26 @@ def main():
     for mode, dts in MODES.items():
         check_kernels(sh, sw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
                       planes=PLANES)
-        check_kernels(2 * K1_SPLIT[0], 2 * K1_SPLIT[1], False, *dts, mode, names=("rfft_w",))
-        check_kernels(2 * K1_SPLIT[0], 2 * K1_SPLIT[1], False, *dts, f"planes,{mode}",
-                      names=("rfft_w",), planes=PLANES)
+        check_kernels(2 * K1_SPLIT[0], 2 * K1_SPLIT[1], False, *dts, mode, names=M_NAMES)
+        for planes in (PLANES, *PLANES_12MP):
+            check_kernels(2 * K1_SPLIT[0], 2 * K1_SPLIT[1], False, *dts, f"planes,{mode}",
+                          names=M_NAMES, planes=planes)
+            check_kernels(2 * W_SPLIT[0], 2 * W_SPLIT[1], False, *dts, f"planes,{mode}",
+                          names=M_NAMES, planes=planes)
+    for io, tv, v, k2_out in COMBOS:     # K2 and K6's split designs, general form
+        check_kernels(2 * W_SPLIT[0], 2 * W_SPLIT[1], False, io, tv, v, k2_out,
+                      f"io={NAME[io]},carry={NAME[tv]},k2_out={NAME[k2_out]}", names=M_NAMES)
     krows = {mode: check_kernels(ph, pw, True, *dts, mode) for mode, dts in MODES.items()}
     for mode, dts in MODES.items():
         for planes in PLANES_12MP:
             check_kernels(ph, pw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
                           planes=planes)
+    for io, tv, v, k2_out in COMBOS:     # K2's and K6's radix designs in every combination
+        for planes in (None, *PLANES_12MP):
+            check_kernels(ph, pw, False, io, tv, v, k2_out,
+                          f"{'planes,' if planes else ''}io={NAME[io]},carry={NAME[tv]},"
+                          f"k2_out={NAME[k2_out]}", planes=planes,
+                          names=("irfft_w_dual_state",) if planes else M_NAMES[1:])
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ssh, ssw = 2 * SMALL_SPLIT[0], 2 * SMALL_SPLIT[1]
@@ -1362,6 +1474,9 @@ def main():
     small_end_to_end()
     device_inputs_check()
     seconds["small_and_round_trip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grids_phase()
+    seconds["grids"] = time.perf_counter() - t0
 
     # end to end at 12 MP: scene, PSF and measurement from seed 0
     t0 = time.perf_counter()

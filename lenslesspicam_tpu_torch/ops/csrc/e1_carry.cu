@@ -32,7 +32,7 @@
 
 using namespace lpt;
 
-template <typename TI, typename TC, typename TV>
+template <typename TI, typename TC, typename TV, bool kGen>
 __global__ void __launch_bounds__(FW_THREADS, 1) e1_carry_kernel(
     const TI* __restrict__ img, const TI* __restrict__ fwd, const TV* __restrict__ v,
     const TC* __restrict__ b, const TC* __restrict__ a0, const TC* __restrict__ a1,
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1) e1_carry_kernel(
     TC* __restrict__ a0o, TC* __restrict__ a1o, TC* __restrict__ bo,
     const float2* __restrict__ tab, int ph, int pc, int n1, int n2, float mu1, float mu2,
     float mu3, float tau, float c_out, float c_diff, Fix fv) {
-  constexpr int V = vec_len<TI, TC, TV>();
+  constexpr int V = kGen ? 1 : vec_len<TI, TC, TV>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1) e1_carry_kernel(
   }
   __syncthreads();
   const float sc = balance_imag(A, n);
-  const float2* P = c_fwd_core(A, B, p, R);
+  const float2* P = c_fwd_core<kGen>(A, B, p, R);
   store_two_spectra<TI, V>(P, p, rkr + fr, rki + fr, vwr + fr, vwi + fr, 1.f / sc);
 }
 
@@ -78,8 +78,10 @@ template <typename TI, typename TC, typename TV>
 static int run(const void* const* in, void* const* out, const float2* tab, int rows, int ph,
                int pc, int n1, int n2, float mu1, float mu2, float mu3, float tau, float c_out,
                float c_diff, Fix fv, void* stream) {
-  return launch(e1_carry_kernel<TI, TC, TV>, dim3(rows), dim3(FW_THREADS), w_smem_bytes(n1, n2),
-                stream,
+  auto kernel = general_form(n1, n2, n1 * n2, vec_len<TI, TC, TV>())
+                    ? e1_carry_kernel<TI, TC, TV, true>
+                    : e1_carry_kernel<TI, TC, TV, false>;
+  return launch(kernel, dim3(rows), dim3(FW_THREADS), w_smem_bytes(n1, n2), stream,
                 (const TI*)in[0], (const TI*)in[1], (const TV*)in[2], (const TC*)in[3],
                 (const TC*)in[4], (const TC*)in[5], (const TI*)in[6], (const TI*)in[7],
                 (TI*)out[0], (TI*)out[1], (TI*)out[2], (TI*)out[3], (TV*)out[4], (TC*)out[5],

@@ -31,7 +31,7 @@
 
 using namespace lpt;
 
-template <typename TI, typename TC, typename TV>
+template <typename TI, typename TC, typename TV, bool kGen>
 __global__ void __launch_bounds__(256, 3) e1_rcarry_kernel(
     const TI* __restrict__ img, const TI* __restrict__ fwd, const TV* __restrict__ v,
     const TC* __restrict__ b, const TC* __restrict__ a0, const TC* __restrict__ a1,
@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(256, 3) e1_rcarry_kernel(
     TC* __restrict__ a0o, TC* __restrict__ a1o, TC* __restrict__ bo,
     const float2* __restrict__ tab, int ph, int pc, int m, int n1, int n2, float mu1, float mu2,
     float mu3, float tau, float c_out, float c_diff, Fix fa, Fix fb, Fix fv) {
-  constexpr int V = vec_len<TI, TC, TV>();
+  constexpr int V = kGen ? 1 : vec_len<TI, TC, TV>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(256, 3) e1_rcarry_kernel(
   tv_row<TI, TC, V, false>(img, a0, a1, b, a0o, a1o, bo, plane_rows(r, ph, n), m, mu2, mu3, tau,
                            fa, fb, f, reinterpret_cast<float*>(B), amax, bmax);
   __syncthreads();
-  w_fwd_core<TI, V>(A, B, p, R, rkr + hr, rki + hr);
+  w_fwd_core<TI, V, kGen>(A, B, p, R, rkr + hr, rki + hr);
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int q0 = threadIdx.x * V; q0 < n; q0 += blockDim.x * V) {
@@ -69,14 +69,17 @@ __global__ void __launch_bounds__(256, 3) e1_rcarry_kernel(
     put_packed<V>(f, vn, q0, m, s);
   }
   __syncthreads();
-  w_fwd_core<TI, V>(A, B, p, R, vwr + hr, vwi + hr);
+  w_fwd_core<TI, V, kGen>(A, B, p, R, vwr + hr, vwi + hr);
 }
 
 template <typename TI, typename TC, typename TV>
 static int run(const void* const* in, void* const* out, const float2* tab, int rows, int ph,
                int pc, int m, int n1, int n2, float mu1, float mu2, float mu3, float tau,
                float c_out, float c_diff, Fix fa, Fix fb, Fix fv, void* stream) {
-  return launch(e1_rcarry_kernel<TI, TC, TV>, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
+  auto kernel = general_form(n1, n2, m, vec_len<TI, TC, TV>())
+                    ? e1_rcarry_kernel<TI, TC, TV, true>
+                    : e1_rcarry_kernel<TI, TC, TV, false>;
+  return launch(kernel, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
                 (const TI*)in[0], (const TI*)in[1], (const TV*)in[2], (const TC*)in[3],
                 (const TC*)in[4], (const TC*)in[5], (const TI*)in[6], (const TI*)in[7],
                 (TI*)out[0], (TI*)out[1], (TI*)out[2], (TI*)out[3], (TV*)out[4], (TC*)out[5],

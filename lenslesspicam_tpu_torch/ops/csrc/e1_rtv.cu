@@ -35,14 +35,14 @@
 
 using namespace lpt;
 
-template <typename TI, typename TC>
+template <typename TI, typename TC, bool kGen>
 __global__ void __launch_bounds__(256, 3) e1_rtv_kernel(
     const TI* __restrict__ img, const TC* __restrict__ a0, const TC* __restrict__ a1,
     const TC* __restrict__ b, TI* __restrict__ rkr, TI* __restrict__ rki, TC* __restrict__ a0o,
     TC* __restrict__ a1o, TC* __restrict__ bo, const float2* __restrict__ tab, int ph, int m,
     int n1, int n2, float mu2, float mu3, float tau, Fix fa, Fix fb, float ia, float ib,
     float* __restrict__ sat) {
-  constexpr int V = vec_len<TI, TC>();
+  constexpr int V = kGen ? 1 : vec_len<TI, TC>();
   constexpr bool kSat = std::is_same<TC, int16_t>::value;
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(256, 3) e1_rtv_kernel(
                           amax, bmax);
   if constexpr (kSat) block_max_to(fmaxf(amax * ia, bmax * ib), sat);
   __syncthreads();
-  w_fwd_core<TI, V>(A, B, p, R, rkr + (size_t)r * m, rki + (size_t)r * m);
+  w_fwd_core<TI, V, kGen>(A, B, p, R, rkr + (size_t)r * m, rki + (size_t)r * m);
 }
 
 template <typename TI, typename TC>
@@ -65,7 +65,9 @@ static int run(const void* img, const void* a0, const void* a1, const void* b, v
                void* rki, void* a0o, void* a1o, void* bo, const float2* tab, int rows, int ph,
                int m, int n1, int n2, float mu2, float mu3, float tau, Fix fa, Fix fb, float ia,
                float ib, float* sat, void* stream) {
-  return launch(e1_rtv_kernel<TI, TC>, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
+  auto kernel = general_form(n1, n2, m, vec_len<TI, TC>()) ? e1_rtv_kernel<TI, TC, true>
+                                                           : e1_rtv_kernel<TI, TC, false>;
+  return launch(kernel, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
                 (const TI*)img, (const TC*)a0, (const TC*)a1, (const TC*)b, (TI*)rkr, (TI*)rki,
                 (TC*)a0o, (TC*)a1o, (TC*)bo, tab, ph, m, n1, n2, mu2, mu3, tau, fa, fb, ia,
                 ib, sat);

@@ -24,7 +24,7 @@
 //   1)) float2 (69.6 KB at 8192) holds the passes' exchanges and the
 //   split-order spectrum the mirror store reads, and __launch_bounds__
 //   (512, 2) keeps two blocks an SM at 64 registers.
-// split (any other W whose factors n1, n2 are multiples of 4): the
+// split (any other W, any factors n1 x n2; `general_form` in lpt_dft.cuh): the
 //   two-stage DFT of lpt_dft.cuh.  One block of 512 threads holds z in one
 //   padded shared row, balances it on shared memory (`balance_imag`),
 //   transforms it (40 complex multiply-adds a point at 12 MP) and
@@ -35,11 +35,11 @@
 
 using namespace lpt;
 
-template <typename T>
+template <typename T, bool kGen>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     fft_w_kernel(const T* __restrict__ x, T* __restrict__ zr, T* __restrict__ zi,
                  const float2* __restrict__ tab, int rows, int n1, int n2) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   load_two_rows<T, V>(x + o0, two ? x + o1 : nullptr, A, n);
   __syncthreads();
   const float sc = balance_imag(A, n);
-  const float2* P = c_fwd_core(A, B, p, R);
+  const float2* P = c_fwd_core<kGen>(A, B, p, R);
   store_two_spectra<T, V>(P, p, zr + o0, zi + o0, two ? zr + o1 : nullptr, two ? zi + o1 : nullptr,
                           1.f / sc);
 }
@@ -60,8 +60,10 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 template <typename T>
 static int run(const void* x, void* zr, void* zi, const float2* tab, int rows, int n1, int n2,
                void* stream) {
-  return launch(fft_w_kernel<T>, dim3((rows + 1) / 2), dim3(FW_THREADS), w_smem_bytes(n1, n2),
-                stream, (const T*)x, (T*)zr, (T*)zi, tab, rows, n1, n2);
+  auto kernel = general_form(n1, n2, n1 * n2, vec_len<T>()) ? fft_w_kernel<T, true>
+                                                            : fft_w_kernel<T, false>;
+  return launch(kernel, dim3((rows + 1) / 2), dim3(FW_THREADS), w_smem_bytes(n1, n2), stream,
+                (const T*)x, (T*)zr, (T*)zi, tab, rows, n1, n2);
 }
 
 template <typename T, int M>

@@ -33,13 +33,13 @@ using namespace lpt;
 
 constexpr int TW = 32;
 
-template <typename T, bool kStack>
+template <typename T, bool kStack, bool kGen>
 __global__ void __launch_bounds__(256) h_combine_kernel(
     const T* __restrict__ xar, const T* __restrict__ xai, const T* __restrict__ yar,
     const T* __restrict__ yai, const T* __restrict__ hr, const T* __restrict__ hi,
     const T* __restrict__ rr, T* __restrict__ a0r, T* __restrict__ a0i, T* __restrict__ a1r,
     T* __restrict__ a1i, const float2* __restrict__ tab, int pc, int n1, int n2, int w) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   const int tile = n2 * TW, cap = tile + dft_slack(n2);
@@ -51,7 +51,7 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
     R[i] = p.r2f[i];
     R[n2 + i] = p.r2i[i];
   }
-  const int wtiles = w / TW;
+  const int wtiles = tiles<kGen>(w, TW);
   const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const size_t plane = (size_t)n1 * n2 * w;
   const size_t base = (kStack ? blockIdx.y * plane : 0) + (size_t)k1 * n2 * w + w0;
@@ -60,11 +60,13 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
     const size_t g = base + (size_t)(i0 / TW) * w + (i0 % TW);
-    float xr[V], xi[V], yr[V], yi[V];
-    ldv<V>(xar + g, xr);
-    ldv<V>(xai + g, xi);
-    ldv<V>(yar + g, yr);
-    ldv<V>(yai + g, yi);
+    float xr[V] = {}, xi[V] = {}, yr[V] = {}, yi[V] = {};
+    if (!kGen || w0 + i0 % TW < w) {  // the general form's last tile: lanes past w load 0
+      ldv<V>(xar + g, xr);
+      ldv<V>(xai + g, xi);
+      ldv<V>(yar + g, yr);
+      ldv<V>(yai + g, yi);
+    }
     rot(xr, s);
     rot(xi, s);
     rot(yr, s);
@@ -78,18 +80,20 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   }
   __syncthreads();
   // each stage leaves its result in one of the three tiles (see `dft`)
-  float2* a = dft(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  float2* a = dft<kGen>(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
-  float2* b = dft(S2, a == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  float2* b = dft<kGen>(S2, a == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
   float2* t = (a != S1 && b != S1) ? S1 : ((a != S2 && b != S2) ? S2 : S3);
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
     const size_t g = cbase + (size_t)(i0 / TW) * w + (i0 % TW);
-    float h_r[V], h_i[V], rv[V];
-    ldv<V>(hr + g, h_r);
-    ldv<V>(hi + g, h_i);
-    ldv<V>(rr + g, rv);
+    float h_r[V] = {}, h_i[V] = {}, rv[V] = {};
+    if (!kGen || w0 + i0 % TW < w) {
+      ldv<V>(hr + g, h_r);
+      ldv<V>(hi + g, h_i);
+      ldv<V>(rr + g, rv);
+    }
     rot(h_r, s);
     rot(h_i, s);
     rot(rv, s);
@@ -104,12 +108,14 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
     }
   }
   __syncthreads();
-  const float2* g0 = dft(a, t, 1, TW, 1, TW, n2, TW, R + n2, nullptr, 0, 0, 1.f);  // inverse F
+  // inverse F
+  const float2* g0 = dft<kGen>(a, t, 1, TW, 1, TW, n2, TW, R + n2, nullptr, 0, 0, 1.f);
   __syncthreads();
   auto store = [&](const float2* G, T* outr, T* outi) {
 #pragma unroll(V == 1 ? 4 : 1)
     for (int i0 = threadIdx.x * V; i0 < tile; i0 += blockDim.x * V) {
       const size_t g = base + (size_t)(i0 / TW) * w + (i0 % TW);
+      if (kGen && w0 + i0 % TW >= w) continue;
       float re[V], im[V];
 #pragma unroll
       for (int k = 0; k < V; ++k) {
@@ -125,7 +131,8 @@ __global__ void __launch_bounds__(256) h_combine_kernel(
   };
   store(g0, a0r, a0i);
   // inverse H F, through the tile that is neither H F nor inverse F
-  const float2* g1 = dft(b, g0 == a ? t : a, 1, TW, 1, TW, n2, TW, R + n2, nullptr, 0, 0, 1.f);
+  const float2* g1 =
+      dft<kGen>(b, g0 == a ? t : a, 1, TW, 1, TW, n2, TW, R + n2, nullptr, 0, 0, 1.f);
   __syncthreads();
   store(g1, a1r, a1i);
 }
@@ -134,8 +141,11 @@ template <typename T>
 static int run(const void* const* in, void* const* out, const float2* tab, int planes, int pc,
                int n1, int n2, int w, void* stream) {
   const size_t smem = sizeof(float2) * (3 * ((size_t)n2 * TW + dft_slack(n2)) + 2 * n2);
-  const dim3 grid(n1 * (w / TW), planes);
-  auto kernel = planes == 1 ? h_combine_kernel<T, false> : h_combine_kernel<T, true>;
+  const dim3 grid(n1 * ((w + TW - 1) / TW), planes);
+  const bool gen = general_tile(n2, w, TW);
+  auto kernel = planes == 1
+                    ? (gen ? h_combine_kernel<T, false, true> : h_combine_kernel<T, false, false>)
+                    : (gen ? h_combine_kernel<T, true, true> : h_combine_kernel<T, true, false>);
   return launch(kernel, grid, dim3(256), smem, stream, (const T*)in[0], (const T*)in[1],
                 (const T*)in[2], (const T*)in[3], (const T*)in[4], (const T*)in[5],
                 (const T*)in[6], (T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], tab, pc, n1,

@@ -25,12 +25,12 @@ using namespace lpt;
 
 constexpr int TW = 64;
 
-template <typename T, bool kPair>
+template <typename T, bool kPair, bool kGen>
 __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
     const T* __restrict__ x1r, const T* __restrict__ x1i, const T* __restrict__ x2r,
     const T* __restrict__ x2i, T* __restrict__ o1r, T* __restrict__ o1i, T* __restrict__ o2r,
     T* __restrict__ o2i, const float2* __restrict__ tab, int n1, int n2, int w, int inverse) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   const int cap = n1 * TW + dft_slack(n1);
@@ -47,16 +47,18 @@ __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
   const T* xi = (second ? x2i : x1i) + po;
   T* orr = (second ? o2r : o1r) + po;
   T* oi = (second ? o2i : o1i) + po;
-  const int wtiles = w / TW;
+  const int wtiles = tiles<kGen>(w, TW);
   const int j2 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < n1 * TW; i0 += blockDim.x * V) {
     const int j1 = i0 / TW, c = i0 - j1 * TW;
     const size_t g = ((size_t)j1 * n2 + j2) * w + w0 + c;
-    float re[V], im[V];
-    ldv<V>(xr + g, re);
-    ldv<V>(xi + g, im);
+    float re[V] = {}, im[V] = {};
+    if (!kGen || w0 + c < w) {  // the general form's last tile: lanes past w load 0
+      ldv<V>(xr + g, re);
+      ldv<V>(xi + g, im);
+    }
     rot(re, s);
     rot(im, s);
     const float2 tw = inverse ? __ldg(p.ti + j1 * n2 + j2) : make_float2(1.f, 0.f);
@@ -68,13 +70,15 @@ __global__ void __launch_bounds__(256, 4) h_pass_a_kernel(
     }
   }
   __syncthreads();
-  const float2* D1 = inverse ? dft(S, D, 1, TW, 1, TW, n1, TW, R, nullptr, 0, 0, 1.f / (float)p.n)
-                             : dft(S, D, 1, TW, 1, TW, n1, TW, R, p.tf + j2, 0, n2, 1.f);
+  const float2* D1 =
+      inverse ? dft<kGen>(S, D, 1, TW, 1, TW, n1, TW, R, nullptr, 0, 0, 1.f / (float)p.n)
+              : dft<kGen>(S, D, 1, TW, 1, TW, n1, TW, R, p.tf + j2, 0, n2, 1.f);
   __syncthreads();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < n1 * TW; i0 += blockDim.x * V) {
     const int k1 = i0 / TW, c = i0 - k1 * TW;
     const size_t g = ((size_t)k1 * n2 + j2) * w + w0 + c;
+    if (kGen && w0 + c >= w) continue;
     float re[V], im[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -94,8 +98,11 @@ static int run(const void* x1r, const void* x1i, const void* x2r, const void* x2
                void* o1i, void* o2r, void* o2i, const float2* tab, int planes, int n1, int n2,
                int w, int inverse, bool pair, void* stream) {
   const size_t smem = sizeof(float2) * (2 * ((size_t)n1 * TW + dft_slack(n1)) + n1);
-  return launch(pair ? h_pass_a_kernel<T, true> : h_pass_a_kernel<T, false>,
-                dim3(n2 * (w / TW), (pair ? 2 : 1) * planes), dim3(256), smem, stream,
+  const bool gen = general_tile(n1, w, TW);
+  auto kernel = pair ? (gen ? h_pass_a_kernel<T, true, true> : h_pass_a_kernel<T, true, false>)
+                     : (gen ? h_pass_a_kernel<T, false, true> : h_pass_a_kernel<T, false, false>);
+  return launch(kernel, dim3(n2 * ((w + TW - 1) / TW), (pair ? 2 : 1) * planes), dim3(256), smem,
+                stream,
                 (const T*)x1r, (const T*)x1i, (const T*)x2r, (const T*)x2i, (T*)o1r, (T*)o1i,
                 (T*)o2r, (T*)o2i, tab, n1, n2, w, inverse);
 }

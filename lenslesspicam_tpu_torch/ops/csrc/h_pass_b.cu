@@ -37,41 +37,55 @@ constexpr int THREADS = 256;
 
 // The block's n2 x TW tile of a plane and of its constant plane: element i
 // of the tile (row i / TW, lane i % TW) lies at base + row * w + lane.
+// A block's tile: n2 rows of TW lanes from lane w0; `lanes` = w - w0 of
+// them lie inside the plane (the general form's last tile has fewer than
+// TW, and its lanes past w are neither loaded nor stored).
 struct Tile {
-  int w, size;
+  int w, size, lanes;
   size_t base, cbase;
 };
 
+template <bool kGen>
 __device__ inline Tile make_tile(int n1, int n2, int w, int pc) {
-  const int wtiles = w / TW;
+  const int wtiles = tiles<kGen>(w, TW);
   const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * TW;
   const size_t plane = (size_t)n1 * n2 * w;
   const size_t tile0 = (size_t)k1 * n2 * w + w0;
-  return Tile{w, n2 * TW, blockIdx.y * plane + tile0, (blockIdx.y % pc) * plane + tile0};
+  return Tile{w, n2 * TW, w - w0, blockIdx.y * plane + tile0, (blockIdx.y % pc) * plane + tile0};
 }
 
 __device__ __forceinline__ size_t tile_off(const Tile& t, int i) {
   return (size_t)(i / TW) * t.w + (i % TW);
 }
 
+// Whether element i of the tile lies inside the plane (always, but in the
+// general form).
+template <bool kGen>
+__device__ __forceinline__ bool in_plane(const Tile& t, int i) {
+  return !kGen || i % TW < t.lanes;
+}
+
 // S <- y (mr null), S <- m y (mr set, SM null), or S <- y and SM <- m y
 // (both set), with the complex constant m = mr + i mi read at the tile's
 // constant plane; the product in f32 in the JAX kernel's order.
-template <typename T>
+template <typename T, bool kGen>
 __device__ void load_tile(const Tile& t, const T* __restrict__ yr, const T* __restrict__ yi,
                           const T* __restrict__ mr, const T* __restrict__ mi, float2* S,
                           float2* SM) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < t.size; i0 += blockDim.x * V) {
     const size_t off = tile_off(t, i0);
-    float re[V], im[V], hr[V] = {}, hi[V] = {};
-    ldv<V>(yr + t.base + off, re);
-    ldv<V>(yi + t.base + off, im);
+    float re[V] = {}, im[V] = {}, hr[V] = {}, hi[V] = {};
+    const bool in = in_plane<kGen>(t, i0);
+    if (in) {
+      ldv<V>(yr + t.base + off, re);
+      ldv<V>(yi + t.base + off, im);
+    }
     rot(re, s);
     rot(im, s);
-    if (mr) {
+    if (mr && in) {
       ldv<V>(mr + t.cbase + off, hr);
       ldv<V>(mi + t.cbase + off, hi);
       rot(hr, s);
@@ -95,13 +109,14 @@ __device__ void load_tile(const Tile& t, const T* __restrict__ yr, const T* __re
 }
 
 // The tile G (shared, f32) stored to (outr, outi) as T.
-template <typename T>
+template <typename T, bool kGen>
 __device__ void store_tile(const Tile& t, const float2* G, T* __restrict__ outr,
                            T* __restrict__ outi) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < t.size; i0 += blockDim.x * V) {
+    if (!in_plane<kGen>(t, i0)) continue;
     const size_t g = t.base + tile_off(t, i0);
     float re[V], im[V];
 #pragma unroll
@@ -124,50 +139,51 @@ __host__ inline size_t smem_bytes(int tiles, int n2) {
 
 // K15: stage 2 of (yr, yi), forward or inverse, the spectrum multiplied by
 // the filter (fr, fi; null: none) first.
-template <typename T>
+template <typename T, bool kGen>
 __global__ void __launch_bounds__(THREADS) h_pass_b_kernel(
     const T* __restrict__ yr, const T* __restrict__ yi, const T* __restrict__ fr,
     const T* __restrict__ fi, T* __restrict__ outr, T* __restrict__ outi,
     const float2* __restrict__ tab, int pc, int n1, int n2, int w, int inverse) {
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
-  const Tile t = make_tile(n1, n2, w, pc);
+  const Tile t = make_tile<kGen>(n1, n2, w, pc);
   const int cap = t.size + dft_slack(n2);
   float2* S1 = sm;
   float2* S2 = S1 + cap;
   float2* R = S2 + cap;
   const float2* roots = inverse ? p.r2i : p.r2f;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) R[i] = roots[i];
-  load_tile<T>(t, yr, yi, fr, fi, S1, nullptr);
+  load_tile<T, kGen>(t, yr, yi, fr, fi, S1, nullptr);
   __syncthreads();
-  const float2* z = dft(S1, S2, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  const float2* z = dft<kGen>(S1, S2, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
-  store_tile<T>(t, z, outr, outi);
+  store_tile<T, kGen>(t, z, outr, outi);
 }
 
 // K16: b = forward stage 2 of (yr, yi); F = R (a + conj(H) b).
-template <typename T>
+template <typename T, bool kGen>
 __global__ void __launch_bounds__(THREADS) h_pass_b_combine_kernel(
     const T* __restrict__ yr, const T* __restrict__ yi, const T* __restrict__ ar,
     const T* __restrict__ ai, const T* __restrict__ hr, const T* __restrict__ hi,
     const T* __restrict__ rr, T* __restrict__ fr_out, T* __restrict__ fi_out,
     const float2* __restrict__ tab, int pc, int n1, int n2, int w) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
-  const Tile t = make_tile(n1, n2, w, pc);
+  const Tile t = make_tile<kGen>(n1, n2, w, pc);
   const int cap = t.size + dft_slack(n2);
   float2* S1 = sm;
   float2* S2 = S1 + cap;
   float2* R = S2 + cap;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) R[i] = p.r2f[i];
-  load_tile<T>(t, yr, yi, nullptr, nullptr, S1, nullptr);
+  load_tile<T, kGen>(t, yr, yi, nullptr, nullptr, S1, nullptr);
   __syncthreads();
-  const float2* b = dft(S1, S2, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  const float2* b = dft<kGen>(S1, S2, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < t.size; i0 += blockDim.x * V) {
+    if (!in_plane<kGen>(t, i0)) continue;
     const size_t off = tile_off(t, i0);
     float a_r[V], a_i[V], h_r[V], h_i[V], rv[V], o_r[V], o_i[V];
     ldv<V>(ar + t.base + off, a_r);
@@ -194,62 +210,63 @@ __global__ void __launch_bounds__(THREADS) h_pass_b_combine_kernel(
 }
 
 // K17: a0 = inverse stage 2 of y, a1 = inverse stage 2 of H y.
-template <typename T>
+template <typename T, bool kGen>
 __global__ void __launch_bounds__(THREADS) h_pass_b_dual_kernel(
     const T* __restrict__ yr, const T* __restrict__ yi, const T* __restrict__ hr,
     const T* __restrict__ hi, T* __restrict__ a0r, T* __restrict__ a0i, T* __restrict__ a1r,
     T* __restrict__ a1i, const float2* __restrict__ tab, int pc, int n1, int n2, int w) {
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
-  const Tile t = make_tile(n1, n2, w, pc);
+  const Tile t = make_tile<kGen>(n1, n2, w, pc);
   const int cap = t.size + dft_slack(n2);
   float2* S1 = sm;
   float2* S2 = S1 + cap;
   float2* S3 = S2 + cap;
   float2* R = S3 + cap;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) R[i] = p.r2i[i];
-  load_tile<T>(t, yr, yi, hr, hi, S1, S2);
+  load_tile<T, kGen>(t, yr, yi, hr, hi, S1, S2);
   __syncthreads();
   // each stage leaves its result in its source (split) or its spare (direct)
-  const float2* g0 = dft(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  const float2* g0 = dft<kGen>(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
-  store_tile<T>(t, g0, a0r, a0i);
+  store_tile<T, kGen>(t, g0, a0r, a0i);
   // H y, through the tile that holds neither H y nor the first result
-  const float2* g1 = dft(S2, g0 == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  const float2* g1 = dft<kGen>(S2, g0 == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
-  store_tile<T>(t, g1, a1r, a1i);
+  store_tile<T, kGen>(t, g1, a1r, a1i);
 }
 
 // K18: a = forward stage 2 of (xr, xi), b = forward stage 2 of (yr, yi);
 // F = R (a + conj(H) b).  Both contractions read F2 from the same roots.
-template <typename T>
+template <typename T, bool kGen>
 __global__ void __launch_bounds__(THREADS) h_pass_b_combine2_kernel(
     const T* __restrict__ xr, const T* __restrict__ xi, const T* __restrict__ yr,
     const T* __restrict__ yi, const T* __restrict__ hr, const T* __restrict__ hi,
     const T* __restrict__ rr, T* __restrict__ fr_out, T* __restrict__ fi_out,
     const float2* __restrict__ tab, int pc, int n1, int n2, int w) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
-  const Tile t = make_tile(n1, n2, w, pc);
+  const Tile t = make_tile<kGen>(n1, n2, w, pc);
   const int cap = t.size + dft_slack(n2);
   float2* S1 = sm;
   float2* S2 = S1 + cap;
   float2* S3 = S2 + cap;
   float2* R = S3 + cap;
   for (int i = threadIdx.x; i < n2; i += blockDim.x) R[i] = p.r2f[i];
-  load_tile<T>(t, xr, xi, nullptr, nullptr, S1, nullptr);
-  load_tile<T>(t, yr, yi, nullptr, nullptr, S2, nullptr);
+  load_tile<T, kGen>(t, xr, xi, nullptr, nullptr, S1, nullptr);
+  load_tile<T, kGen>(t, yr, yi, nullptr, nullptr, S2, nullptr);
   __syncthreads();
   // each stage leaves its result in its source (split) or its spare (direct)
-  const float2* a = dft(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  const float2* a = dft<kGen>(S1, S3, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
   // y, through the tile that holds neither y nor a
-  const float2* b = dft(S2, a == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
+  const float2* b = dft<kGen>(S2, a == S1 ? S3 : S1, 1, TW, 1, TW, n2, TW, R, nullptr, 0, 0, 1.f);
   __syncthreads();
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int i0 = threadIdx.x * V; i0 < t.size; i0 += blockDim.x * V) {
+    if (!in_plane<kGen>(t, i0)) continue;
     const size_t off = tile_off(t, i0);
     float h_r[V], h_i[V], rv[V], o_r[V], o_i[V];
     ldv<V>(hr + t.cbase + off, h_r);
@@ -272,7 +289,7 @@ __global__ void __launch_bounds__(THREADS) h_pass_b_combine2_kernel(
   }
 }
 
-static dim3 grid_of(int planes, int n1, int w) { return dim3(n1 * (w / TW), planes); }
+static dim3 grid_of(int planes, int n1, int w) { return dim3(n1 * ((w + TW - 1) / TW), planes); }
 
 // Every array is a stack of `planes` planes of (n1, n2, w) but the constant
 // ones (filter, H, R), stacks of pc.  io: storage code of all arrays (F32
@@ -285,12 +302,16 @@ extern "C" int lpt_h_pass_b(const void* yr, const void* yi, const void* fr, cons
   const size_t smem = smem_bytes(2, n2);
   switch (io) {
     case F32:
-      return launch(h_pass_b_kernel<float>, grid_of(planes, n1, w), dim3(THREADS), smem, stream,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_kernel<float, true>
+                                            : h_pass_b_kernel<float, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem, stream,
                     (const float*)yr, (const float*)yi, (const float*)fr, (const float*)fi,
                     (float*)outr, (float*)outi, tab, pc, n1, n2, w, inverse);
     case BF16: {
       using B = __nv_bfloat16;
-      return launch(h_pass_b_kernel<B>, grid_of(planes, n1, w), dim3(THREADS), smem, stream,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_kernel<B, true>
+                                            : h_pass_b_kernel<B, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem, stream,
                     (const B*)yr, (const B*)yi, (const B*)fr, (const B*)fi, (B*)outr, (B*)outi,
                     tab, pc, n1, n2, w, inverse);
     }
@@ -307,13 +328,17 @@ extern "C" int lpt_h_pass_b_combine(const void* yr, const void* yi, const void* 
   const size_t smem = smem_bytes(2, n2);
   switch (io) {
     case F32:
-      return launch(h_pass_b_combine_kernel<float>, grid_of(planes, n1, w), dim3(THREADS), smem,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_combine_kernel<float, true>
+                                            : h_pass_b_combine_kernel<float, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem,
                     stream, (const float*)yr, (const float*)yi, (const float*)ar,
                     (const float*)ai, (const float*)hr, (const float*)hi, (const float*)rr,
                     (float*)fr, (float*)fi, tab, pc, n1, n2, w);
     case BF16: {
       using B = __nv_bfloat16;
-      return launch(h_pass_b_combine_kernel<B>, grid_of(planes, n1, w), dim3(THREADS), smem,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_combine_kernel<B, true>
+                                            : h_pass_b_combine_kernel<B, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem,
                     stream, (const B*)yr, (const B*)yi, (const B*)ar, (const B*)ai, (const B*)hr,
                     (const B*)hi, (const B*)rr, (B*)fr, (B*)fi, tab, pc, n1, n2, w);
     }
@@ -329,13 +354,17 @@ extern "C" int lpt_h_pass_b_dual(const void* yr, const void* yi, const void* hr,
   const size_t smem = smem_bytes(3, n2);
   switch (io) {
     case F32:
-      return launch(h_pass_b_dual_kernel<float>, grid_of(planes, n1, w), dim3(THREADS), smem,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_dual_kernel<float, true>
+                                            : h_pass_b_dual_kernel<float, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem,
                     stream, (const float*)yr, (const float*)yi, (const float*)hr,
                     (const float*)hi, (float*)a0r, (float*)a0i, (float*)a1r, (float*)a1i, tab,
                     pc, n1, n2, w);
     case BF16: {
       using B = __nv_bfloat16;
-      return launch(h_pass_b_dual_kernel<B>, grid_of(planes, n1, w), dim3(THREADS), smem,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_dual_kernel<B, true>
+                                            : h_pass_b_dual_kernel<B, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem,
                     stream, (const B*)yr, (const B*)yi, (const B*)hr, (const B*)hi, (B*)a0r,
                     (B*)a0i, (B*)a1r, (B*)a1i, tab, pc, n1, n2, w);
     }
@@ -352,13 +381,17 @@ extern "C" int lpt_h_pass_b_combine2(const void* xr, const void* xi, const void*
   const size_t smem = smem_bytes(3, n2);
   switch (io) {
     case F32:
-      return launch(h_pass_b_combine2_kernel<float>, grid_of(planes, n1, w), dim3(THREADS),
+      return launch(general_tile(n2, w, TW) ? h_pass_b_combine2_kernel<float, true>
+                                            : h_pass_b_combine2_kernel<float, false>,
+                    grid_of(planes, n1, w), dim3(THREADS),
                     smem, stream, (const float*)xr, (const float*)xi, (const float*)yr,
                     (const float*)yi, (const float*)hr, (const float*)hi, (const float*)rr,
                     (float*)fr, (float*)fi, tab, pc, n1, n2, w);
     case BF16: {
       using B = __nv_bfloat16;
-      return launch(h_pass_b_combine2_kernel<B>, grid_of(planes, n1, w), dim3(THREADS), smem,
+      return launch(general_tile(n2, w, TW) ? h_pass_b_combine2_kernel<B, true>
+                                            : h_pass_b_combine2_kernel<B, false>,
+                    grid_of(planes, n1, w), dim3(THREADS), smem,
                     stream, (const B*)xr, (const B*)xi, (const B*)yr, (const B*)yi,
                     (const B*)hr, (const B*)hi, (const B*)rr, (B*)fr, (B*)fi, tab, pc, n1, n2,
                     w);

@@ -24,7 +24,7 @@
 //   W/16 float2 (69.6 KB at 8192) and __launch_bounds__(512, 2): two
 //   blocks an SM at 64 registers.  A block does K11's per-block work over
 //   half as many blocks.
-// split (any other W whose factors n1, n2 are multiples of 4): the
+// split (any other W, any factors n1 x n2; `general_form` in lpt_dft.cuh): the
 //   two-stage DFT of lpt_dft.cuh.  One block of 512 threads per pair of
 //   rows forms C in two padded (n1+1)(n2+1) buffers (`load_two_spectra`)
 //   beside the roots: 134 KB at 12 MP, one block per SM, its load, DFT
@@ -34,11 +34,11 @@
 
 using namespace lpt;
 
-template <typename TI, typename TO>
+template <typename TI, typename TO, bool kGen>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     ifft_w_kernel(const TI* __restrict__ vr, const TI* __restrict__ vi, TO* __restrict__ out,
                   const float2* __restrict__ tab, int rows, int n1, int n2) {
-  constexpr int V = vec_len<TI, TO>();
+  constexpr int V = kGen ? 1 : vec_len<TI, TO>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -50,15 +50,18 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   const size_t o0 = (size_t)r0 * n, o1 = o0 + n;
   const float sc = load_two_spectra<TI, V>(vr + o0, vi + o0, two ? vr + o1 : nullptr,
                                            two ? vi + o1 : nullptr, A, B, p);
-  const float2* X = c_inv_core(A, B, p, R, 1.f / (float)n);
+  const float2* X = c_inv_core<kGen>(A, B, p, R, 1.f / (float)n);
   store_two_rows<TO, V>(X, n, out + o0, two ? out + o1 : nullptr, 1.f / sc);
 }
 
 template <typename TI, typename TO>
 static int run(const void* vr, const void* vi, void* out, const float2* tab, int rows, int n1,
                int n2, void* stream) {
-  return launch(ifft_w_kernel<TI, TO>, dim3((rows + 1) / 2), dim3(FW_THREADS), w_smem_bytes(n1, n2),
-                stream, (const TI*)vr, (const TI*)vi, (TO*)out, tab, rows, n1, n2);
+  auto kernel = general_form(n1, n2, n1 * n2, vec_len<TI, TO>())
+                    ? ifft_w_kernel<TI, TO, true>
+                    : ifft_w_kernel<TI, TO, false>;
+  return launch(kernel, dim3((rows + 1) / 2), dim3(FW_THREADS), w_smem_bytes(n1, n2), stream,
+                (const TI*)vr, (const TI*)vi, (TO*)out, tab, rows, n1, n2);
 }
 
 template <typename TI, typename TO, int M>

@@ -32,7 +32,7 @@
 //   700 W): 76 % / 51 % of the bytes' time at the measured 2.982 TB/s.
 //   The block max of the balance costs at most 5 % of it (a shuffle tree
 //   would save 2 %); the rest is the passes' and exchanges' work.
-// split (any other W whose factors n1, n2 are multiples of 4): the
+// split (any other W, any factors n1 x n2; `general_form` in lpt_dft.cuh): the
 //   two-stage DFT of lpt_dft.cuh.  One block of 512 threads per row keeps
 //   two padded (n1+1)(n2+1) buffers and the roots in shared memory
 //   (`load_two_spectra` forms C in them): 134 KB at 12 MP, one block per
@@ -42,12 +42,12 @@
 
 using namespace lpt;
 
-template <typename TI>
+template <typename TI, bool kGen>
 __global__ void __launch_bounds__(FW_THREADS, 1) ifft_w_dual_kernel(
     const TI* __restrict__ a0r, const TI* __restrict__ a0i, const TI* __restrict__ a1r,
     const TI* __restrict__ a1i, TI* __restrict__ img, TI* __restrict__ fwd,
     const float2* __restrict__ tab, int n1, int n2) {
-  constexpr int V = vec_len<TI>();
+  constexpr int V = kGen ? 1 : vec_len<TI>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -57,14 +57,16 @@ __global__ void __launch_bounds__(FW_THREADS, 1) ifft_w_dual_kernel(
   const int n = p.n;
   const size_t o = (size_t)blockIdx.x * n;
   const float sc = load_two_spectra<TI, V>(a0r + o, a0i + o, a1r + o, a1i + o, A, B, p);
-  const float2* X = c_inv_core(A, B, p, R, 1.f / (float)n);
+  const float2* X = c_inv_core<kGen>(A, B, p, R, 1.f / (float)n);
   store_two_rows<TI, V>(X, n, img + o, fwd + o, 1.f / sc);
 }
 
 template <typename TI>
 static int run(const void* const* in, void* img, void* fwd, const float2* tab, int rows, int n1,
                int n2, void* stream) {
-  return launch(ifft_w_dual_kernel<TI>, dim3(rows), dim3(FW_THREADS), w_smem_bytes(n1, n2), stream,
+  auto kernel = general_form(n1, n2, n1 * n2, vec_len<TI>()) ? ifft_w_dual_kernel<TI, true>
+                                                             : ifft_w_dual_kernel<TI, false>;
+  return launch(kernel, dim3(rows), dim3(FW_THREADS), w_smem_bytes(n1, n2), stream,
                 (const TI*)in[0], (const TI*)in[1], (const TI*)in[2], (const TI*)in[3], (TI*)img,
                 (TI*)fwd, tab, n1, n2);
 }

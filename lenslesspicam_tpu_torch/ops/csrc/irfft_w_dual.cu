@@ -21,13 +21,13 @@
 
 using namespace lpt;
 
-template <typename TI>
+template <typename TI, bool kGen>
 __global__ void __launch_bounds__(256, 3) irfft_w_dual_kernel(
     const TI* __restrict__ a0r, const TI* __restrict__ a0i, const TI* __restrict__ a1r,
     const TI* __restrict__ a1i, const float* __restrict__ p0r, const float* __restrict__ p0i,
     const float* __restrict__ p1r, const float* __restrict__ p1i, TI* __restrict__ img,
     TI* __restrict__ fwd, const float2* __restrict__ tab, int m, int n1, int n2) {
-  constexpr int V = vec_len<TI>();
+  constexpr int V = kGen ? 1 : vec_len<TI>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -37,17 +37,21 @@ __global__ void __launch_bounds__(256, 3) irfft_w_dual_kernel(
   __syncthreads();
   const int r = blockIdx.x;
   const size_t hr = (size_t)r * m, fr = 2 * hr;
-  const float2* X = w_inv_core<TI, V>(a0r + hr, a0i + hr, make_float2(p0r[r], p0i[r]), A, B, p, R);
+  const float2* X =
+      w_inv_core<TI, V, kGen>(a0r + hr, a0i + hr, make_float2(p0r[r], p0i[r]), A, B, p, R);
   store_row<TI, V>(X, img + fr, m);
   __syncthreads();
-  const float2* F = w_inv_core<TI, V>(a1r + hr, a1i + hr, make_float2(p1r[r], p1i[r]), A, B, p, R);
+  const float2* F =
+      w_inv_core<TI, V, kGen>(a1r + hr, a1i + hr, make_float2(p1r[r], p1i[r]), A, B, p, R);
   store_row<TI, V>(F, fwd + fr, m);
 }
 
 template <typename TI>
 static int run(const void* const* in, const float* const* cols, void* img, void* fwd,
                const float2* tab, int rows, int m, int n1, int n2, void* stream) {
-  return launch(irfft_w_dual_kernel<TI>, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
+  auto kernel = general_form(n1, n2, m, vec_len<TI>()) ? irfft_w_dual_kernel<TI, true>
+                                                       : irfft_w_dual_kernel<TI, false>;
+  return launch(kernel, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
                 (const TI*)in[0], (const TI*)in[1], (const TI*)in[2], (const TI*)in[3], cols[0],
                 cols[1], cols[2], cols[3], (TI*)img, (TI*)fwd, tab, m, n1, n2);
 }

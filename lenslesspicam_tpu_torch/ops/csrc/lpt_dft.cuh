@@ -67,7 +67,11 @@ constexpr int VT = 4;  // vectors per thread tile
 //   out[g1*os1 + g2*os2 + k*oks] = scale * tw * sum_{j<L} in[g1*is1 + g2*is2 + j*iks]
 //                                               * roots[((j*k) mod L) * rs]
 // with tw = tg[g1*ts1 + g2*ts2 + k*tks] (global table, if tg) times
-// roots[(g2*k) mod (L*rs)] (if ct).  L and nvec are multiples of 4.
+// roots[(g2*k) mod (L*rs)] (if ct).  L and nvec are multiples of 4, or,
+// in the tail form (kTail), any lengths >= 1: the tile counts round up, and
+// a tile's outputs k >= L and vectors g >= nvec are computed on clamped
+// indices (k = L - 1, g = nvec - 1) and not stored, so every (k, g) pair is
+// written once (L = 1 is the identity stage of a one-factor split).
 // Threads of a warp take consecutive vectors of one k tile, so a root load
 // is a broadcast and unit-stride vectors load without bank conflicts.
 struct Pass {
@@ -83,14 +87,22 @@ struct Pass {
   float scale;
 };
 
+// Tiles of KT (VT) along a length n: n / KT, or rounded up in the tail form.
+template <bool kTail>
+__device__ __forceinline__ int tiles(int n, int t) {
+  return kTail ? (n + t - 1) / t : n / t;
+}
+
+template <bool kTail = false>
 __device__ __forceinline__ void dft_pass(const Pass& q) {
-  const int ktiles = q.L / KT, vtiles = q.nvec / VT, mod = q.L * q.rs;
+  const int ktiles = tiles<kTail>(q.L, KT), vtiles = tiles<kTail>(q.nvec, VT),
+            mod = q.L * q.rs;
   for (int t = threadIdx.x; t < ktiles * vtiles; t += blockDim.x) {
     const int tv = t % vtiles, k0 = (t / vtiles) * KT;
     int off[VT];
 #pragma unroll
     for (int b = 0; b < VT; ++b) {
-      const int g = tv + b * vtiles;
+      const int g = kTail ? min(tv + b * vtiles, q.nvec - 1) : tv + b * vtiles;
       off[b] = (g % q.ninner) * q.is1 + (g / q.ninner) * q.is2;
     }
     float2 acc[KT][VT];
@@ -113,7 +125,7 @@ __device__ __forceinline__ void dft_pass(const Pass& q) {
           acc[a][b].x = fmaf(x[b].x, w.x, fmaf(-x[b].y, w.y, acc[a][b].x));
           acc[a][b].y = fmaf(x[b].x, w.y, fmaf(x[b].y, w.x, acc[a][b].y));
         }
-        idx[a] += (k0 + a) * q.rs;
+        idx[a] += (kTail ? min(k0 + a, q.L - 1) : k0 + a) * q.rs;
         if (idx[a] >= mod) idx[a] -= mod;
       }
     }
@@ -123,6 +135,7 @@ __device__ __forceinline__ void dft_pass(const Pass& q) {
 #pragma unroll
       for (int b = 0; b < VT; ++b) {
         const int g = tv + b * vtiles, g1 = g % q.ninner, g2 = g / q.ninner;
+        if (kTail && (k >= q.L || g >= q.nvec)) continue;
         float2 r = make_float2(acc[a][b].x * q.scale, acc[a][b].y * q.scale);
         if (q.tg) r = cmul(r, __ldg(q.tg + g1 * q.ts1 + g2 * q.ts2 + k * q.tks));
         if (q.ct) r = cmul(r, q.roots[(g2 * k) % mod]);
@@ -141,6 +154,20 @@ __host__ __device__ inline int dft_split(int L) {
   return best;
 }
 
+// Whether a split-design row of n = n1 * n2 points, moved v elements a
+// trip, takes the general form of its kernel: the tail form of the DFT
+// passes (a factor not a multiple of 4, or n1 = 1) and one element a trip
+// (a row length not a multiple of v, whose rows are not 16-byte aligned).
+// The kernels' fast form keeps the 4 x 4 tiles and v-element trips.
+__host__ inline bool general_form(int n1, int n2, int n, int v) {
+  return n1 % 4 || n2 % 4 || n % v;
+}
+
+// The same for an H-axis kernel's tile of tw lanes running a length-L
+// stage: L not a multiple of 4, or a lane width w not a multiple of tw
+// (the last tile's lanes past w are neither loaded nor stored).
+__host__ inline bool general_tile(int L, int w, int tw) { return L % 4 || w % tw; }
+
 // Scratch a split stage needs beyond L * nvec in the buffer it borrows.
 __host__ __device__ inline int dft_slack(int L) {
   const int a = dft_split(L);
@@ -155,24 +182,26 @@ __host__ __device__ inline int dft_slack(int L) {
 // a split stage (L = a*b, Cooley-Tukey: length-a DFTs over j_a, the twiddle
 // roots[j_b*k_a], length-b DFTs over j_b, k = k_a + a*k_b) runs its first
 // pass into `spare` and its second back into `src`.  Returns the buffer
-// holding the result; the caller synchronises before reading it.
+// holding the result; the caller synchronises before reading it.  kTail:
+// the passes' tail form (any L and nvec).
+template <bool kTail = false>
 __device__ float2* dft(float2* src, float2* spare, int ivs, int iks, int ovs, int oks, int L,
                        int nvec, const float2* roots, const float2* tw, int tw_vs, int tw_ks,
                        float scale) {
   const int a = dft_split(L);
   if (!a) {
-    dft_pass(Pass{src, ivs, 0, iks, spare, ovs, 0, oks, nvec, nvec, L, 1, roots, tw, tw_vs, 0,
-                  tw_ks, false, scale});
+    dft_pass<kTail>(Pass{src, ivs, 0, iks, spare, ovs, 0, oks, nvec, nvec, L, 1, roots, tw,
+                         tw_vs, 0, tw_ks, false, scale});
     return spare;
   }
   const int b = L / a, sb = a * nvec + 1;
   // pass 1: vectors (v, j_b), length a over j_a; out spare[j_b*sb + k_a*nvec + v]
-  dft_pass(Pass{src, ivs, iks, b * iks, spare, 1, sb, nvec, nvec, nvec * b, a, b, roots, nullptr,
-                0, 0, 0, true, 1.f});
+  dft_pass<kTail>(Pass{src, ivs, iks, b * iks, spare, 1, sb, nvec, nvec, nvec * b, a, b, roots,
+                       nullptr, 0, 0, 0, true, 1.f});
   __syncthreads();
   // pass 2: vectors (v, k_a), length b over j_b; out src[v*ovs + (k_a + a*k_b)*oks]
-  dft_pass(Pass{spare, 1, nvec, sb, src, ovs, oks, a * oks, nvec, nvec * a, b, a, roots, tw,
-                tw_vs, tw_ks, a * tw_ks, false, scale});
+  dft_pass<kTail>(Pass{spare, 1, nvec, sb, src, ovs, oks, a * oks, nvec, nvec * a, b, a, roots,
+                       tw, tw_vs, tw_ks, a * tw_ks, false, scale});
   return src;
 }
 
@@ -192,30 +221,34 @@ __device__ __forceinline__ int mirror_pos(int k1, int k2, int n1, int n2) {
 
 // Complex forward two-stage transform of the row A[j] (natural j = j1*n2 +
 // j2 < n) through the second buffer B.  Returns the buffer that holds the
-// split-order spectrum at [k1*(n2+1) + k2].
+// split-order spectrum at [k1*(n2+1) + k2].  kTail: the tail form (any n1,
+// n2; see dft_pass).
+template <bool kTail = false>
 __device__ inline const float2* c_fwd_core(float2* A, float2* B, const Plan& p, const float2* R) {
   const int n1 = p.n1, n2 = p.n2;
   // stage 1: vectors j2, contract j1 -> [j2*(n1+1) + k1], twiddle Tf[k1, j2]
-  float2* Y = dft(A, B, 1, n2, n1 + 1, 1, n1, n2, R, p.tf, 1, n2, 1.f);
+  float2* Y = dft<kTail>(A, B, 1, n2, n1 + 1, 1, n1, n2, R, p.tf, 1, n2, 1.f);
   __syncthreads();
   // stage 2: vectors k1, contract j2 -> [k1*(n2+1) + k2]
-  const float2* P = dft(Y, Y == A ? B : A, 1, n1 + 1, n2 + 1, 1, n2, n1, R + n1, nullptr, 0, 0,
-                        1.f);
+  const float2* P = dft<kTail>(Y, Y == A ? B : A, 1, n1 + 1, n2 + 1, 1, n2, n1, R + n1, nullptr,
+                               0, 0, 1.f);
   __syncthreads();
   return P;
 }
 
 // Complex inverse two-stage transform of the split-order spectrum held in A
 // at [k2*(n1+1) + k1], through B.  Returns the buffer that holds the row at
-// natural j = j1*n2 + j2, times `scale`.
+// natural j = j1*n2 + j2, times `scale`.  kTail as for c_fwd_core.
+template <bool kTail = false>
 __device__ inline float2* c_inv_core(float2* A, float2* B, const Plan& p, const float2* R,
                                      float scale) {
   const int n1 = p.n1, n2 = p.n2;
   // inner: vectors k1, contract k2 -> [k1*(n2+1) + j2], twiddle Ti[k1, j2]
-  float2* Y = dft(A, B, 1, n1 + 1, n2 + 1, 1, n2, n1, R + 2 * n1 + n2, p.ti, n2, 1, 1.f);
+  float2* Y = dft<kTail>(A, B, 1, n1 + 1, n2 + 1, 1, n2, n1, R + 2 * n1 + n2, p.ti, n2, 1, 1.f);
   __syncthreads();
   // outer: vectors j2, contract k1 -> [j1*n2 + j2]
-  float2* X = dft(Y, Y == A ? B : A, 1, n2 + 1, 1, n2, n1, n2, R + n1 + n2, nullptr, 0, 0, scale);
+  float2* X = dft<kTail>(Y, Y == A ? B : A, 1, n2 + 1, 1, n2, n1, n2, R + n1 + n2, nullptr, 0, 0,
+                         scale);
   __syncthreads();
   return X;
 }
@@ -223,11 +256,12 @@ __device__ inline float2* c_inv_core(float2* A, float2* B, const Plan& p, const 
 // Forward packed-real W core.  On entry A[j] = x_even[j] + i x_odd[j] for
 // natural j = j1*n2 + j2 (j < m); B is the second row buffer; R the shared
 // roots.  Writes the half spectrum of the row, split order, Z[m] in Im of
-// lane 0, as T, V positions per thread per trip (storage.cuh).
-template <typename T, int V>
+// lane 0, as T, V positions per thread per trip (storage.cuh).  kTail: the
+// tail form of the DFT (any n1, n2), with V = 1.
+template <typename T, int V, bool kTail = false>
 __device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R, T* zr, T* zi) {
   const int n1 = p.n1, n2 = p.n2, m = p.n;
-  const float2* P = c_fwd_core(A, B, p, R);
+  const float2* P = c_fwd_core<kTail>(A, B, p, R);
   const int s = lane_rot<V, 1>();
 #pragma unroll(V == 1 ? 4 : 1)
   for (int p0 = threadIdx.x * V; p0 < m; p0 += blockDim.x * V) {
@@ -256,7 +290,8 @@ __device__ void w_fwd_core(float2* A, float2* B, const Plan& p, const float2* R,
 // Inverse packed-real W core.  Reads the row's half spectrum (T; lane 0
 // replaced by z0) into the row buffers A and B and returns the one that
 // holds x_even[j] + i x_odd[j] at natural j = j1*n2 + j2, scaled by 1/m.
-template <typename T, int V>
+// kTail as for w_fwd_core.
+template <typename T, int V, bool kTail = false>
 __device__ float2* w_inv_core(const T* zr, const T* zi, float2 z0, float2* A, float2* B,
                               const Plan& p, const float2* R) {
   const int n1 = p.n1, n2 = p.n2, m = p.n;
@@ -298,7 +333,7 @@ __device__ float2* w_inv_core(const T* zr, const T* zi, float2 z0, float2* A, fl
     A[k2 * (n1 + 1) + k1] = make_float2(Er - Oi, Ei + Or);
   }
   __syncthreads();
-  return c_inv_core(A, B, p, R, 1.f / (float)m);
+  return c_inv_core<kTail>(A, B, p, R, 1.f / (float)m);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 // Register-resident radix FFT of one complex row of length M = 2^e per
-// block (64 <= M <= 8192), the packed-real forward W transform built on it
-// (K1's radix design, M <= 4096), the inverse of two full-width spectra
+// block (64 <= M <= 8192), the packed-real forward and inverse W
+// transforms built on it (the radix designs of K1, K2 and K6, M <= 4096),
+// the inverse of two full-width spectra
 // (the radix designs of K11 and K13, 512 <= M <= 8192) and the forward
 // transform of two real rows (K12's radix design, 512 <= M <= 8192).
 //
@@ -199,23 +200,19 @@ __device__ __forceinline__ int frequency(int b, int c) {
   return f;
 }
 
-// Forward packed-real W transform of one row, T = M / 16 threads: the row
-// x (even plane at x, odd at x + M, io type T) -> half spectrum (zr, zi),
-// split order, Z[M] in Im of lane 0.  `e` is the unpack table at split
-// positions, `tw` the radix twiddles; n1 * n2 = M are the split factors.
+// Forward packed-real W transform of one row, T = M / 16 threads, from the
+// thread's pass-0 registers v[r] = x_even[j] + i x_odd[j] at j = t + T r
+// -> half spectrum (zr, zi), split order, Z[M] in Im of lane 0.  `e` is
+// the unpack table at split positions, `tw` the radix twiddles; n1 * n2 =
+// M are the split factors.  Starts with the buffer sm free.
 template <typename T, int M>
-__device__ void rfft_row(const T* __restrict__ x, T* __restrict__ zr, T* __restrict__ zi,
-                         const float2* __restrict__ e, const float2* __restrict__ tw, int n1,
-                         int n2, float2* sm) {
+__device__ __forceinline__ void rfft_core(float2 (&v)[RADIX], T* __restrict__ zr,
+                                          T* __restrict__ zi, const float2* __restrict__ e,
+                                          const float2* __restrict__ tw, int n1, int n2,
+                                          float2* sm) {
   using P = Plan<M>;
   constexpr int NT = P::THREADS, V = vec_len<T>();
   const int t = threadIdx.x;
-  float2 v[RADIX];
-#pragma unroll
-  for (int r = 0; r < RADIX; ++r) {
-    v[r].x = ld1(x + t + NT * r, Fix{});
-    v[r].y = ld1(x + M + t + NT * r, Fix{});
-  }
   butterflies<M, 0>(v, tw, t);
   if constexpr (P::PASSES > 1) {
     to_shared<M, 0>(v, sm, t);
@@ -257,6 +254,144 @@ __device__ void rfft_row(const T* __restrict__ x, T* __restrict__ zr, T* __restr
     stv<V>(zi + p0, outi);
   }
 }
+
+// Forward packed-real W transform of one row (K1's radix design): the row
+// x (even plane at x, odd at x + M, io type T) loaded straight into
+// rfft_core's pass-0 registers (one coalesced access per r, all 2 * 16
+// loads issued before the first butterfly).
+template <typename T, int M>
+__device__ void rfft_row(const T* __restrict__ x, T* __restrict__ zr, T* __restrict__ zi,
+                         const float2* __restrict__ e, const float2* __restrict__ tw, int n1,
+                         int n2, float2* sm) {
+  constexpr int NT = Plan<M>::THREADS;
+  const int t = threadIdx.x;
+  float2 v[RADIX];
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    v[r].x = ld1(x + t + NT * r, Fix{});
+    v[r].y = ld1(x + M + t + NT * r, Fix{});
+  }
+  rfft_core<T, M>(v, zr, zi, e, tw, n1, n2, sm);
+}
+
+// ---------------------------------------------------------------------------
+// Inverse packed-real W transform of one row (the radix designs of K2 and
+// K6): rfft_core run backwards.
+//
+//   1. the half spectrum (split order, 16-byte loads, lane 0 replaced by
+//      the caller's z0) into the split layout [k1 (n2+1) + k2] of the
+//      buffer;
+//   2. thread t gathers its pass-0 frequencies f = t + T r with their
+//      mirrors M - f from there and undoes the packed-real unpack as
+//      w_inv_core does: P[f] = E[f] + i O[f], E = (Z[f] + conj Z[M-f]) /
+//      2, O = conj(w^f) (Z[f] - conj Z[M-f]) / 2 (f = 0: Z[0] and Z[M],
+//      packed in lane 0); the factors w^f come from the table's natural-order
+//      unpack section, so a warp's loads are consecutive;
+//   3. the M-point inverse by conjugation, p = conj(fft(conj P)) / M,
+//      through the forward passes and twiddles;
+//   4. one exchange from the last pass's digit order into natural order
+//      (slot pad(j): the writes of a warp fall on distinct bank pairs),
+//      read back at j = t + T r.
+// The result, p[j] = x_even[j] + i x_odd[j], stays in the thread's
+// registers at j = t + T r: K2 stores it (store_split_row), K6 updates it
+// in place and hands it to rfft_core.
+// ---------------------------------------------------------------------------
+
+// v[r] <- x_even[j] + i x_odd[j] at j = t + T r of the row whose half
+// spectrum is (zr, zi) (io type T, lane 0 replaced by z0), T = M / 16
+// threads; `en` the unpack factors w^f at natural f, `tw` the radix
+// twiddles, n1 * n2 = M the split factors, sm the buffer of
+// smem_bytes(M, n1, n2).  Starts with sm free; the caller synchronises
+// before it next writes sm.
+template <typename T, int M>
+__device__ __forceinline__ void irfft_row(const T* __restrict__ zr, const T* __restrict__ zi,
+                                          float2 z0, const float2* __restrict__ en,
+                                          const float2* __restrict__ tw, int n1, int n2,
+                                          float2* sm, float2 (&v)[RADIX]) {
+  using P = Plan<M>;
+  constexpr int NT = P::THREADS, R = P::radix(P::PASSES - 1), V = vec_len<T>();
+  const int t = threadIdx.x;
+  const int l1 = __ffs(n1) - 1, l2 = __ffs(n2) - 1;
+  const int s = lane_rot<V, 1>();
+#pragma unroll(V == 1 ? 4 : 1)
+  for (int p0 = t * V; p0 < M; p0 += NT * V) {
+    float re[V], im[V];
+    ldv<V>(zr + p0, re);
+    ldv<V>(zi + p0, im);
+    rot(re, s);
+    rot(im, s);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int pos = p0 + ((k + s) & (V - 1));
+      sm[(pos >> l2) * (n2 + 1) + (pos & (n2 - 1))] = pos ? make_float2(re[k], im[k]) : z0;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    const int f = t + NT * r, fm = (M - f) & (M - 1);
+    const float2 z = sm[(f & (n1 - 1)) * (n2 + 1) + (f >> l1)];
+    const float2 q = sm[(fm & (n1 - 1)) * (n2 + 1) + (fm >> l1)];
+    const float2 w = __ldg(en + f);
+    float Er, Ei, Or, Oi;
+    if (f == 0) {
+      Er = 0.5f * (z.x + z.y);
+      Ei = 0.f;
+      Or = 0.5f * (z.x - z.y);
+      Oi = 0.f;
+    } else {
+      const float wr = w.x, wi = -w.y;
+      Er = 0.5f * (z.x + q.x);
+      Ei = 0.5f * (z.y - q.y);
+      const float Dr = 0.5f * (z.x - q.x), Di = 0.5f * (z.y + q.y);
+      Or = wr * Dr - wi * Di;
+      Oi = wr * Di + wi * Dr;
+    }
+    v[r] = make_float2(Er - Oi, -(Ei + Or));  // conj P[f]
+  }
+  butterflies<M, 0>(v, tw, t);
+  __syncthreads();  // every gather read is done: the buffer takes pass 0's outputs
+  to_shared<M, 0>(v, sm, t);
+  __syncthreads();
+  passes<M, 1>(v, sm, tw, t);
+  __syncthreads();  // every read of the last pass is done
+#pragma unroll
+  for (int i = 0; i < RADIX / R; ++i)
+#pragma unroll
+    for (int c = 0; c < R; ++c) sm[pad(frequency<M>(t + NT * i, c))] = v[i * R + c];
+  __syncthreads();
+  constexpr float sc = 1.f / M;
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    const float2 x = sm[pad(t + NT * r)];
+    v[r] = make_float2(x.x * sc, -x.y * sc);
+  }
+}
+
+// Stores v[r] = x_even[j] + i x_odd[j] (j = t + T r, T = M / 16 threads) to
+// the split layout [x_even | x_odd] of a row at `out`, as T (one coalesced
+// access per r and plane).
+template <typename T, int M>
+__device__ __forceinline__ void store_split_row(const float2 (&v)[RADIX], T* __restrict__ out,
+                                                Fix f = {}) {
+  constexpr int NT = Plan<M>::THREADS;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    st1(out + t + NT * r, v[r].x, f);
+    st1(out + M + t + NT * r, v[r].y, f);
+  }
+}
+
+// The radix table of a packed-real length M (kernels._design_table): the
+// split design's [r1f | r2f | r1i | r2i | Tf | Ti | E] (make_plan), the
+// radix twiddles, then the unpack factors at natural frequencies.
+template <int M>
+struct RTable {
+  const float2 *e, *tw, *en;
+  __host__ __device__ RTable(const float2* tab, int n1, int n2)
+      : e(make_plan(tab, n1, n2).e), tw(e + M), en(tw + Plan<M>::tw_off(Plan<M>::PASSES - 1)) {}
+};
 
 
 // ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@
 //   fits it in 64 registers without spills (the cap that leaves four
 //   resident rows an SM; a cap of 48 for five spilled and ran slower, as
 //   did a persistent grid prefetching the next row with cp.async).
-// split (any other M whose factors n1, n2 are multiples of 4): the
+// split (any other M, any factors n1 x n2; `general_form` in lpt_dft.cuh): the
 //   two-stage DFT of lpt_dft.cuh.  One block per row keeps the packed
 //   row, both stage outputs and the mirror unpack in shared memory; the
 //   row's load, DFT passes and store run one after another, so latency
@@ -33,12 +33,12 @@
 
 using namespace lpt;
 
-template <typename T>
+template <typename T, bool kGen>
 __global__ void __launch_bounds__(256, 3) rfft_w_kernel(const T* __restrict__ x,
                                                      T* __restrict__ zr, T* __restrict__ zi,
                                                      const float2* __restrict__ tab, int m,
                                                      int n1, int n2) {
-  constexpr int V = vec_len<T>();
+  constexpr int V = kGen ? 1 : vec_len<T>();
   extern __shared__ float2 sm[];
   const Plan p = make_plan(tab, n1, n2);
   float2* A = sm;
@@ -59,14 +59,16 @@ __global__ void __launch_bounds__(256, 3) rfft_w_kernel(const T* __restrict__ x,
     for (int k = 0; k < V; ++k) A[j0 + ((k + s) & (V - 1))] = make_float2(ev[k], od[k]);
   }
   __syncthreads();
-  w_fwd_core<T, V>(A, B, p, R, zr + row * m, zi + row * m);
+  w_fwd_core<T, V, kGen>(A, B, p, R, zr + row * m, zi + row * m);
 }
 
 template <typename T>
 static int run(const void* x, void* zr, void* zi, const float2* tab, int rows, int m, int n1,
                int n2, void* stream) {
-  return launch(rfft_w_kernel<T>, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream,
-                (const T*)x, (T*)zr, (T*)zi, tab, m, n1, n2);
+  auto kernel = general_form(n1, n2, m, vec_len<T>()) ? rfft_w_kernel<T, true>
+                                                      : rfft_w_kernel<T, false>;
+  return launch(kernel, dim3(rows), dim3(256), w_smem_bytes(n1, n2), stream, (const T*)x,
+                (T*)zr, (T*)zi, tab, m, n1, n2);
 }
 
 template <typename T, int M>
@@ -80,7 +82,8 @@ __global__ void __launch_bounds__(fft::Plan<M>::THREADS, M == 4096 ? 4 : 1)
 }
 
 // The table: the split design's [r1f | r2f | r1i | r2i | Tf | Ti | E]
-// (make_plan), then the radix twiddles.
+// (make_plan), then the radix twiddles (and the natural-order unpack
+// factors, which K1 does not read: fft::RTable).
 template <int M>
 static int run_radix(const void* x, void* zr, void* zi, const float2* tab, int rows, int n1,
                      int n2, int io, void* stream) {

@@ -73,11 +73,6 @@ from .split_fft import (_factor, _plan, _plan_t, _rplan, fft_w_split, ifft_w_spl
 
 _F32 = torch.float32
 
-# Tile widths of the H-axis kernels (columns of the lane axis per block);
-# the lane width must be a multiple of both.
-_K4_TW = 64
-_K5_TW = 32
-
 
 # ---------------------------------------------------------------------------
 # small f32 algebra shared with the JAX kernels' bodies
@@ -182,16 +177,15 @@ def encode_v(x, mu1, dtype=_F32):
 # ---------------------------------------------------------------------------
 
 
-def factors(n: int, cuda: bool = False):
-    """(n1, n2) of a length-n axis.  With ``cuda`` it raises where the
-    kernels cannot run: n1 == 1 (the degenerate one-stage split) or a
-    factor not divisible by 4 (the kernels' register tile).  The plain
-    versions take any factorization."""
-    n1, n2 = _factor(n)
-    if cuda and (n1 == 1 or n1 % 4 or n2 % 4):
-        raise ValueError(f"length {n} factors as {n1} x {n2}: the CUDA "
-                         "kernels need n1 > 1 and both factors divisible by 4")
-    return n1, n2
+def factors(n: int):
+    """(n1, n2) of a length-n axis, the split designs' and the plain
+    versions' alike.  The CUDA kernels take every factorization: where a
+    factor is not a multiple of 4, n1 is 1, a row length is not a
+    multiple of a 16-byte vector or a lane width not a multiple of an
+    H-axis kernel's tile, the C entry launches its kernel's general form
+    (``general_form`` in ``csrc/lpt_dft.cuh``: the tail form of the DFT
+    passes, one element a trip, the last lane tile guarded)."""
+    return _factor(n)
 
 
 @lru_cache(maxsize=None)
@@ -338,7 +332,7 @@ def rfft_w_design(m: int) -> str:
     """K1's design for half width M, by shape alone: "radix" (the
     register-resident radix FFT of ``csrc/lpt_fft.cuh``) for M in
     ``RADIX_LENGTHS``, "split" (the two-stage DFT of ``csrc/lpt_dft.cuh``,
-    which needs both factors of M divisible by 4) for any other M.
+    any factorization) for any other M.
     ``lpt_rfft_w`` makes the same choice; neither design falls back on
     the other."""
     return "radix" if m in RADIX_LENGTHS else "split"
@@ -368,16 +362,27 @@ def _radix_twiddles_np(m: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def _unpack_natural_np(m: int) -> np.ndarray:
+    """The packed-real unpack factors w^f = exp(-2 pi i f / 2M) at natural
+    frequencies f < M, complex64 from float64 (the table's E section,
+    which holds them at split positions, in frequency order): the radix
+    inverse rows of K2 and K6 read them at their pass-0 frequencies."""
+    return np.exp(-2j * np.pi * np.arange(m, dtype=np.int64) / (2 * m)).astype(np.complex64)
+
+
+@lru_cache(maxsize=None)
 def _design_table(n: int, with_unpack: bool, design: str, device: torch.device):
-    """The table of a kernel with two designs (K1: length M with the
-    unpack factors E both designs read; K11-K13: length W without them): the
-    split-order table (:func:`_table_np`), followed in the "radix" design
-    by :func:`_radix_twiddles_np` of the same length.  The prefix is the
-    split design's whole table, so a build of either design reads its
-    constants from the same argument."""
+    """The table of a kernel with two designs (K1, K2, K6: length M with
+    the unpack factors E; K11-K13: length W without them): the split-order
+    table (:func:`_table_np`), followed in the "radix" design by
+    :func:`_radix_twiddles_np` of the same length and, with the unpack
+    factors, by :func:`_unpack_natural_np`.  The prefix is the split
+    design's whole table, so a build of either design reads its constants
+    from the same argument."""
     t = _table_np(n, with_unpack)
     if design == "radix":
-        t = np.concatenate([t, _radix_twiddles_np(n)])
+        t = np.concatenate([t, _radix_twiddles_np(n)]
+                           + ([_unpack_natural_np(n)] if with_unpack else []))
     return torch.view_as_real(torch.from_numpy(t)).contiguous().to(device)
 
 
@@ -395,14 +400,14 @@ def rfft_w(x):
     planes go to one launch.  The kernel's design follows M = N/2 alone
     (:func:`rfft_w_design`): the radix FFT for a power of two M from 64
     to 4096 (the 12 MP grid's M = 4096 among them), the two-stage split
-    DFT for any other M, whose factors must then be divisible by 4."""
+    DFT for any other M."""
     rows, n_full = _rows("rfft_w", x)
     m = n_full // 2
     _check("rfft_w", [x], dtypes=IO_DTYPES)
     cuda = _on_card("rfft_w", [x], (x.dtype,), _IO_BUILT)
-    n1, n2 = factors(m, cuda and rfft_w_design(m) == "split")
     if not cuda:
         return rfft_w_plain(x)
+    n1, n2 = factors(m)
     half = tuple(x.shape[:-1]) + (m,)
     zr, zi = _empty(half, x), _empty(half, x)
     _launch("rfft_w", "lpt_rfft_w", "ppppiiiii", x, zr, zi,
@@ -410,6 +415,9 @@ def rfft_w(x):
             _CODE[x.dtype])
     rfft_w.launches += 1
     return zr, zi
+
+
+irfft_w_design = rfft_w_design      # K2's rule (:func:`rfft_w_design`)
 
 
 def irfft_w_plain(zr, zi, out_dtype=_F32):
@@ -421,20 +429,23 @@ def irfft_w_plain(zr, zi, out_dtype=_F32):
 def irfft_w(zr, zi, out_dtype=_F32):
     """(rows, N/2) half-spectrum pair (io dtype, packed lane 0) -> (rows,
     N) split-layout real rows as ``out_dtype`` (f32 or bf16): the exact
-    inverse of :func:`rfft_w`."""
+    inverse of :func:`rfft_w`.  The kernel's design follows M = N/2 alone
+    (:func:`irfft_w_design`, K1's rule): the radix inverse row of
+    ``csrc/lpt_fft.cuh`` for M in ``RADIX_LENGTHS``, the two-stage split
+    DFT for any other M."""
     rows, m = zr.shape
     _check("irfft_w", [zr, zi], (rows, m), IO_DTYPES)
     if out_dtype not in IO_DTYPES:
         raise TypeError(f"irfft_w: out_dtype {out_dtype} is not one of {IO_DTYPES}")
     cuda = _on_card("irfft_w", [zr, zi], (zr.dtype, zi.dtype, out_dtype),
                     {(a, a, o) for a in IO_DTYPES for o in IO_DTYPES})
-    n1, n2 = factors(m, cuda)
     if not cuda:
         return irfft_w_plain(zr, zi, out_dtype)
+    n1, n2 = factors(m)
     out = _empty((rows, 2 * m), zr, out_dtype)
     _launch("irfft_w", "lpt_irfft_w", "ppppiiiiii", zr, zi, out,
-            _table(m, True, zr.device), rows, m, n1, n2, _CODE[zr.dtype],
-            _CODE[out_dtype])
+            _design_table(m, True, irfft_w_design(m), zr.device), rows, m, n1, n2,
+            _CODE[zr.dtype], _CODE[out_dtype])
     irfft_w.launches += 1
     return out
 
@@ -500,9 +511,9 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
     planes = [image, a0, a1, b]
     cuda = _on_card("e1_rtv", planes, tuple(t.dtype for t in planes),
                     {(i, c, c, c) for i in IO_DTYPES for c in CARRY_DTYPES})
-    n1, n2 = factors(m, cuda)
     if not cuda:
         return e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau)
+    n1, n2 = factors(m)
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     half = tuple(image.shape[:-1]) + (m,)
     rkr, rki = _empty(half, image), _empty(half, image)
@@ -525,16 +536,13 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
 # ---------------------------------------------------------------------------
 
 
-def _h_view(name, t, n, cuda, tw):
+def _h_view(name, t, n):
     """(n1, n2, w) of an H-axis view (n1, n2, W) / (P, n1, n2, W) of a
-    length-n axis; raises ValueError where the planes do not view it so,
-    or, on the card, where W is not a multiple of the lane tile ``tw``."""
+    length-n axis; raises ValueError where the planes do not view it so."""
     n1, n2, w = t.shape[-3:]
-    if (n1, n2) != factors(n, cuda):
+    if (n1, n2) != factors(n):
         raise ValueError(f"{name}: planes {tuple(t.shape)} do not view a length-{n} "
                          f"axis as {_factor(n)}")
-    if cuda and w % tw:
-        raise ValueError(f"{name}: lane width {w} is not a multiple of {tw}")
     return n1, n2, w
 
 
@@ -564,7 +572,7 @@ def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
     _check("h_passA_pair", planes, x1r.shape, IO_DTYPES)
     cuda = _on_card("h_passA_pair", planes, tuple(t.dtype for t in planes),
                     {(d,) * 4 for d in IO_DTYPES})
-    n1, n2, w = _h_view("h_passA_pair", x1r, n, cuda, _K4_TW)
+    n1, n2, w = _h_view("h_passA_pair", x1r, n)
     if not cuda:
         return h_passA_pair_plain(x1r, x1i, x2r, x2i, n, inverse)
     outs = [_empty(x1r.shape, x1r) for _ in range(4)]
@@ -584,7 +592,7 @@ def h_passA(xr, xi, n, inverse):
     p = _depth("h_passA", xr, xr.shape[-3:])
     _check("h_passA", [xr, xi], xr.shape, IO_DTYPES)
     cuda = _on_card("h_passA", [xr, xi], (xr.dtype, xi.dtype), {(d, d) for d in IO_DTYPES})
-    n1, n2, w = _h_view("h_passA", xr, n, cuda, _K4_TW)
+    n1, n2, w = _h_view("h_passA", xr, n)
     if not cuda:
         return h_passA_plain(xr, xi, n, inverse)
     zr, zi = _empty(xr.shape, xr), _empty(xr.shape, xr)
@@ -646,7 +654,7 @@ def h_passB(yr, yi, n, inverse, filt_r=None, filt_i=None):
     ins = [yr, yi, *filt]
     cuda = _on_card(name, ins, tuple(t.dtype for t in ins),
                     {(d,) * k for d in IO_DTYPES for k in (2, 4)})
-    n1, n2, w = _h_view(name, yr, n, cuda, _K5_TW)
+    n1, n2, w = _h_view(name, yr, n)
     if not cuda:
         return h_passB_plain(yr, yi, n, inverse, filt_r, filt_i)
     zr, zi = _empty(yr.shape, yr), _empty(yr.shape, yr)
@@ -685,7 +693,7 @@ def h_passB_combine(yr, yi, ar, ai, hr, hi, rr, n):
     p = _depth(name, yr, yr.shape[-3:])
     pc = _const_depth(name, ins[4:], yr.shape[-3:], p)
     cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 7 for d in IO_DTYPES})
-    n1, n2, w = _h_view(name, yr, n, cuda, _K5_TW)
+    n1, n2, w = _h_view(name, yr, n)
     if not cuda:
         return h_passB_combine_plain(*ins, n)
     fr, fi = _empty(yr.shape, yr), _empty(yr.shape, yr)
@@ -712,7 +720,7 @@ def h_passB_dual(yr, yi, hr, hi, n):
     p = _depth(name, yr, yr.shape[-3:])
     pc = _const_depth(name, ins[2:], yr.shape[-3:], p)
     cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 4 for d in IO_DTYPES})
-    n1, n2, w = _h_view(name, yr, n, cuda, _K5_TW)
+    n1, n2, w = _h_view(name, yr, n)
     if not cuda:
         return h_passB_dual_plain(*ins, n)
     outs = [_empty(yr.shape, yr) for _ in range(4)]
@@ -741,7 +749,7 @@ def h_passB_combine2(xr, xi, yr, yi, hr, hi, rr, n):
     p = _depth(name, xr, xr.shape[-3:])
     pc = _const_depth(name, ins[4:], xr.shape[-3:], p)
     cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 7 for d in IO_DTYPES})
-    n1, n2, w = _h_view(name, xr, n, cuda, _K5_TW)
+    n1, n2, w = _h_view(name, xr, n)
     if not cuda:
         return h_passB_combine2_plain(*ins, n)
     fr, fi = _empty(xr.shape, xr), _empty(xr.shape, xr)
@@ -781,7 +789,7 @@ def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
     pc = _const_depth("h_combine_dual", ins[4:], xar.shape[-3:], p)
     cuda = _on_card("h_combine_dual", ins, tuple(t.dtype for t in ins),
                     {(d,) * 7 for d in IO_DTYPES})
-    n1, n2, w = _h_view("h_combine_dual", xar, n, cuda, _K5_TW)
+    n1, n2, w = _h_view("h_combine_dual", xar, n)
     if not cuda:
         return h_combine_dual_plain(*ins, n)
     outs = [_empty(xar.shape, xar) for _ in range(4)]
@@ -833,6 +841,9 @@ def _xv_step(fwd, v, mask, dp, mu1):
     return mu1 * X - xi
 
 
+irfft_w_dual_state_design = rfft_w_design     # K6's rule (:func:`rfft_w_design`)
+
+
 def irfft_w_dual_state_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i,
                              v, mask, dp, mu1, with_sat=True):
     vsc = _v_scale(mu1)
@@ -871,7 +882,11 @@ def irfft_w_dual_state(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
     dtype, v' at v's.  With ``with_sat`` and an int16 v, sat is a 0-d f32
     tensor, max |v'| / (256 mu1) over the f32 values of all planes before
     they are quantized; otherwise 0.0 (the solver's form,
-    ``with_sat=False``, leaves the v scan to :func:`sat_scan_i16`)."""
+    ``with_sat=False``, leaves the v scan to :func:`sat_scan_i16`).  The
+    kernel's design follows M = pw/2 alone
+    (:func:`irfft_w_dual_state_design`, K1's rule): the radix rows of
+    ``csrc/lpt_fft.cuh`` for M in ``RADIX_LENGTHS``, the two-stage split
+    DFT for any other M."""
     name = "irfft_w_dual_state"
     p, ph, m = _dual_inputs(name, [a0r, a0i, a1r, a1i], [p0r, p0i, p1r, p1i])
     full = tuple(a0r.shape[:-1]) + (2 * m,)
@@ -882,10 +897,10 @@ def irfft_w_dual_state(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
     cuda = _on_card(name, planes, tuple(t.dtype for t in planes),
                     {(i,) * 6 + (c,) for i in IO_DTYPES for c in CARRY_DTYPES},
                     cols=(p0r, p0i, p1r, p1i))
-    n1, n2 = factors(m, cuda)
     if not cuda:
         return irfft_w_dual_state_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r,
                                         p1i, v, mask, dp, mu1, with_sat)
+    n1, n2 = factors(m)
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
     vsc = _v_scale(mu1)
     image = _empty(full, a0r)
@@ -895,7 +910,8 @@ def irfft_w_dual_state(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
     _launch("w_dual_state", "lpt_w_dual_state", "ppppppppppp" + "pppp" + "p"
             + "iiiiii" + "fff" + "fff" + "p" + "ii",
             a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, v, mask, dp,
-            image, vo, vwr, vwi, _table(m, True, v.device), p * ph, ph, pc, m,
+            image, vo, vwr, vwi,
+            _design_table(m, True, irfft_w_dual_state_design(m), v.device), p * ph, ph, pc, m,
             n1, n2, float(mu1), float(c_out), float(c_in - c_out), *_fix(vsc),
             1.0 / vsc, sat.data_ptr() if sat is not None else None,
             _CODE[a0r.dtype], _CODE[v.dtype])
@@ -977,9 +993,9 @@ def e1_rcarry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     cuda = _on_card(name, planes, tuple(t.dtype for t in planes),
                     {(i, i, cv, c, c, c, i, i) for i in IO_DTYPES
                      for c in CARRY_DTYPES for cv in CARRY_DTYPES})
-    n1, n2 = factors(m, cuda)
     if not cuda:
         return e1_rcarry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau)
+    n1, n2 = factors(m)
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
     half = tuple(image.shape[:-1]) + (m,)
@@ -1018,9 +1034,9 @@ def irfft_w_dual(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
     p, ph, m = _dual_inputs(name, [a0r, a0i, a1r, a1i], [p0r, p0i, p1r, p1i])
     cuda = _on_card(name, [a0r, a0i, a1r, a1i], (a0r.dtype,) * 4,
                     {(d,) * 4 for d in IO_DTYPES}, cols=(p0r, p0i, p1r, p1i))
-    n1, n2 = factors(m, cuda)
     if not cuda:
         return irfft_w_dual_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i)
+    n1, n2 = factors(m)
     full = tuple(a0r.shape[:-1]) + (2 * m,)
     image, fwd = _empty(full, a0r), _empty(full, a0r)
     _launch("irfft_w_dual", "lpt_irfft_w_dual", "ppppppppppp" + "iiiii",
@@ -1047,7 +1063,7 @@ def fft_w_design(w: int) -> str:
     """The design of K12, and of K11 and K13, for width W, by shape alone:
     "radix" (the register-resident radix FFT of ``csrc/lpt_fft.cuh``) for
     W in ``IFFT_RADIX_WIDTHS``, "split" (the two-stage DFT of
-    ``csrc/lpt_dft.cuh``, which needs both factors of W divisible by 4)
+    ``csrc/lpt_dft.cuh``, any factorization)
     for any other W.  ``lpt_fft_w``, ``lpt_ifft_w_dual`` and ``lpt_ifft_w``
     make the same choice; neither design falls back on the other."""
     return "radix" if w in IFFT_RADIX_WIDTHS else "split"
@@ -1069,14 +1085,13 @@ def fft_w(x):
     bf16) in and out.  All rows of all planes go to one launch.  The
     kernel's design follows W alone (:func:`fft_w_design`): the radix FFT
     for a power of two W from 512 to 8192 (the 12 MP grid's 8192 among
-    them), the two-stage split DFT for any other W, whose factors must
-    then be divisible by 4."""
+    them), the two-stage split DFT for any other W."""
     rows, w = _rows("fft_w", x)
     _check("fft_w", [x], dtypes=IO_DTYPES)
     cuda = _on_card("fft_w", [x], (x.dtype,), _IO_BUILT)
-    n1, n2 = factors(w, cuda and fft_w_design(w) == "split")
     if not cuda:
         return fft_w_plain(x)
+    n1, n2 = factors(w)
     zr, zi = _empty(x.shape, x), _empty(x.shape, x)
     _launch("fft_w", "lpt_fft_w", "ppppiiii", x, zr, zi,
             _design_table(w, False, fft_w_design(w), x.device), rows, n1, n2, _CODE[x.dtype])
@@ -1101,9 +1116,9 @@ def ifft_w(vr, vi, out_dtype=_F32):
         raise TypeError(f"ifft_w: out_dtype {out_dtype} is not one of {IO_DTYPES}")
     cuda = _on_card("ifft_w", [vr, vi], (vr.dtype, vi.dtype, out_dtype),
                     {(a, a, o) for a in IO_DTYPES for o in IO_DTYPES})
-    n1, n2 = factors(w, cuda and ifft_w_design(w) == "split")
     if not cuda:
         return ifft_w_plain(vr, vi, out_dtype)
+    n1, n2 = factors(w)
     out = _empty(vr.shape, vr, out_dtype)
     _launch("ifft_w", "lpt_ifft_w", "pppp" + "iiiii", vr, vi, out,
             _design_table(w, False, ifft_w_design(w), vr.device), rows, n1, n2,
@@ -1155,9 +1170,9 @@ def e1_carry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     cuda = _on_card(name, planes, tuple(t.dtype for t in planes),
                     {(i, i, cv, c, c, c, i, i) for i in IO_DTYPES
                      for c in FULL_TV_DTYPES for cv in CARRY_DTYPES})
-    n1, n2 = factors(w, cuda)
     if not cuda:
         return e1_carry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau)
+    n1, n2 = factors(w)
     c_in, c_out = 1.0 / (1.0 + mu1), 1.0 / mu1
     spectra = [_empty(image.shape, image) for _ in range(4)]
     vo = _empty(image.shape, v)
@@ -1192,15 +1207,15 @@ def ifft_w_dual(a0r, a0i, a1r, a1i):
     spectrum is assumed Hermitian.  The kernel's design follows W alone
     (:func:`ifft_w_dual_design`): the radix FFT for a power of two W from
     512 to 8192 (the 12 MP grid's 8192 among them), the two-stage split
-    DFT for any other W, whose factors must then be divisible by 4."""
+    DFT for any other W."""
     name = "ifft_w_dual"
     ins = [a0r, a0i, a1r, a1i]
     rows, w = _rows(name, a0r)
     _check(name, ins, a0r.shape, IO_DTYPES)
     cuda = _on_card(name, ins, tuple(t.dtype for t in ins), {(d,) * 4 for d in IO_DTYPES})
-    n1, n2 = factors(w, cuda and ifft_w_dual_design(w) == "split")
     if not cuda:
         return ifft_w_dual_plain(*ins)
+    n1, n2 = factors(w)
     image, fwd = _empty(a0r.shape, a0r), _empty(a0r.shape, a0r)
     _launch("ifft_w_dual", "lpt_ifft_w_dual", "pppppppiiii", *ins, image, fwd,
             _design_table(w, False, ifft_w_dual_design(w), a0r.device), rows, n1, n2,

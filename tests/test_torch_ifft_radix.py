@@ -311,10 +311,10 @@ def test_design_is_a_shape_rule():
     K1's rule is its own."""
     for w in K.IFFT_RADIX_WIDTHS:
         assert K.ifft_w_dual_design(w) == "radix"
-        assert K.factors(w, cuda=True) == (w // N2, N2)
+        assert K.factors(w) == (w // N2, N2)
     for w in (128, 256, 384, 1536, 3072, 16384):
         assert K.ifft_w_dual_design(w) == "split"
-    assert all(f % 4 == 0 for f in K.factors(1536, cuda=True))
+    assert all(f % 4 == 0 for f in K.factors(1536))
     assert K.rfft_w_design(8192) == "split" and K.rfft_w_design(4096) == "radix"
     # the CPU wrapper runs the plain version whatever the design
     rng = np.random.RandomState(9)

@@ -257,12 +257,13 @@ def test_cuda_dtype_combination_not_built_raises(case):
 
 
 def test_cuda_factor_limits():
-    """The CUDA kernels refuse factorizations they cannot tile (the
-    wrapper checks before any launch); the 12 MP and test grids pass."""
-    assert K.factors(4096, cuda=True) == (32, 128)
-    assert K.factors(6144, cuda=True) == (48, 128)
-    assert K.factors(64, cuda=True) == (8, 8)
-    assert K.factors(96, cuda=True) == (12, 8)
-    for n in (128, 6, 7):      # 1 x 128, 3 x 2, 7 x 1
-        with pytest.raises(ValueError):
-            K.factors(n, cuda=True)
+    """The CUDA kernels take every factorization the plain versions take
+    (the split designs' general form, csrc/lpt_dft.cuh general_form):
+    the 12 MP and test grids, and the lengths whose factors are not
+    multiples of 4 or whose n1 is 1, which the kernels once refused."""
+    assert K.factors(4096) == (32, 128)
+    assert K.factors(6144) == (48, 128)
+    assert K.factors(64) == (8, 8)
+    assert K.factors(96) == (12, 8)
+    for n, f in ((128, (1, 128)), (6, (3, 2)), (7, (7, 1))):
+        assert K.factors(n) == f

@@ -156,8 +156,11 @@ def test_rfft_table_keeps_the_split_table_as_prefix(m):
     argument reads the same constants for either design."""
     full = _k1_table(m)
     base = K._table_np(m, True)
+    tw = K._radix_twiddles_np(m)
     assert np.array_equal(full[:base.size], base)
-    assert np.array_equal(full[base.size:], K._radix_twiddles_np(m))
+    assert np.array_equal(full[base.size:base.size + tw.size], tw)
+    # then the unpack factors at natural frequencies (K2's and K6's radix rows)
+    assert np.array_equal(full[base.size + tw.size:], K._unpack_natural_np(m))
 
 
 @pytest.mark.parametrize("m", K.RADIX_LENGTHS + (8192,))
@@ -202,7 +205,7 @@ def test_design_is_a_shape_rule():
         assert K.rfft_w_design(m) == "radix"
     for m in (16, 32, 96, 192, 384, 2028, 8192):
         assert K.rfft_w_design(m) == "split"
-    assert all(f % 4 == 0 for f in K.factors(192, cuda=True))
+    assert all(f % 4 == 0 for f in K.factors(192))
     # the CPU wrapper runs the plain version whatever the design
     x = torch.from_numpy(np.random.RandomState(5).randn(2, 384).astype(np.float32))
     for a, b in zip(K.rfft_w(x), K.rfft_w_plain(x)):

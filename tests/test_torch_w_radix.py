@@ -204,7 +204,7 @@ def test_design_is_a_shape_rule(design_fn):
         assert K.factors(w) == (w // 128, 128)
     for w in (128, 256, 384, 1536, 3072, 16384):
         assert design_fn(w) == "split"
-    assert all(f % 4 == 0 for f in K.factors(1536, cuda=True))
+    assert all(f % 4 == 0 for f in K.factors(1536))
     # the CPU wrappers run the plain versions whatever the design
     rng = np.random.RandomState(13)
     for w in (512, 1536):
