@@ -1,26 +1,32 @@
 """Times the port's kernels built from two source trees on one card.
 
-    python3 ab_kernels.py OTHER_CSRC [--modes headline,f32] [--rounds 2]
-                          [--planes 3x3,4x1] [--kernels h_combine_dual]
+    python3 ab_kernels.py OTHER_CSRC [OTHER_CSRC ...] [--modes headline,f32]
+                          [--rounds 2] [--planes 3x3,4x1] [--kernels h_combine_dual]
 
 A is ``lenslesspicam_tpu_torch/ops/csrc`` of this checkout, B the
 directory OTHER_CSRC holding the same sources changed (the same C
-entries).  Both are built with ``nvcc``, then every kernel of
+entries); with several, B1, B2, ... in the order given.  All are built
+with ``nvcc`` (a library whose sources match one already built is
+reused), then every kernel of
 ``chip_smoke.kernel_cases`` (a mode of ``chip_smoke.MODES``: headline,
 f32) and of ``chip_smoke.split_kernel_cases`` (a mode of
-``chip_smoke.SPLIT_MODES``: f32, bench; K13 alone in
+``chip_smoke.SPLIT_MODES``: f32, bench, K4 and K5 among them at the lane
+width W as "name:full_width"; K13 alone in
 ``chip_smoke.PALLAS_K13_MODES``: pallas_bf16) is timed at 12 MP in each mode
-named, in the order A, B, B, A per round (CUDA events, median of 7 after
+named, in the order A, B, B, A per round (A, B1 .. Bn, Bn .. B1, A with
+several; CUDA events, median of 7 after
 a warm-up, as ``chip_smoke.time_ms``), and its output is checked against
 the plain version as ``chip_smoke.check_kernels`` checks it.  Each tree's
 build prints one JSON line with ptxas's entry functions, registers and
 spills per library (libraries already built print none).  ``--planes``
 times the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``
-and the full-width ``chip_smoke.SPLIT_KERNELS``) on stacks of P planes
+and the full-width ``chip_smoke.SPLIT_KERNELS`` and ``FULL_WIDTH_H``) on stacks of P planes
 over Pc constant planes instead of one plane;
-``--kernels`` keeps only the kernels named.  Prints one JSON line per
-kernel, mode and stack with both medians and B / A, then the card's name
-and power limit.  Exits non-zero without a CUDA device.
+``--kernels`` keeps only the kernels named (a wrapper's name keeps its
+"name:full_width" rows too).  Prints one JSON line per
+kernel, mode and stack with each tree's median and its ratio to A (with
+one other tree also ``a_ms``, ``b_ms`` and ``b_over_a``), then the card's
+name and power limit.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ def use(csrc: Path):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("other_csrc", type=Path)
+    ap.add_argument("other_csrc", type=Path, nargs="+")
     ap.add_argument("--modes", default="headline,f32")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--planes", default="", help="stacks PxPc, comma separated")
@@ -58,7 +64,9 @@ def main():
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    trees = {"A": _build.CSRC, "B": args.other_csrc.resolve()}
+    others = [p.resolve() for p in args.other_csrc]
+    labels = ["B"] if len(others) == 1 else [f"B{i + 1}" for i in range(len(others))]
+    trees = {"A": _build.CSRC, **dict(zip(labels, others))}
     for label, tree in trees.items():
         use(tree)
         logs = _build.build_all()
@@ -68,7 +76,7 @@ def main():
             for n, r in sorted(logs.items())}}), flush=True)
     ph, pw = 6144, 8192
     families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
-                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS),
+                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS + cs.FULL_WIDTH_H),
                 (cs.PALLAS_K13_MODES, cs.split_kernel_cases, ("ifft_w",)))
     for mode, planes, (modes, case_fn, names) in [
             (m, st, fam) for m in args.modes.split(",") for st in stacks or [None]
@@ -77,25 +85,28 @@ def main():
         gen.manual_seed(ph)
         cases = case_fn(ph, pw, gen, *modes[mode], planes=planes)
         for name, (inputs, _) in cases.items():
+            fn = name.split(":")[0]     # "name:form": the wrapper ``name`` at another shape
             if (name not in names and (planes or modes is cs.PALLAS_K13_MODES)) or (
-                    keep and name not in keep):
+                    keep and fn not in keep and name not in keep):
                 continue
-            wrapper, plain = getattr(K, name), getattr(K, name + "_plain")
+            wrapper, plain = getattr(K, fn), getattr(K, fn + "_plain")
             ref = plain(*inputs)
-            times = {"A": [], "B": []}
+            times = {label: [] for label in trees}
             for _ in range(args.rounds):
-                for label in ("A", "B", "B", "A"):
+                for label in ("A", *labels, *labels[::-1], "A"):
                     use(trees[label])
                     errs = [cs.out_err(a, b) for a, b in
                             zip(cs.flatten(wrapper(*inputs)), cs.flatten(ref))]
                     if not all(e[3] for e in errs):
                         raise AssertionError(f"{name} ({mode}, {label}): errors {errs}")
                     times[label].append(cs.time_ms(lambda: wrapper(*inputs)))
-            a, b = statistics.median(times["A"]), statistics.median(times["B"])
+            med = {label: statistics.median(ts) for label, ts in times.items()}
+            ab = ({"a_ms": med["A"], "b_ms": med["B"], "b_over_a": med["B"] / med["A"]}
+                  if "B" in med else {})
             print(json.dumps({"kernel": name, "mode": mode, "grid": [ph, pw],
-                              "planes": list(planes) if planes else None,
-                              "a_ms": a, "b_ms": b, "b_over_a": b / a, "times": times}),
-                  flush=True)
+                              "planes": list(planes) if planes else None, **ab, "ms": med,
+                              "over_a": {label: m / med["A"] for label, m in med.items()},
+                              "times": times}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)

@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
 grid in every storage-dtype combination the kernels are built for, K1, K2
 and K6 also at 96 x 384 and 96 x 1536 and K11-K13 at 96 x 1536, where each
-runs its split design instead of the radix FFT; at the 12 MP grid in the
+runs its split design instead of the radix FFT, and K5, which runs its
+split design at 96 x 128, in its radix design's column form at 256 x 80,
+a guarded lane tile; at the 12 MP grid in the
 f32 mode and in the JAX bench's headline storage mode, bf16 spectra with
 int16 carries, K2 and K6 there in every combination; each
 kernel that takes a plane axis also on a stack of 6 planes over 3
@@ -18,10 +20,12 @@ kernels in both modes and both kernel placements (v3, v2), passes the
 JAX bench's gates (bench.py:376-435) in the headline mode, runs its RGB
 and gray batch=4 rungs (bench.py:573-700) per plane in the headline
 mode, runs the full-width split solver (``run_split(backend="fused")``,
-K10, K4, K5, K4, K11) and its kernels K10-K13 (phase ``split``: every
+K10, K4, K5, K4, K11) and its kernels K10-K13, and K4 and K5 at its
+lane width W (phase ``split``: every
 built storage combination at 96 x 512, a 6-over-3 stack, K11-K13 also at
 96 x 1536 alone and stacked, K12 and K13 at an odd row count at W = 512
-and 8192, both modes at 12 MP, K13 also bf16 in and out as the pallas
+and 8192, both modes at 12 MP, K4 and K5 there also on the RGB and
+batch=4 stacks, K13 also bf16 in and out as the pallas
 loop runs it, the K12 -> K13 round trip, the f32 and bench-mode solves
 against the exact one, their rates),
 runs its pass-level backend (``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
@@ -83,6 +87,12 @@ SMALL_SPLIT = (48, 256)
 # K2 and K6 (M = 768 = 6 x 128) their split designs in the general form
 W_SPLIT = (48, 768)
 W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w")
+# K5's radix design (n2 = 128, kernels.h_combine_dual_design) with its
+# last lane tile guarded: H = 2 x 128, half width 40, not a multiple of
+# the 32-lane tile (padded grid; the 12 MP and 768 x 1024 grids run the
+# radix design on whole tiles, the 96 x 128 grid and GRIDS' 540 x 960,
+# 480 x 640 and 96 x 270 the split one)
+K5_GUARDED = (256, 80)
 # sensors whose padded grids take the general form of the split designs
 # (csrc/lpt_dft.cuh general_form: a factor not a multiple of 4 or n1 = 1,
 # a lane width not a multiple of an H kernel's tile, an odd half width),
@@ -165,6 +175,8 @@ K10_COMBOS = [(io, tv, v, F32) for io in (F32, BF16) for tv in (F32, BF16)
               for v in (F32, BF16, I16)]
 W_COMBOS = [(io, F32, F32, out) for io in (F32, BF16) for out in (F32, BF16)]
 SPLIT_KERNELS = ("e1_carry", "ifft_w_dual", "fft_w", "ifft_w")
+# K4 and K5 on the full-width loop's (n1, n2, W) view (split_kernel_cases)
+FULL_WIDTH_H = ("h_passA_pair:full_width", "h_combine_dual:full_width")
 # the pass-level backend: io f32 or bf16, no carries
 PALLAS_IO = {"f32": F32, "bf16": BF16}
 # the kernels of the pallas backend's loop (K12, K13 and the K14 and K15
@@ -392,7 +404,8 @@ def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
 
 def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
     """The full-width kernels' inputs at the shapes the full-width loop
-    gives them (K12 and K13 at the plane's), as :func:`kernel_cases`:
+    gives them (K12 and K13 at the plane's; K4 and K5 under
+    "name:full_width", at the lane width W), as :func:`kernel_cases`:
     spectra and static planes at ``io``, the TV carries at ``tv`` and at
     their KKT scale, v at ``v`` and of order mu1, K13's output at
     ``out``; with ``planes`` = (P, Pc) stacks.  Operations: a real
@@ -414,7 +427,7 @@ def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
     mask32 = (torch.rand(*lc, ph, pw, generator=gen, device=dev) > 0.5).float()
     dp = K.bmul(mask32, torch.rand(*lp, ph, pw, generator=gen, device=dev)).to(io)
     vc = K.encode_v(rn(*lp, ph, pw, scale=p.mu1, dtype=F32), p.mu1, v)
-    return {
+    cases = {
         "e1_carry": ((rn(*lp, ph, pw), rn(*lp, ph, pw), vc, rn(*lp, ph, pw, scale=p.mu3, dtype=tv),
                       rn(*lp, ph, pw, scale=p.tau, dtype=tv), rn(*lp, ph, pw, scale=p.tau, dtype=tv),
                       mask32.to(io), dp, p.mu1, p.mu2, p.mu3, p.tau),
@@ -423,6 +436,16 @@ def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
         "fft_w": ((rn(*lp, ph, pw),), w_real),
         "ifft_w": ((rn(*lp, ph, pw), rn(*lp, ph, pw), out), w_inv),
     }
+    # K4 and K5 at the lane width W the full-width loop gives them
+    # (kernel_cases holds them at the v3 loop's M = W / 2)
+    h1, h2 = K.factors(ph)
+    q = [rn(*lp, h1, h2, pw) for _ in range(4)]
+    c = [rn(*lp, h1, h2, pw) for _ in range(4)] + [rn(*lc, h1, h2, pw) for _ in range(3)]
+    cases.update({
+        "h_passA_pair:full_width": ((*q, ph, False), 2 * rows * pw * (5.0 * math.log2(h1) + 6)),
+        "h_combine_dual:full_width": ((*c, ph),
+                                      rows * pw * (4 * 5.0 * math.log2(h2) + COMBINE_OPS))})
+    return cases
 
 
 def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
@@ -510,13 +533,16 @@ def library_call(name, args):
     return None
 
 
-def design(name, pw):
+def design(name, ph, pw):
     """{"design": ...} of a kernel with two designs chosen by shape (K1,
-    K2 and K6 by M = pw / 2, K11-K13 by W = pw, one rule each), else {}."""
+    K2 and K6 by M = pw / 2, K11-K13 by W = pw, one rule each; K5 by the
+    n2 of H = ph), else {}."""
     if name in M_NAMES:
         return {"design": K.rfft_w_design(pw // 2)}
     if name in W_SPLIT_NAMES:
         return {"design": K.fft_w_design(pw)}
+    if name == "h_combine_dual":
+        return {"design": K.h_combine_dual_design(K.factors(ph)[1])}
     return {}
 
 
@@ -548,7 +574,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
         shares = [e[2] for e in errs if e[2] is not None]
         row = {"kernel": name, "mode": mode, "grid": [ph, pw],
                "planes": list(planes) if planes else None,
-               **design(fn, pw),
+               **design(fn, ph, pw),
                "dtypes": sorted({str(t.dtype) for t in tensors((args, out))}),
                "max_abs_err": max(e[0] for e in val),
                "max_rel_err": max(e[1] for e in val),
@@ -1422,6 +1448,10 @@ def main():
         for planes in PLANES_12MP:
             check_kernels(ph, pw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
                           planes=planes)
+    for mode, dts in MODES.items():      # K5's radix design on a guarded lane tile
+        for planes in (None, PLANES):
+            check_kernels(*K5_GUARDED, False, *dts, f"{'planes,' if planes else ''}{mode}",
+                          names=("h_combine_dual",), planes=planes)
     for io, tv, v, k2_out in COMBOS:     # K2's and K6's radix designs in every combination
         for planes in (None, *PLANES_12MP):
             check_kernels(ph, pw, False, io, tv, v, k2_out,
@@ -1450,6 +1480,10 @@ def main():
                           cases=split_kernel_cases)
     split_rows = {mode: check_kernels(ph, pw, True, *dts, mode, cases=split_kernel_cases)
                   for mode, dts in SPLIT_MODES.items()}
+    for mode, dts in SPLIT_MODES.items():    # K4 and K5 at W on the RGB and batch=4 stacks
+        for planes in PLANES_12MP:
+            check_kernels(ph, pw, False, *dts, f"planes,{mode}", names=FULL_WIDTH_H,
+                          planes=planes, cases=split_kernel_cases)
     k13_loop_rows = {mode: check_kernels(ph, pw, True, *dts, mode, names=("ifft_w",),
                                          cases=split_kernel_cases)["ifft_w"]
                      for mode, dts in PALLAS_K13_MODES.items()}
@@ -1572,7 +1606,9 @@ def main():
     # composition fft_h_combine2 at bf16 io, f32 beside it; P1-P3: the
     # bandwidth phase's timed runs, the numbers its bf16 and f32 rows at
     # br = 16, P3 with 40 constant planes; K13 also under "pallas_bf16",
-    # bf16 in and out as the pallas loop runs it).  bound_measured_ms is the bound
+    # bf16 in and out as the pallas loop runs it; K4 and K5 also under
+    # "full_width", the split phase's rows at the lane width W, bench
+    # mode and f32).  bound_measured_ms is the bound
     # at the card's measured streaming ceiling (the bandwidth phase's
     # measured_bytes_per_s) instead of the data sheet's rate
     paths = {"end_to_end_headline": counts, "v2_headline": counts_v2,
@@ -1617,8 +1653,11 @@ def main():
          "replaces": KERNEL_INFO[name][2], "label": KERNEL_INFO[name][0],
          "launches": paths[path[name]][name], "path": path[name],
          "launches_by_path": {p: c[name] for p, c in paths.items()},
-         **design(name, pw), **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
+         **design(name, ph, pw), **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
          "f32": {"launches": f32_launches[name], **row(name, "f32")},
+         **({"full_width": {"bench": row(f"{name}:full_width", "headline"),
+                            "f32": row(f"{name}:full_width", "f32")}}
+            if f"{name}:full_width" in FULL_WIDTH_H else {}),
          **{mode: row(name, mode) for mode in PALLAS_K13_MODES if name in krows[mode]}}
         for name in KERNEL_INFO]})
     print(json.dumps({"ok": True, "device": {

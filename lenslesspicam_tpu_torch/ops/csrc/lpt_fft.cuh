@@ -2,8 +2,10 @@
 // block (64 <= M <= 8192), the packed-real forward and inverse W
 // transforms built on it (the radix designs of K1, K2 and K6, M <= 4096),
 // the inverse of two full-width spectra
-// (the radix designs of K11 and K13, 512 <= M <= 8192) and the forward
-// transform of two real rows (K12's radix design, 512 <= M <= 8192).
+// (the radix designs of K11 and K13, 512 <= M <= 8192), the forward
+// transform of two real rows (K12's radix design, 512 <= M <= 8192) and
+// the column form: one transform down each lane of a tile of columns
+// (K5's radix design, M = 128).
 //
 // Schedule (decimation in frequency, in place).  Pass s has radix R_s =
 // 16, except the last, which takes the rest (2, 4, 8 or 16), and input
@@ -145,13 +147,20 @@ __device__ __forceinline__ void butterflies(float2 (&v)[RADIX], const float2* __
   }
 }
 
-// Shared index of element r of the thread's butterfly i in pass s.
+// Position in the transform of element r of the thread's butterfly i in
+// pass s.
 template <int M, int s>
-__device__ __forceinline__ int slot(int t, int i, int r) {
+__device__ __forceinline__ int position(int t, int i, int r) {
   using P = Plan<M>;
   constexpr int L = P::len(s), Q = L / P::radix(s);
   const int b = t + P::THREADS * i;
-  return pad((b / Q) * L + (b & (Q - 1)) + Q * r);
+  return (b / Q) * L + (b & (Q - 1)) + Q * r;
+}
+
+// Shared index of element r of the thread's butterfly i in pass s.
+template <int M, int s>
+__device__ __forceinline__ int slot(int t, int i, int r) {
+  return pad(position<M, s>(t, i, r));
 }
 
 template <int M, int s>
@@ -657,6 +666,126 @@ __device__ void fft_two_real_rows(const T* __restrict__ x0, const T* __restrict_
       stv<V>(x1i + p0, bi);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Column form (K5's radix design): the transforms of length M down the
+// columns of a tile of TW lanes, one column a lane, M / 16 threads a
+// column.  Thread (lane, t) = threadIdx.x as lane + TW t, so a warp is 32
+// consecutive lanes of one t: every device access of a warp is 32
+// consecutive elements of one row of the (n1, n2, W) view, and every
+// shared access 32 consecutive float2 of the buffer laid out
+// [position][lane] (sm[p TW + lane], M TW float2), which needs no pad.
+//
+// Forward (col_fft): the thread's pass-0 registers v[r] at column
+// position j = t + T r, as the caller loads them; the passes of the row
+// FFT above, each exchange through the buffer at the positions of the
+// pass that wrote and of the pass that reads; after the last pass v[i R +
+// c] holds frequency(t + T i, c) (digit order).
+//
+// Inverse (col_ifft): the forward network transposed, which takes that
+// digit order in and gives natural order out.  Each pass of the forward
+// network maps its butterflies' inputs to outputs by D (DFT_R x) with D
+// the twiddles and DFT_R symmetric; the transposed network runs the
+// passes from the last, each as DFT_R (D x) on the same positions, and so
+// computes the DFT of the natural-order vector whose digit-order
+// registers it was given.  On conj(F) that is conj of the unscaled inverse
+// of F.  One exchange a pass boundary, as the forward takes: the
+// alternative, an exchange into natural order and then the forward passes
+// by conjugation (K11's way), needs two.  After pass 0 v[r] holds
+// position j = t + T r, which the caller stores to its own row.
+// ---------------------------------------------------------------------------
+
+// v <-> the buffer at the positions of pass s, in the column of `lane`.
+template <int M, int s, int TW>
+__device__ __forceinline__ void col_to_shared(const float2 (&v)[RADIX], float2* sm, int t,
+                                              int lane) {
+  constexpr int R = Plan<M>::radix(s);
+#pragma unroll
+  for (int i = 0; i < RADIX / R; ++i)
+#pragma unroll
+    for (int r = 0; r < R; ++r) sm[position<M, s>(t, i, r) * TW + lane] = v[i * R + r];
+}
+
+template <int M, int s, int TW>
+__device__ __forceinline__ void col_from_shared(float2 (&v)[RADIX], const float2* sm, int t,
+                                                int lane) {
+  constexpr int R = Plan<M>::radix(s);
+#pragma unroll
+  for (int i = 0; i < RADIX / R; ++i)
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[i * R + r] = sm[position<M, s>(t, i, r) * TW + lane];
+}
+
+// Passes s.. of the forward column transform: pass s - 1's outputs go to
+// the buffer at its positions and come back at pass s's.  The first write
+// needs the buffer free (the caller's barrier); a later one goes to the
+// positions the thread itself read.
+template <int M, int s, int TW>
+__device__ __forceinline__ void col_passes(float2 (&v)[RADIX], float2* sm,
+                                           const float2* __restrict__ tw, int t, int lane) {
+  if constexpr (s < Plan<M>::PASSES) {
+    col_to_shared<M, s - 1, TW>(v, sm, t, lane);
+    __syncthreads();
+    col_from_shared<M, s, TW>(v, sm, t, lane);
+    butterflies<M, s>(v, tw, t);
+    col_passes<M, s + 1, TW>(v, sm, tw, t, lane);
+  }
+}
+
+// Forward transform of the thread's column (see above).  Starts with the
+// buffer free.
+template <int M, int TW>
+__device__ __forceinline__ void col_fft(float2 (&v)[RADIX], float2* sm,
+                                        const float2* __restrict__ tw, int t, int lane) {
+  butterflies<M, 0>(v, tw, t);
+  col_passes<M, 1, TW>(v, sm, tw, t, lane);
+}
+
+// Pass s of the transposed network on the thread's registers: pass s's
+// twiddles (none in the last pass), then its DFTs.
+template <int M, int s>
+__device__ __forceinline__ void butterflies_t(float2 (&v)[RADIX], const float2* __restrict__ tw,
+                                              int t) {
+  using P = Plan<M>;
+  constexpr int R = P::radix(s), Q = P::len(s) / R;
+#pragma unroll
+  for (int i = 0; i < RADIX / R; ++i) {
+    if constexpr (s < P::PASSES - 1) {
+      const int u = (t + P::THREADS * i) & (Q - 1);
+#pragma unroll
+      for (int c = 1; c < R; ++c)
+        v[i * R + c] = cmul(v[i * R + c], __ldg(tw + P::tw_off(s) + (c - 1) * Q + u));
+    }
+    dft<R>(v, i * R);
+  }
+}
+
+// Passes s, s - 1, .., 0 of the transposed network: after pass s the
+// registers go to the buffer at its positions and come back at pass
+// s - 1's.  The first write needs the buffer free (the caller's barrier).
+template <int M, int s, int TW>
+__device__ __forceinline__ void col_passes_t(float2 (&v)[RADIX], float2* sm,
+                                             const float2* __restrict__ tw, int t, int lane) {
+  butterflies_t<M, s>(v, tw, t);
+  if constexpr (s > 0) {
+    col_to_shared<M, s, TW>(v, sm, t, lane);
+    __syncthreads();
+    col_from_shared<M, s - 1, TW>(v, sm, t, lane);
+    col_passes_t<M, s - 1, TW>(v, sm, tw, t, lane);
+  }
+}
+
+// v (digit order, as col_fft leaves it) <- the unscaled inverse of the
+// spectrum F it holds, at j = t + T r.  Starts with the buffer free.
+template <int M, int TW>
+__device__ __forceinline__ void col_ifft(float2 (&v)[RADIX], float2* sm,
+                                         const float2* __restrict__ tw, int t, int lane) {
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) v[r].y = -v[r].y;
+  col_passes_t<M, Plan<M>::PASSES - 1, TW>(v, sm, tw, t, lane);
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) v[r].y = -v[r].y;
 }
 
 }  // namespace fft

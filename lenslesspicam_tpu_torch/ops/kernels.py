@@ -8,7 +8,7 @@ storage mode of the JAX package).
 | ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu`` |
 | ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu`` |
 | ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu`` |
-| ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu`` |
+| ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu``, ``csrc/lpt_fft.cuh`` |
 | ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu`` |
 | ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
 | ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cu`` |
@@ -371,17 +371,19 @@ def _unpack_natural_np(m: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _design_table(n: int, with_unpack: bool, design: str, device: torch.device):
+def _design_table(n: int, with_unpack: bool, design: str, device: torch.device,
+                  radix_n: int | None = None):
     """The table of a kernel with two designs (K1, K2, K6: length M with
-    the unpack factors E; K11-K13: length W without them): the split-order
-    table (:func:`_table_np`), followed in the "radix" design by
-    :func:`_radix_twiddles_np` of the same length and, with the unpack
-    factors, by :func:`_unpack_natural_np`.  The prefix is the split
-    design's whole table, so a build of either design reads its constants
-    from the same argument."""
+    the unpack factors E; K11-K13: length W without them; K5: length H
+    without them, its radix FFT over the factor ``radix_n`` = n2): the
+    split-order table (:func:`_table_np`), followed in the "radix" design
+    by :func:`_radix_twiddles_np` of length ``radix_n`` (default n) and,
+    with the unpack factors, by :func:`_unpack_natural_np`.  The prefix is
+    the split design's whole table, so a build of either design reads its
+    constants from the same argument."""
     t = _table_np(n, with_unpack)
     if design == "radix":
-        t = np.concatenate([t, _radix_twiddles_np(n)]
+        t = np.concatenate([t, _radix_twiddles_np(radix_n or n)]
                            + ([_unpack_natural_np(n)] if with_unpack else []))
     return torch.view_as_real(torch.from_numpy(t)).contiguous().to(device)
 
@@ -764,6 +766,25 @@ def h_passB_combine2(xr, xi, yr, yi, hr, hi, rr, n):
 # ---------------------------------------------------------------------------
 
 
+# K5's radix design (csrc/lpt_fft.cuh, the column form of the radix FFT):
+# each lane's length-n2 column is one transform of n2 / RADIX threads, a
+# block TW lanes of one k1.  ``factors`` gives n2 = 128 to every H that is
+# a multiple of 128 up to 32768 (the 12 MP grid's 6144 = 48 x 128, 768 =
+# 6 x 128); other n2 run the split design.  The C entry's RN2
+# (csrc/h_combine.cu) is this length.
+H_RADIX_N2 = 128
+
+
+def h_combine_dual_design(n2: int) -> str:
+    """K5's design for the stage-2 length n2, by shape alone: "radix" (the
+    column form of the radix FFT, ``csrc/lpt_fft.cuh``) for n2 =
+    ``H_RADIX_N2``, any lane width W; "split" (the two-stage DFT of
+    ``csrc/lpt_dft.cuh``, any factorization) for any other n2.
+    ``lpt_h_combine_dual`` makes the same choice; neither design falls
+    back on the other."""
+    return "radix" if n2 == H_RADIX_N2 else "split"
+
+
 def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):
     a = _bc(_stage2(_c32(xar, xai), n, False), hr)
     b = _bc(_stage2(_c32(yar, yai), n, False), hr)
@@ -781,7 +802,9 @@ def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
     conj(H) B), F1 = H F, and the inverse stage 2 of F and F1; all planes
     (n1, n2, W) or stacks (P, n1, n2, W) at the io dtype, the filter
     planes H and R included (a plane or a stack of Pc, P % Pc == 0: plane
-    p is filtered by filter plane p % Pc).  Returns (a0r, a0i, a1r,
+    p is filtered by filter plane p % Pc).  The kernel's design follows n2
+    alone (:func:`h_combine_dual_design`): the radix column form for n2 =
+    128, the split design for any other n2.  Returns (a0r, a0i, a1r,
     a1i)."""
     ins = [xar, xai, yar, yai, hr, hi, rr]
     p = _depth("h_combine_dual", xar, xar.shape[-3:])
@@ -794,8 +817,9 @@ def h_combine_dual(xar, xai, yar, yai, hr, hi, rr, n):
         return h_combine_dual_plain(*ins, n)
     outs = [_empty(xar.shape, xar) for _ in range(4)]
     _launch("h_combine", "lpt_h_combine_dual", "pppppppppppp" + "iiiiii",
-            *ins, *outs, _table(n, False, xar.device), p, pc, n1, n2, w,
-            _CODE[xar.dtype])
+            *ins, *outs,
+            _design_table(n, False, h_combine_dual_design(n2), xar.device, radix_n=n2),
+            p, pc, n1, n2, w, _CODE[xar.dtype])
     h_combine_dual.launches += 1
     return tuple(outs)
 
