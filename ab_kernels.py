@@ -10,8 +10,10 @@ with ``nvcc`` (a library whose sources match one already built is
 reused), then every kernel of
 ``chip_smoke.kernel_cases`` (a mode of ``chip_smoke.MODES``: headline,
 f32) and of ``chip_smoke.split_kernel_cases`` (a mode of
-``chip_smoke.SPLIT_MODES``: f32, bench, K4 and K5 among them at the lane
-width W as "name:full_width"; K13 alone in
+``chip_smoke.SPLIT_MODES``: f32, bench, K4, K5 and K14 among them at the
+lane width W as "name:full_width", K4's inverse as
+"h_passA_pair:full_width_inverse"; K4's inverse at the v3 lanes is
+"h_passA_pair:inverse"; K13 alone in
 ``chip_smoke.PALLAS_K13_MODES``: pallas_bf16) is timed at 12 MP in each mode
 named, in the order A, B, B, A per round (A, B1 .. Bn, Bn .. B1, A with
 several; CUDA events, median of 7 after
@@ -23,7 +25,7 @@ times the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``
 and the full-width ``chip_smoke.SPLIT_KERNELS`` and ``FULL_WIDTH_H``) on stacks of P planes
 over Pc constant planes instead of one plane;
 ``--kernels`` keeps only the kernels named (a wrapper's name keeps its
-"name:full_width" rows too).  Prints one JSON line per
+"name:form" rows too).  Prints one JSON line per
 kernel, mode and stack with each tree's median and its ratio to A (with
 one other tree also ``a_ms``, ``b_ms`` and ``b_over_a``), then the card's
 name and power limit.  Exits non-zero without a CUDA device.

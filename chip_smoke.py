@@ -6,9 +6,12 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
 grid in every storage-dtype combination the kernels are built for, K1, K2
 and K6 also at 96 x 384 and 96 x 1536 and K11-K13 at 96 x 1536, where each
-runs its split design instead of the radix FFT, and K5, which runs its
+runs its split design instead of the radix FFT, K5, which runs its
 split design at 96 x 128, in its radix design's column form at 256 x 80,
-a guarded lane tile; at the 12 MP grid in the
+a guarded lane tile, and K4 and K14, which run their split designs at 96
+x 128 and their radix designs (n1 = 48) at 6144 x 80, a guarded lane
+tile, alone and stacked, K4 and K14 in both directions wherever they
+are held; at the 12 MP grid in the
 f32 mode and in the JAX bench's headline storage mode, bf16 spectra with
 int16 carries, K2 and K6 there in every combination; each
 kernel that takes a plane axis also on a stack of 6 planes over 3
@@ -20,12 +23,12 @@ kernels in both modes and both kernel placements (v3, v2), passes the
 JAX bench's gates (bench.py:376-435) in the headline mode, runs its RGB
 and gray batch=4 rungs (bench.py:573-700) per plane in the headline
 mode, runs the full-width split solver (``run_split(backend="fused")``,
-K10, K4, K5, K4, K11) and its kernels K10-K13, and K4 and K5 at its
-lane width W (phase ``split``: every
+K10, K4, K5, K4, K11) and its kernels K10-K13, and K4, K5 and K14 at
+its lane width W (phase ``split``: every
 built storage combination at 96 x 512, a 6-over-3 stack, K11-K13 also at
 96 x 1536 alone and stacked, K12 and K13 at an odd row count at W = 512
-and 8192, both modes at 12 MP, K4 and K5 there also on the RGB and
-batch=4 stacks, K13 also bf16 in and out as the pallas
+and 8192, both modes at 12 MP, K4, K5 and K14 there also on the RGB
+and batch=4 stacks, K13 also bf16 in and out as the pallas
 loop runs it, the K12 -> K13 round trip, the f32 and bench-mode solves
 against the exact one, their rates),
 runs its pass-level backend (``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
@@ -93,6 +96,14 @@ W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w")
 # radix design on whole tiles, the 96 x 128 grid and GRIDS' 540 x 960,
 # 480 x 640 and 96 x 270 the split one)
 K5_GUARDED = (256, 80)
+# K4's and K14's radix design (n1 = 48, kernels.h_pass_a_design) with its
+# last lane tile cut: H = 48 x 128, lane widths 40 (K4 in the v3 loop's
+# cases, M = W / 2) and 80 (K4 and K14 at the full width W), neither a
+# multiple of the 64-lane tile (the 12 MP grid runs the radix design on
+# whole tiles, every other grid the split one); K4 and K14 in both
+# directions
+K4_GUARDED = (6144, 80)
+K4_NAMES = ("h_passA_pair", "h_passA_pair:inverse", "h_passA")
 # sensors whose padded grids take the general form of the split designs
 # (csrc/lpt_dft.cuh general_form: a factor not a multiple of 4 or n1 = 1,
 # a lane width not a multiple of an H kernel's tile, an odd half width),
@@ -154,8 +165,8 @@ PLANES = (6, 3)              # P planes over Pc constant planes, small-grid chec
 # planes over 1) rungs, at 12 MP: every plane and constant plane seeded
 # apart, so a kernel that read the wrong plane would disagree
 PLANES_12MP = ((3, 3), (4, 1))
-PLANE_KERNELS = ("rfft_w", "e1_rtv", "h_passA_pair", "h_combine_dual",
-                 "irfft_w_dual_state", "e1_rcarry", "irfft_w_dual")
+PLANE_KERNELS = ("rfft_w", "e1_rtv", "h_passA_pair", "h_passA_pair:inverse",
+                 "h_combine_dual", "irfft_w_dual_state", "e1_rcarry", "irfft_w_dual")
 # (io, carry_tv, carry_v) of the small-grid loop: each knob alone, bf16
 # carries, the headline mode (as tests/test_torch_modes.py)
 LOOP_MODES = [("bf16", "f32", "f32"), ("f32", "i16", "f32"), ("f32", "f32", "i16"),
@@ -175,8 +186,10 @@ K10_COMBOS = [(io, tv, v, F32) for io in (F32, BF16) for tv in (F32, BF16)
               for v in (F32, BF16, I16)]
 W_COMBOS = [(io, F32, F32, out) for io in (F32, BF16) for out in (F32, BF16)]
 SPLIT_KERNELS = ("e1_carry", "ifft_w_dual", "fft_w", "ifft_w")
-# K4 and K5 on the full-width loop's (n1, n2, W) view (split_kernel_cases)
-FULL_WIDTH_H = ("h_passA_pair:full_width", "h_combine_dual:full_width")
+# K4 (both directions), K5 and K14 on the full-width loop's (n1, n2, W)
+# view (split_kernel_cases)
+FULL_WIDTH_H = ("h_passA_pair:full_width", "h_passA_pair:full_width_inverse",
+                "h_combine_dual:full_width", "h_passA:full_width")
 # the pass-level backend: io f32 or bf16, no carries
 PALLAS_IO = {"f32": F32, "bf16": BF16}
 # the kernels of the pallas backend's loop (K12, K13 and the K14 and K15
@@ -391,6 +404,8 @@ def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
         "e1_rtv": ((img, a0, a1, b, p.mu2, p.mu3, p.tau),
                    w_row + pts * (TV_OPS + (3 * SAT_OPS if tv == I16 else 0))),
         "h_passA_pair": ((*q, ph, False), 2 * rows * m * (5.0 * math.log2(h1) + 6)),
+        # the loop's second K4: T_inv, the inverse stage and 1/n
+        "h_passA_pair:inverse": ((*q, ph, True), 2 * rows * m * (5.0 * math.log2(h1) + 8)),
         "h_combine_dual": ((*c, ph), rows * m * (4 * 5.0 * math.log2(h2) + COMBINE_OPS)),
         "irfft_w_dual_state": ((*s, vc, mask, dp, p.mu1),
                                3 * w_row + pts * (X_OPS + (SAT_OPS if v == I16 else 0))),
@@ -404,7 +419,7 @@ def kernel_cases(ph, pw, gen, io, tv, v, k2_out, planes=None):
 
 def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
     """The full-width kernels' inputs at the shapes the full-width loop
-    gives them (K12 and K13 at the plane's; K4 and K5 under
+    gives them (K12 and K13 at the plane's; K4, K5 and K14 under
     "name:full_width", at the lane width W), as :func:`kernel_cases`:
     spectra and static planes at ``io``, the TV carries at ``tv`` and at
     their KKT scale, v at ``v`` and of order mu1, K13's output at
@@ -437,14 +452,18 @@ def split_kernel_cases(ph, pw, gen, io, tv, v, out, planes=None):
         "ifft_w": ((rn(*lp, ph, pw), rn(*lp, ph, pw), out), w_inv),
     }
     # K4 and K5 at the lane width W the full-width loop gives them
-    # (kernel_cases holds them at the v3 loop's M = W / 2)
+    # (kernel_cases holds them at the v3 loop's M = W / 2), and K14 there
+    # (the pallas loop's lane width) under the same key form
     h1, h2 = K.factors(ph)
     q = [rn(*lp, h1, h2, pw) for _ in range(4)]
     c = [rn(*lp, h1, h2, pw) for _ in range(4)] + [rn(*lc, h1, h2, pw) for _ in range(3)]
     cases.update({
         "h_passA_pair:full_width": ((*q, ph, False), 2 * rows * pw * (5.0 * math.log2(h1) + 6)),
+        "h_passA_pair:full_width_inverse": ((*q, ph, True),
+                                            2 * rows * pw * (5.0 * math.log2(h1) + 8)),
         "h_combine_dual:full_width": ((*c, ph),
-                                      rows * pw * (4 * 5.0 * math.log2(h2) + COMBINE_OPS))})
+                                      rows * pw * (4 * 5.0 * math.log2(h2) + COMBINE_OPS)),
+        "h_passA:full_width": ((*q[:2], ph, False), rows * pw * (5.0 * math.log2(h1) + 6))})
     return cases
 
 
@@ -533,16 +552,39 @@ def library_call(name, args):
     return None
 
 
+# a PyTorch call beside a kernel that computes a related function but not
+# the kernel's own (``reference_ms``, used nowhere in the port): K4's and
+# K14's stage without its twiddle
+REFERENCE = {name: "torch.fft.fft(x, dim=-3) on the same complex planes (f32 copies): "
+                   "cuFFT's length-n1 stage without the twiddle T, not the same function"
+             for name in ("h_passA_pair", "h_passA")}
+
+
+def reference_call(name, args):
+    """The call of REFERENCE for the kernel ``name`` (the wrapper's name,
+    any form) on its inputs, or None."""
+    if name.split(":")[0] not in REFERENCE:
+        return None
+    planes = [torch.complex(r.float(), i.float()) for r, i in zip(args[0:4:2], args[1:4:2])
+              if isinstance(r, torch.Tensor) and isinstance(i, torch.Tensor)]
+    x = torch.stack(planes) if len(planes) > 1 else planes[0]
+    return lambda: torch.fft.fft(x, dim=-3)
+
+
 def design(name, ph, pw):
     """{"design": ...} of a kernel with two designs chosen by shape (K1,
     K2 and K6 by M = pw / 2, K11-K13 by W = pw, one rule each; K5 by the
-    n2 of H = ph), else {}."""
+    n2 of H = ph; K4 and K14 by its n1), else {}; ``name`` may carry a
+    ":form"."""
+    name = name.split(":")[0]
     if name in M_NAMES:
         return {"design": K.rfft_w_design(pw // 2)}
     if name in W_SPLIT_NAMES:
         return {"design": K.fft_w_design(pw)}
     if name == "h_combine_dual":
         return {"design": K.h_combine_dual_design(K.factors(ph)[1])}
+    if name in K4_NAMES:
+        return {"design": K.h_pass_a_design(K.factors(ph)[0])}
     return {}
 
 
@@ -590,6 +632,9 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
                        bytes=byt, flops=flops, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        library_ms=time_ms(lib) if lib else None)
+            ref_call = reference_call(name, args)
+            if ref_call:
+                row.update(reference_ms=time_ms(ref_call), reference=REFERENCE[fn])
         emit(dict(phase="kernel", **row))
         rows[name] = row
     return rows
@@ -1452,6 +1497,15 @@ def main():
         for planes in (None, PLANES):
             check_kernels(*K5_GUARDED, False, *dts, f"{'planes,' if planes else ''}{mode}",
                           names=("h_combine_dual",), planes=planes)
+    for mode, dts in MODES.items():      # K4's and K14's radix design on a cut lane tile,
+        # both directions
+        for planes in (None, PLANES):
+            tag = f"{'planes,' if planes else ''}{mode}"
+            check_kernels(*K4_GUARDED, False, *dts, tag, names=K4_NAMES, planes=planes)
+            check_kernels(*K4_GUARDED, False, *dts, tag, names=FULL_WIDTH_H, planes=planes,
+                          cases=split_kernel_cases)
+            check_kernels(*K4_GUARDED, False, *dts, tag, planes=planes,
+                          names=("h_passA", "h_passA:inverse"), cases=pallas_kernel_cases)
     for io, tv, v, k2_out in COMBOS:     # K2's and K6's radix designs in every combination
         for planes in (None, *PLANES_12MP):
             check_kernels(ph, pw, False, io, tv, v, k2_out,
@@ -1480,7 +1534,7 @@ def main():
                           cases=split_kernel_cases)
     split_rows = {mode: check_kernels(ph, pw, True, *dts, mode, cases=split_kernel_cases)
                   for mode, dts in SPLIT_MODES.items()}
-    for mode, dts in SPLIT_MODES.items():    # K4 and K5 at W on the RGB and batch=4 stacks
+    for mode, dts in SPLIT_MODES.items():    # K4, K5, K14 at W on the RGB and batch=4 stacks
         for planes in PLANES_12MP:
             check_kernels(ph, pw, False, *dts, f"planes,{mode}", names=FULL_WIDTH_H,
                           planes=planes, cases=split_kernel_cases)
@@ -1606,8 +1660,8 @@ def main():
     # composition fft_h_combine2 at bf16 io, f32 beside it; P1-P3: the
     # bandwidth phase's timed runs, the numbers its bf16 and f32 rows at
     # br = 16, P3 with 40 constant planes; K13 also under "pallas_bf16",
-    # bf16 in and out as the pallas loop runs it; K4 and K5 also under
-    # "full_width", the split phase's rows at the lane width W, bench
+    # bf16 in and out as the pallas loop runs it; K4, K5 and K14 also
+    # under "full_width", the split phase's rows at the lane width W, bench
     # mode and f32).  bound_measured_ms is the bound
     # at the card's measured streaming ceiling (the bandwidth phase's
     # measured_bytes_per_s) instead of the data sheet's rate
@@ -1644,7 +1698,8 @@ def main():
     def row(name, mode):
         r = krows[mode][name]
         bound_measured = max(r["bytes"] / measured, r["flops"] / F32_FLOP_PER_S) * 1e3
-        return {**{k: r[k] for k in keys}, "bound_measured_ms": bound_measured}
+        return {**{k: r[k] for k in keys}, "bound_measured_ms": bound_measured,
+                **{k: r[k] for k in ("reference_ms", "reference") if k in r}}
 
     seconds["total"] = time.perf_counter() - t_start
     emit({"phase": "seconds", **seconds})
@@ -1655,6 +1710,9 @@ def main():
          "launches_by_path": {p: c[name] for p, c in paths.items()},
          **design(name, ph, pw), **row(name, "headline"), "library_none": LIBRARY_NONE.get(name),
          "f32": {"launches": f32_launches[name], **row(name, "f32")},
+         **({"inverse": {"headline": row(f"{name}:inverse", "headline"),
+                         "f32": row(f"{name}:inverse", "f32")}}
+            if f"{name}:inverse" in krows["headline"] else {}),
          **({"full_width": {"bench": row(f"{name}:full_width", "headline"),
                             "f32": row(f"{name}:full_width", "f32")}}
             if f"{name}:full_width" in FULL_WIDTH_H else {}),

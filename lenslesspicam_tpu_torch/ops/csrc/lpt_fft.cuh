@@ -5,7 +5,8 @@
 // (the radix designs of K11 and K13, 512 <= M <= 8192), the forward
 // transform of two real rows (K12's radix design, 512 <= M <= 8192) and
 // the column form: one transform down each lane of a tile of columns
-// (K5's radix design, M = 128).
+// (K5's radix design, M = 128), and the pieces of a length-48 = 3 x 16
+// transform (K4's and K14's radix design, the end of this file).
 //
 // Schedule (decimation in frequency, in place).  Pass s has radix R_s =
 // 16, except the last, which takes the rest (2, 4, 8 or 16), and input
@@ -786,6 +787,63 @@ __device__ __forceinline__ void col_ifft(float2 (&v)[RADIX], float2* sm,
   col_passes_t<M, Plan<M>::PASSES - 1, TW>(v, sm, tw, t, lane);
 #pragma unroll
   for (int r = 0; r < RADIX; ++r) v[r].y = -v[r].y;
+}
+
+// ---------------------------------------------------------------------------
+// Length 48 = 3 x 16 (the radix design of K4 and K14, the H axis's stage 1
+// at n1 = 48), decimation in time: with j = 3 j' + g and k = k' + 16 c,
+//   X[k] = sum_g exp(-2 pi i g c / 3) Y_g[k'],
+//   Y_g[k'] = exp(-2 pi i g k' / 48) sum_j' x[3 j' + g] exp(-2 pi i j' k' / 16),
+// three length-16 DFTs (dft<16>), their twiddles, then 16 radix-3
+// butterflies.  Every root is a constant once the caller's loops unroll:
+// the roots are immediates of the multiplies, no table.
+// ---------------------------------------------------------------------------
+
+constexpr int N48 = 48;
+
+// cos(2 pi q / 48), q = 0 .. 12, from float64 values rounded to f32.
+__device__ __forceinline__ float cos48(int q) {
+  switch (q) {
+    case 0: return 1.f;
+    case 1: return 0.99144486137381038f;
+    case 2: return 0.96592582628906829f;
+    case 3: return 0.92387953251128674f;
+    case 4: return 0.86602540378443865f;
+    case 5: return 0.79335334029123517f;
+    case 6: return 0.70710678118654752f;
+    case 7: return 0.60876142900872066f;
+    case 8: return 0.5f;
+    case 9: return 0.38268343236508980f;
+    case 10: return 0.25881904510252074f;
+    case 11: return 0.13052619222005159f;
+    default: return 0.f;
+  }
+}
+
+// x * exp(-2 pi i m / 48), m >= 0 a constant once the caller's loops
+// unroll: a multiple of 3 is a root of 16 (mul_w16: 1, -i, -1, i cost no
+// multiply); any other is exp(-2 pi i q / 48) (q = m mod 12) turned by m /
+// 12 quarter turns, each (a, b) -> (b, -a).
+__device__ __forceinline__ float2 mul_w48(float2 x, int m) {
+  m %= N48;
+  if (m % 3 == 0) return mul_w16(x, m / 3);
+  const int q = m % 12;
+  float2 w = make_float2(cos48(q), -cos48(12 - q));
+#pragma unroll
+  for (int t = 0; t < m / 12; ++t) w = make_float2(w.y, -w.x);
+  return cmul(x, w);
+}
+
+// Output c (0, 1 or 2) of the length-3 DFT of (a, b, d): a + b + d, or
+// m -/+ i sin(2 pi / 3) t with m = a - (b + d) / 2, t = b - d.
+__device__ __forceinline__ float2 radix3(float2 a, float2 b, float2 d, int c) {
+  constexpr float H3 = 0.86602540378443865f;  // sin(2 pi / 3)
+  const float2 s = make_float2(b.x + d.x, b.y + d.y);
+  if (c == 0) return make_float2(a.x + s.x, a.y + s.y);
+  const float2 t = make_float2(b.x - d.x, b.y - d.y);
+  const float2 m = make_float2(a.x - 0.5f * s.x, a.y - 0.5f * s.y);
+  const float h = c == 1 ? H3 : -H3;
+  return make_float2(m.x + h * t.y, m.y - h * t.x);
 }
 
 }  // namespace fft

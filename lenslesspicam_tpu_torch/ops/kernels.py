@@ -7,7 +7,7 @@ storage mode of the JAX package).
 | ``rfft_w`` (K1) | ``rfft_w`` / ``_w_rfwd_kernel`` | ``csrc/rfft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu`` |
 | ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu`` |
-| ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu`` |
+| ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu``, ``csrc/lpt_fft.cuh`` |
 | ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu`` |
 | ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
@@ -17,7 +17,7 @@ storage mode of the JAX package).
 | ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu``, ``csrc/lpt_fft.cuh`` |
 | ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu``, ``csrc/lpt_fft.cuh`` |
-| ``h_passA`` (K14) | ``h_passA`` / ``_h_passA_kernel`` | ``csrc/h_pass_a.cu`` |
+| ``h_passA`` (K14) | ``h_passA`` / ``_h_passA_kernel`` | ``csrc/h_pass_a.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_passB`` (K15) | ``h_passB`` / ``_h_passB_kernel`` | ``csrc/h_pass_b.cu`` |
 | ``h_passB_combine`` (K16) | ``h_passB_combine`` / ``_h_passB_combine_kernel`` | ``csrc/h_pass_b.cu`` |
 | ``h_passB_dual`` (K17) | ``h_passB_dual`` / ``_h_passB_dual_kernel`` | ``csrc/h_pass_b.cu`` |
@@ -548,6 +548,27 @@ def _h_view(name, t, n):
     return n1, n2, w
 
 
+# K4's and K14's radix design (csrc/h_pass_a.cu on fft::mul_w48 and
+# fft::radix3 of csrc/lpt_fft.cuh): each lane's length-n1 column is one
+# length-48 DFT (3 x 16) run by three threads, a block RTW lanes of one j2.
+# ``factors`` gives n1 = 48 to the 12 MP grid's H = 6144 = 48 x 128; other
+# n1 run the split design.  The C entries' RN1 (csrc/h_pass_a.cu) is this
+# length.
+H_RADIX_N1 = 48
+
+
+def h_pass_a_design(n1: int) -> str:
+    """K4's and K14's design for the stage-1 length n1, by shape alone:
+    "radix" (three threads a column, the length-48 DFT as 3 x 16 with
+    constant roots, ``csrc/lpt_fft.cuh``) for n1 = ``H_RADIX_N1``, any n2
+    and lane width W; "split" (the two-stage DFT of ``csrc/lpt_dft.cuh``,
+    any factorization) for any other n1.  ``lpt_h_pass_a_pair`` and
+    ``lpt_h_pass_a`` make the same choice; neither design falls back on
+    the other.  Both read the split table (:func:`_table`): the radix
+    design its twiddles T and T_inv, its roots being constants."""
+    return "radix" if n1 == H_RADIX_N1 else "split"
+
+
 def h_passA_plain(xr, xi, n, inverse):
     F1, _, T, scale = _plan_t(n, inverse, xr.device)
     *lead, n1, n2, w = xr.shape
@@ -568,7 +589,9 @@ def h_passA_pair(x1r, x1i, x2r, x2i, n, inverse):
     """H-axis stage 1 on two complex planes (or stacks of planes) viewed
     (n1, n2, W) / (P, n1, n2, W).  Forward: contract j1 with F1, then
     twiddle.  Inverse: twiddle, contract with the inverse F1, scale 1/n.
-    io dtype in and out.  Returns ((z1r, z1i), (z2r, z2i))."""
+    io dtype in and out.  The kernel's design follows n1 alone
+    (:func:`h_pass_a_design`): the radix design for n1 = 48, the split
+    design for any other n1.  Returns ((z1r, z1i), (z2r, z2i))."""
     planes = [x1r, x1i, x2r, x2i]
     p = _depth("h_passA_pair", x1r, x1r.shape[-3:])
     _check("h_passA_pair", planes, x1r.shape, IO_DTYPES)
@@ -589,8 +612,9 @@ def h_passA(xr, xi, n, inverse):
     """H-axis stage 1 on one complex plane (or stack of planes) viewed
     (n1, n2, W) / (P, n1, n2, W), as :func:`h_passA_pair` does on two:
     forward, contract j1 with F1 and twiddle; inverse, twiddle, contract
-    with the inverse F1 and scale 1/n.  io dtype in and out.  Returns
-    (zr, zi)."""
+    with the inverse F1 and scale 1/n.  io dtype in and out.  The
+    kernel's design follows n1 alone, as K4's (:func:`h_pass_a_design`).
+    Returns (zr, zi)."""
     p = _depth("h_passA", xr, xr.shape[-3:])
     _check("h_passA", [xr, xi], xr.shape, IO_DTYPES)
     cuda = _on_card("h_passA", [xr, xi], (xr.dtype, xi.dtype), {(d, d) for d in IO_DTYPES})
