@@ -4,16 +4,18 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
-grid in every storage-dtype combination the kernels are built for, K1, K2
-and K6 also at 96 x 384 and 96 x 1536 and K11-K13 at 96 x 1536, where each
-runs its split design instead of the radix FFT, K5, which runs its
+grid in every storage-dtype combination the kernels are built for, K1-K3
+and K6 also at 96 x 384 and 96 x 1536 and K10-K13 at 96 x 1536, where each
+runs its split design instead of the radix FFT (K3 and K10 run their
+radix designs, the TV step at the radix FFT's pass-0 positions, at the
+small grids and 12 MP), K5, which runs its
 split design at 96 x 128, in its radix design's column form at 256 x 80,
 a guarded lane tile, and K4 and K14, which run their split designs at 96
 x 128 and their radix designs (n1 = 48) at 6144 x 80, a guarded lane
 tile, alone and stacked, K4 and K14 in both directions wherever they
 are held; at the 12 MP grid in the
 f32 mode and in the JAX bench's headline storage mode, bf16 spectra with
-int16 carries, K2 and K6 there in every combination; each
+int16 carries, K2, K3 and K6 there in every combination; each
 kernel that takes a plane axis also on a stack of 6 planes over 3
 constant planes at the small grid and on the RGB and batch=4 rungs'
 stacks at 12 MP), runs the small-grid fused loop through the kernels against the plain loop in every storage
@@ -25,7 +27,7 @@ and gray batch=4 rungs (bench.py:573-700) per plane in the headline
 mode, runs the full-width split solver (``run_split(backend="fused")``,
 K10, K4, K5, K4, K11) and its kernels K10-K13, and K4, K5 and K14 at
 its lane width W (phase ``split``: every
-built storage combination at 96 x 512, a 6-over-3 stack, K11-K13 also at
+built storage combination at 96 x 512, a 6-over-3 stack, K10-K13 also at
 96 x 1536 alone and stacked, K12 and K13 at an odd row count at W = 512
 and 8192, both modes at 12 MP, K4, K5 and K14 there also on the RGB
 and batch=4 stacks, K13 also bf16 in and out as the pallas
@@ -76,20 +78,21 @@ from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
-# padded to 96 x 384: M = 192 = 16 x 12 is no power of two, so K1, K2 and
-# K6 run their split designs there (kernels.rfft_w_design, one rule for
-# the three), in the fast form (both factors multiples of 4), and their
+# padded to 96 x 384: M = 192 = 16 x 12 is no power of two, so K1, K2, K3
+# and K6 run their split designs there (kernels.rfft_w_design, one rule
+# for the four), in the fast form (both factors multiples of 4), and their
 # radix designs at M = 64 and 4096
 K1_SPLIT = (48, 192)
-M_NAMES = ("rfft_w", "irfft_w", "irfft_w_dual_state")
+M_NAMES = ("rfft_w", "irfft_w", "irfft_w_dual_state", "e1_rtv")
 # padded to 96 x 512: W = 512 = 4 x 128, the full-width kernels' small grid
 SMALL_SPLIT = (48, 256)
-# padded to 96 x 1536: W = 12 x 128 is no power of two, so K11, K12 and
-# K13 run their split designs there (kernels.ifft_w_dual_design,
-# fft_w_design, ifft_w_design) and their radix designs at 512 and 8192;
-# K2 and K6 (M = 768 = 6 x 128) their split designs in the general form
+# padded to 96 x 1536: W = 12 x 128 is no power of two, so K10-K13 run
+# their split designs there (kernels.e1_carry_design, ifft_w_dual_design,
+# fft_w_design, ifft_w_design: one rule) and their radix designs at 512
+# and 8192; K2, K3 and K6 (M = 768 = 6 x 128) their split designs in the
+# general form
 W_SPLIT = (48, 768)
-W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w")
+W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w", "e1_carry")
 # K5's radix design (n2 = 128, kernels.h_combine_dual_design) with its
 # last lane tile guarded: H = 2 x 128, half width 40, not a multiple of
 # the 32-lane tile (padded grid; the 12 MP and 768 x 1024 grids run the
@@ -572,9 +575,9 @@ def reference_call(name, args):
 
 
 def design(name, ph, pw):
-    """{"design": ...} of a kernel with two designs chosen by shape (K1,
-    K2 and K6 by M = pw / 2, K11-K13 by W = pw, one rule each; K5 by the
-    n2 of H = ph; K4 and K14 by its n1), else {}; ``name`` may carry a
+    """{"design": ...} of a kernel with two designs chosen by shape (K1-K3
+    and K6 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 by the n2
+    of H = ph; K4 and K14 by its n1), else {}; ``name`` may carry a
     ":form"."""
     name = name.split(":")[0]
     if name in M_NAMES:
@@ -1485,7 +1488,7 @@ def main():
                           names=M_NAMES, planes=planes)
             check_kernels(2 * W_SPLIT[0], 2 * W_SPLIT[1], False, *dts, f"planes,{mode}",
                           names=M_NAMES, planes=planes)
-    for io, tv, v, k2_out in COMBOS:     # K2 and K6's split designs, general form
+    for io, tv, v, k2_out in COMBOS:     # K2's, K3's and K6's split designs, general form
         check_kernels(2 * W_SPLIT[0], 2 * W_SPLIT[1], False, io, tv, v, k2_out,
                       f"io={NAME[io]},carry={NAME[tv]},k2_out={NAME[k2_out]}", names=M_NAMES)
     krows = {mode: check_kernels(ph, pw, True, *dts, mode) for mode, dts in MODES.items()}
@@ -1506,7 +1509,8 @@ def main():
                           cases=split_kernel_cases)
             check_kernels(*K4_GUARDED, False, *dts, tag, planes=planes,
                           names=("h_passA", "h_passA:inverse"), cases=pallas_kernel_cases)
-    for io, tv, v, k2_out in COMBOS:     # K2's and K6's radix designs in every combination
+    for io, tv, v, k2_out in COMBOS:     # K2's, K3's and K6's radix designs in every
+        # combination
         for planes in (None, *PLANES_12MP):
             check_kernels(ph, pw, False, io, tv, v, k2_out,
                           f"{'planes,' if planes else ''}io={NAME[io]},carry={NAME[tv]},"

@@ -1,7 +1,9 @@
 // Shared device code of the ADMM state kernels: the TV / non-negativity
 // step of one row (K3 `e1_rtv`, K8 `e1_rcarry` in the even/odd split lane
-// layout, K10 `e1_carry` in natural lane order) and the X / v update (K6
-// `irfft_w_dual_state`, K8, K10).
+// layout, K10 `e1_carry` in natural lane order), through a shared row in
+// the split designs (`tv_row`) and at a thread's pass-0 positions of the
+// radix FFT in the radix designs of K3 and K10 (`tv_pass0`), and the X / v
+// update (K6 `irfft_w_dual_state`, K8, K10).
 //
 // Planes may carry a leading plane axis: a kernel sees P * ph rows, row r
 // of plane r / ph.  The H axis is periodic within a plane, so the halo
@@ -10,7 +12,7 @@
 // reads constant plane p % Pc (`const_row`): the constants are broadcast
 // over the batch, never copied P times.
 #pragma once
-#include "lpt_dft.cuh"
+#include "lpt_fft.cuh"
 
 namespace lpt {
 
@@ -177,6 +179,162 @@ __device__ __forceinline__ void tv_row(const TI* __restrict__ img, const TC* __r
     } else {
       put_packed<V>(rk, rkv, q0, m, s1);
     }
+  }
+}
+
+// The TV / non-negativity step of one row at the thread's pass-0
+// positions j = t + T r (r < 16, T = M / 16 threads) of the radix FFT
+// (the radix designs of K3 and K10), tv_row's algebra without its shared
+// row or barrier:
+//   split lanes (K3; the row holds 2M elements, even plane at j, odd at
+//     M + j): v[r] = rk_even[j] + i rk_odd[j], rfft_core's pass-0 input.
+//     roll(+1) takes odd[j-1] for the even element (odd[M-1] at j = 0)
+//     and even[j] for the odd one; roll(-1) of a1' takes a1'_odd[j] for
+//     the even element and a1'_even[j+1] for the odd one (a1'_even[0] at
+//     j = M-1), recomputed here from its own three loads (image even[j+1],
+//     odd[j], a1 even[j+1]).
+//   natural lanes (kNat, K10; a row of M elements): v[r].x = rk[j], the
+//     real part of fft_two_real_rows' pass-0 input (v[r].y untouched).
+//     roll(+1) takes image j-1, roll(-1) of a1' takes a1'[j+1], recomputed
+//     from image j, j+1 and a1 j+1 (wrapping at the row's end).
+// a0', a1', b' are stored at j (one coalesced access per r and plane, type
+// TC, factors fa / fb); the halo rows (image r-1 and r+1, a0 r+1) are read
+// from device memory through o (plane_rows), so no block depends on
+// another; a0' of row r+1 is recomputed, as tv_row does.  With kSat, amax
+// and bmax collect max |a0'|, |a1'| and max |b'| before quantization.  No
+// shared memory, no barrier.
+//
+// The positions go in batches of RB: every load of a batch is issued
+// before its first use and its first store (a store of one position would
+// otherwise hold the next position's loads back: one memory latency a
+// position), so RB positions' loads are in flight at once.  The W
+// neighbours are loaded, not shuffled from the next lane: a form that
+// took image j - 1 and a1'[j + 1] by __shfl_up/down_sync and loaded them
+// at the warp's edges alone ran within 1 % of this one (H100 80GB HBM3,
+// 700 W, ab_kernels.py).
+template <bool kNat>
+struct TvIn {
+  // natural: image j, j-1, j+1; a1 j, j+1; then tv_h_load's five at j.
+  // split: image even j, odd j, odd j-1, even j+1; a1 even j, odd j, even
+  // j+1; then tv_h_load's five at j and at M + j.
+  static constexpr int W = kNat ? 5 : 7, N = W + (kNat ? 5 : 10);
+  float u[N];
+};
+
+// a' of one TV direction (tv_row's algebra): mu2 soft(psi + eta/mu2, thr)
+// - eta, eta = mu2 psi - a.
+__device__ __forceinline__ float tv_dual(float psi, float a, float mu2, float thr) {
+  const float eta = mu2 * psi - a;
+  return mu2 * soft(psi + eta / mu2, thr) - eta;
+}
+
+// The loads of the H part at element q: image r-1 and r+1, a0 r and r+1, b.
+template <typename TI, typename TC>
+__device__ __forceinline__ void tv_h_load(const TI* __restrict__ img, const TC* __restrict__ a0,
+                                          const TC* __restrict__ b, RowOffs o, size_t q, Fix fa,
+                                          Fix fb, float* u) {
+  u[0] = ld1(img + o.p + q, Fix{});
+  u[1] = ld1(img + o.n + q, Fix{});
+  u[2] = ld1(a0 + o.c + q, fa);
+  u[3] = ld1(a0 + o.n + q, fa);
+  u[4] = ld1(b + o.c + q, fb);
+}
+
+// The H-axis and non-negativity part at element q, image value x there,
+// from tv_h_load's u: a0' and b' stored (with kSat their maxima taken),
+// b' + (a0'[r+1] - a0'[r]) returned.
+template <typename TC, bool kSat>
+__device__ __forceinline__ float tv_h(const float* u, float x, TC* __restrict__ a0o,
+                                      TC* __restrict__ bo, RowOffs o, size_t q, float mu2,
+                                      float mu3, float thr, Fix fa, Fix fb, float& amax,
+                                      float& bmax) {
+  const float a0c = tv_dual(u[0] - x, u[2], mu2, thr);
+  const float a0n = tv_dual(x - u[1], u[3], mu2, thr);
+  const float rho = mu3 * x - u[4];
+  const float bn = mu3 * fmaxf(rho / mu3 + x, 0.f) - rho;
+  st1(a0o + o.c + q, a0c, fa);
+  st1(bo + o.c + q, bn, fb);
+  if constexpr (kSat) {
+    amax = fmaxf(amax, fabsf(a0c));
+    bmax = fmaxf(bmax, fabsf(bn));
+  }
+  return bn + (a0n - a0c);
+}
+
+template <typename TI, typename TC, int M, bool kNat>
+__device__ __forceinline__ void tv_load(const TI* __restrict__ img, const TC* __restrict__ a0,
+                                        const TC* __restrict__ a1, const TC* __restrict__ b,
+                                        RowOffs o, int j, Fix fa, Fix fb, TvIn<kNat>& in) {
+  const int jm = j ? j - 1 : M - 1, jp = j + 1 < M ? j + 1 : 0;
+  float* u = in.u;
+  if constexpr (kNat) {
+    u[0] = ld1(img + o.c + j, Fix{});
+    u[1] = ld1(img + o.c + jm, Fix{});
+    u[2] = ld1(img + o.c + jp, Fix{});
+    u[3] = ld1(a1 + o.c + j, fa);
+    u[4] = ld1(a1 + o.c + jp, fa);
+    tv_h_load(img, a0, b, o, j, fa, fb, u + TvIn<kNat>::W);
+  } else {
+    u[0] = ld1(img + o.c + j, Fix{});
+    u[1] = ld1(img + o.c + M + j, Fix{});
+    u[2] = ld1(img + o.c + M + jm, Fix{});
+    u[3] = ld1(img + o.c + jp, Fix{});
+    u[4] = ld1(a1 + o.c + j, fa);
+    u[5] = ld1(a1 + o.c + M + j, fa);
+    u[6] = ld1(a1 + o.c + jp, fa);
+    tv_h_load(img, a0, b, o, j, fa, fb, u + TvIn<kNat>::W);
+    tv_h_load(img, a0, b, o, M + j, fa, fb, u + TvIn<kNat>::W + 5);
+  }
+}
+
+template <typename TC, int M, bool kSat, bool kNat>
+__device__ __forceinline__ void tv_point(const TvIn<kNat>& in, TC* __restrict__ a0o,
+                                         TC* __restrict__ a1o, TC* __restrict__ bo, RowOffs o,
+                                         int j, float mu2, float mu3, float thr, Fix fa, Fix fb,
+                                         float2& v, float& amax, float& bmax) {
+  const float* u = in.u;
+  const float* h = u + TvIn<kNat>::W;
+  if constexpr (kNat) {
+    const float a1c = tv_dual(u[1] - u[0], u[3], mu2, thr);
+    const float a1n = tv_dual(u[0] - u[2], u[4], mu2, thr);
+    st1(a1o + o.c + j, a1c, fa);
+    if constexpr (kSat) amax = fmaxf(amax, fabsf(a1c));
+    v.x = tv_h<TC, kSat>(h, u[0], a0o, bo, o, j, mu2, mu3, thr, fa, fb, amax, bmax) +
+          (a1n - a1c);
+  } else {
+    const float ae = tv_dual(u[2] - u[0], u[4], mu2, thr);
+    const float ao = tv_dual(u[0] - u[1], u[5], mu2, thr);
+    const float an = tv_dual(u[1] - u[3], u[6], mu2, thr);
+    st1(a1o + o.c + j, ae, fa);
+    st1(a1o + o.c + M + j, ao, fa);
+    if constexpr (kSat) amax = fmaxf(amax, fmaxf(fabsf(ae), fabsf(ao)));
+    v.x = tv_h<TC, kSat>(h, u[0], a0o, bo, o, j, mu2, mu3, thr, fa, fb, amax, bmax) + (ao - ae);
+    v.y = tv_h<TC, kSat>(h + 5, u[1], a0o, bo, o, M + j, mu2, mu3, thr, fa, fb, amax, bmax) +
+          (an - ao);
+  }
+}
+
+template <typename TI, typename TC, int M, bool kSat, bool kNat, int RB>
+__device__ __forceinline__ void tv_pass0(const TI* __restrict__ img, const TC* __restrict__ a0,
+                                         const TC* __restrict__ a1, const TC* __restrict__ b,
+                                         TC* __restrict__ a0o, TC* __restrict__ a1o,
+                                         TC* __restrict__ bo, RowOffs o, float mu2, float mu3,
+                                         float tau, Fix fa, Fix fb, float2 (&v)[fft::RADIX],
+                                         float& amax, float& bmax) {
+  static_assert(fft::RADIX % RB == 0, "whole batches");
+  constexpr int NT = fft::Plan<M>::THREADS;
+  const float thr = tau / mu2;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r0 = 0; r0 < fft::RADIX; r0 += RB) {
+    TvIn<kNat> in[RB];
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+      tv_load<TI, TC, M, kNat>(img, a0, a1, b, o, t + NT * (r0 + i), fa, fb, in[i]);
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+      tv_point<TC, M, kSat, kNat>(in[i], a0o, a1o, bo, o, t + NT * (r0 + i), mu2, mu3, thr, fa,
+                                  fb, v[r0 + i], amax, bmax);
   }
 }
 

@@ -10,7 +10,8 @@
 //   xi = mu1 fwd - v, X = xdv (xi + mu1 fwd + dp), v' = mu1 X - xi from the
 //   carried forward plane fwd (`xv_update`), xdv rebuilt from the {0,1}
 //   support mask
-//   the forward W transforms of rk and of the f32 v', split order.
+//   the forward W transforms of rk and of the f32 v', split order
+//   (K12's transform of two real rows).
 // The JAX kernel fetches whole neighbour row blocks for its halo; here the
 // halo rows are single rows, periodic within the plane.  Rows may be those
 // of a stack of P planes of ph rows; the mask is a stack of Pc planes,
@@ -20,14 +21,33 @@
 // or bf16); a0, a1, b and their updates in the TV carry type TC (f32 or
 // bf16: the JAX kernel stores them at `_CARRY_DTYPE`, never int16); v, v'
 // in the v carry type TV (f32, bf16 or int16 fixed point at full scale
-// 256 mu1, factors fv).  12 instantiations.
+// 256 mu1, factors fv).  12 storage combinations.
 //
-// Bound on the H100: bytes (8 planes read, 8 written; 40 complex
-// multiply-adds per point at 12 MP for the one complex DFT of a row).  rk
-// and v' are both real: they are written as z = rk + i v' into one padded
-// shared row, transformed once, and separated through the mirror
-// (`store_two_spectra`), which halves the DFT work of two transforms.
-// 134 KB of shared memory at 12 MP: one block of 512 threads per SM.
+// Bound on the H100: bytes (8 planes read, 8 written).  rk and v' are
+// both real: they are transformed once as z = rk + i s v' (s the
+// balancing power of two) and separated through the mirror, which halves
+// the transform work of two rows.  Two designs, chosen by W alone in
+// `lpt_e1_carry` with K12's rule (kernels.e1_carry_design = fft_w_design;
+// neither falls back on the other):
+//
+// radix (W a power of two from 512 to 8192; the 12 MP grid's 8192): one
+//   block of W/16 threads per row.  `tv_pass0` (admm_state.cuh, natural
+//   lanes) computes rk at the thread's pass-0 positions j = t + T r of the
+//   radix FFT, the W neighbours from device memory and a1' of the next
+//   position recomputed; the X / v update runs at the same j and stores
+//   v'.  z[r] = rk[j] + i v'[j] stays in registers; the balance is a block
+//   max over them (`block_max2`, `pow2_balance`), and the rest of K12's
+//   transform (`fft::fft_two_real_core`, lpt_fft.cuh: the passes, the
+//   split-layout exchange, the mirror store) writes rkr, rki, vwr, vwi.
+//   One padded buffer of fft::smem_bytes (69.6 KB at 8192).
+// split (any other W, any factors n1 x n2; `general_form` in lpt_dft.cuh):
+//   `tv_row` in natural lanes writes rk into the real parts of one padded
+//   shared row, the X / v update v' into its imaginary parts; the row is
+//   balanced on shared memory (`balance_imag`), transformed by the
+//   two-stage DFT of lpt_dft.cuh (40 complex multiply-adds a point at 12
+//   MP) and separated (`store_two_spectra`).  134 KB of shared memory at
+//   12 MP: one block of 512 threads per SM.  3.043 / 1.641 ms at 12 MP,
+//   f32 / bench mode (H100 80GB HBM3, 700 W).
 #include "admm_state.cuh"
 
 using namespace lpt;
@@ -89,14 +109,111 @@ static int run(const void* const* in, void* const* out, const float2* tab, int r
                 fv);
 }
 
+// Threads an SM the radix kernel is compiled for (its __launch_bounds__:
+// K10_THREADS_PER_SM / (W/16) blocks of W/16 threads) and the positions of
+// a batch of loads (tv_pass0's, then the X / v update's): one block of
+// 512 at W = 8192 with batches of 8 (122-128 registers, no spill).  At 12
+// MP two blocks (64 registers) with batches of 2 or 4 spilled 16-168 B
+// and ran 8-12 % slower at f32 (batches of 2 1 % faster in the bench
+// mode); one block with batches of 16 spilled 200-424 B and ran 45-54 %
+// slower, with batches of 4 or 1 1-18 % slower (H100 80GB HBM3, 700 W,
+// ab_kernels.py).
+constexpr int K10_THREADS_PER_SM = 512;
+constexpr int K10_BATCH = 8;
+
+template <typename TI, typename TC, typename TV, int M>
+__global__ void __launch_bounds__(fft::Plan<M>::THREADS,
+                                  K10_THREADS_PER_SM / fft::Plan<M>::THREADS)
+    e1_carry_radix_kernel(const TI* __restrict__ img, const TI* __restrict__ fwd,
+                          const TV* __restrict__ v, const TC* __restrict__ b,
+                          const TC* __restrict__ a0, const TC* __restrict__ a1,
+                          const TI* __restrict__ mask, const TI* __restrict__ dp,
+                          TI* __restrict__ rkr, TI* __restrict__ rki, TI* __restrict__ vwr,
+                          TI* __restrict__ vwi, TV* __restrict__ vo, TC* __restrict__ a0o,
+                          TC* __restrict__ a1o, TC* __restrict__ bo,
+                          const float2* __restrict__ tw, int ph, int pc, float mu1, float mu2,
+                          float mu3, float tau, float c_out, float c_diff, Fix fv) {
+  constexpr int NT = fft::Plan<M>::THREADS;
+  extern __shared__ float2 sm[];
+  const int r = blockIdx.x, t = threadIdx.x;
+  const size_t fr = (size_t)r * M, mr = const_row(r, ph, pc, M);
+  float2 z[fft::RADIX];
+  float amax = 0.f, bmax = 0.f;  // unused: no saturation channel
+  tv_pass0<TI, TC, M, false, true, K10_BATCH>(img, a0, a1, b, a0o, a1o, bo,
+                                              plane_rows(r, ph, M), mu2, mu3, tau, Fix{}, Fix{},
+                                              z, amax, bmax);
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < fft::RADIX; k0 += K10_BATCH) {
+    float u[K10_BATCH][4];
+#pragma unroll
+    for (int i = 0; i < K10_BATCH; ++i) {
+      const size_t j = t + NT * (k0 + i);
+      u[i][0] = ld1(fwd + fr + j, Fix{});
+      u[i][1] = ld1(v + fr + j, fv);
+      u[i][2] = ld1(mask + mr + j, Fix{});
+      u[i][3] = ld1(dp + fr + j, Fix{});
+    }
+#pragma unroll
+    for (int i = 0; i < K10_BATCH; ++i) {
+      const int k = k0 + i;
+      const float vn = xv_update(u[i][0], u[i][1], u[i][2], u[i][3], mu1, c_out, c_diff);
+      st1(vo + fr + t + NT * k, vn, fv);
+      z[k].y = vn;
+      m0 = fmaxf(m0, fabsf(z[k].x));
+      m1 = fmaxf(m1, fabsf(vn));
+    }
+  }
+  const float sc = pow2_balance(block_max2<NT>(m0, m1));
+#pragma unroll
+  for (int k = 0; k < fft::RADIX; ++k) z[k].y *= sc;
+  fft::fft_two_real_core<TI, M>(z, sc, rkr + fr, rki + fr, vwr + fr, vwi + fr, tw, sm, true);
+}
+
+// The table: the split design's [r1f | r2f | r1i | r2i | Tf | Ti]
+// (make_plan, no unpack factors), then the radix twiddles of length W.
+template <typename TI, typename TC, typename TV, int M>
+static int run_radix(const void* const* in, void* const* out, const float2* tab, int rows,
+                     int ph, int pc, int n1, int n2, float mu1, float mu2, float mu3, float tau,
+                     float c_out, float c_diff, Fix fv, void* stream) {
+  if (n2 != 128 || n1 != M / 128) return (int)cudaErrorInvalidValue;
+  return launch(e1_carry_radix_kernel<TI, TC, TV, M>, dim3(rows), dim3(fft::Plan<M>::THREADS),
+                fft::smem_bytes(M, n1, n2), stream, (const TI*)in[0], (const TI*)in[1],
+                (const TV*)in[2], (const TC*)in[3], (const TC*)in[4], (const TC*)in[5],
+                (const TI*)in[6], (const TI*)in[7], (TI*)out[0], (TI*)out[1], (TI*)out[2],
+                (TI*)out[3], (TV*)out[4], (TC*)out[5], (TC*)out[6], (TC*)out[7],
+                tab + 2 * (n1 + n2) + 2 * M, ph, pc, mu1, mu2, mu3, tau, c_out, c_diff, fv);
+}
+
+// The design by W = n1 * n2 alone (see the header note).
+template <typename TI, typename TC, typename TV>
+static int run_design(const void* const* in, void* const* out, const float2* tab, int rows,
+                      int ph, int pc, int n1, int n2, float mu1, float mu2, float mu3, float tau,
+                      float c_out, float c_diff, Fix fv, void* stream) {
+#define LPT_E10R(M)                                                                       \
+  return run_radix<TI, TC, TV, M>(in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3, tau, \
+                                  c_out, c_diff, fv, stream)
+  switch (n1 * n2) {
+    case 512: LPT_E10R(512);
+    case 1024: LPT_E10R(1024);
+    case 2048: LPT_E10R(2048);
+    case 4096: LPT_E10R(4096);
+    case 8192: LPT_E10R(8192);
+    default:
+      return run<TI, TC, TV>(in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3, tau, c_out,
+                             c_diff, fv, stream);
+  }
+#undef LPT_E10R
+}
+
 template <typename TI>
 static int dispatch(int tv, int vt, const void* const* in, void* const* out, const float2* tab,
                     int rows, int ph, int pc, int n1, int n2, float mu1, float mu2, float mu3,
                     float tau, float c_out, float c_diff, Fix fv, void* stream) {
   using bf = __nv_bfloat16;
-#define LPT_E10(TC, TV)                                                                  \
-  return run<TI, TC, TV>(in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3, tau, c_out, \
-                         c_diff, fv, stream)
+#define LPT_E10(TC, TV)                                                                      \
+  return run_design<TI, TC, TV>(in, out, tab, rows, ph, pc, n1, n2, mu1, mu2, mu3, tau, c_out, \
+                                c_diff, fv, stream)
   switch (tv * 3 + vt) {
     case F32 * 3 + F32: LPT_E10(float, float);
     case F32 * 3 + BF16: LPT_E10(float, bf);
@@ -113,7 +230,8 @@ static int dispatch(int tv, int vt, const void* const* in, void* const* out, con
 // the planes of the mask; W = n1 * n2.  io: storage code of img, fwd,
 // mask, dp and the spectra (F32 or BF16); tv: that of a0, a1, b and their
 // updates (F32 or BF16); vt: that of v and v' (F32, BF16 or I16).
-// ld_v/st_v: the int16 factors of v.
+// ld_v/st_v: the int16 factors of v.  tab: the split table, followed in
+// the radix design by the radix twiddles.
 extern "C" int lpt_e1_carry(const void* img, const void* fwd, const void* v, const void* b,
                             const void* a0, const void* a1, const void* mask, const void* dp,
                             void* rkr, void* rki, void* vwr, void* vwi, void* vo, void* a0o,

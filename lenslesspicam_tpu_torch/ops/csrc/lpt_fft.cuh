@@ -1,9 +1,10 @@
 // Register-resident radix FFT of one complex row of length M = 2^e per
 // block (64 <= M <= 8192), the packed-real forward and inverse W
-// transforms built on it (the radix designs of K1, K2 and K6, M <= 4096),
-// the inverse of two full-width spectra
+// transforms built on it (the radix designs of K1, K2, K3 and K6, M <=
+// 4096), the inverse of two full-width spectra
 // (the radix designs of K11 and K13, 512 <= M <= 8192), the forward
-// transform of two real rows (K12's radix design, 512 <= M <= 8192) and
+// transform of two real rows (the radix designs of K12 and K10, 512 <= M
+// <= 8192) and
 // the column form: one transform down each lane of a tile of columns
 // (K5's radix design, M = 128), and the pieces of a length-48 = 3 x 16
 // transform (K4's and K14's radix design, the end of this file).
@@ -601,32 +602,23 @@ __device__ void ifft_two_rows(const T* __restrict__ a0r, const T* __restrict__ a
 // conj Z[-k]) / 2i s, V = vec_len<T>() positions a thread a trip.
 // ---------------------------------------------------------------------------
 
-// X0 and X1 of the rows x0 and x1 (io type T; x1 null: a row of zeros,
-// and x1r, x1i unused), T = M / 16 threads; `tw` the radix twiddles, sm
-// the buffer of smem_bytes(M, M / 128, 128).
+// The transform of z from the thread's pass-0 registers v[r] = x0[j] + i
+// s x1[j] at j = t + T r (s the balancing power of two, already applied)
+// -> X0 into (x0r, x0i) and, with `two`, X1 into (x1r, x1i), stored as T;
+// T = M / 16 threads, `tw` the radix twiddles, sm the buffer of
+// smem_bytes(M, M / 128, 128), free at the start.  K12 loads v
+// (fft_two_real_rows), K10's radix design computes it (e1_carry.cu).
 template <typename T, int M>
-__device__ void fft_two_real_rows(const T* __restrict__ x0, const T* __restrict__ x1,
-                                  T* __restrict__ x0r, T* __restrict__ x0i,
-                                  T* __restrict__ x1r, T* __restrict__ x1i,
-                                  const float2* __restrict__ tw, float2* sm) {
+__device__ __forceinline__ void fft_two_real_core(float2 (&v)[RADIX], float sc,
+                                                  T* __restrict__ x0r, T* __restrict__ x0i,
+                                                  T* __restrict__ x1r, T* __restrict__ x1i,
+                                                  const float2* __restrict__ tw, float2* sm,
+                                                  bool two) {
   using P = Plan<M>;
   constexpr int NT = P::THREADS, R = P::radix(P::PASSES - 1), V = vec_len<T>();
   constexpr int N2 = 128, N1 = M / N2, L1 = ilog2(N1), L2 = ilog2(N2);
   static_assert(inv_length(M), "K12's radix lengths");
   const int t = threadIdx.x;
-  const bool two = x1 != nullptr;
-  float2 v[RADIX];
-  float m0 = 0.f, m1 = 0.f;
-#pragma unroll
-  for (int r = 0; r < RADIX; ++r) {
-    v[r].x = ld1(x0 + t + NT * r, Fix{});
-    v[r].y = two ? ld1(x1 + t + NT * r, Fix{}) : 0.f;
-    m0 = fmaxf(m0, fabsf(v[r].x));
-    m1 = fmaxf(m1, fabsf(v[r].y));
-  }
-  const float sc = pow2_balance(block_max2<NT>(m0, m1));
-#pragma unroll
-  for (int r = 0; r < RADIX; ++r) v[r].y *= sc;
   butterflies<M, 0>(v, tw, t);
   to_shared<M, 0>(v, sm, t);
   __syncthreads();
@@ -667,6 +659,32 @@ __device__ void fft_two_real_rows(const T* __restrict__ x0, const T* __restrict_
       stv<V>(x1i + p0, bi);
     }
   }
+}
+
+// X0 and X1 of the rows x0 and x1 (io type T; x1 null: a row of zeros,
+// and x1r, x1i unused), T = M / 16 threads; `tw` the radix twiddles, sm
+// the buffer of smem_bytes(M, M / 128, 128).
+template <typename T, int M>
+__device__ void fft_two_real_rows(const T* __restrict__ x0, const T* __restrict__ x1,
+                                  T* __restrict__ x0r, T* __restrict__ x0i,
+                                  T* __restrict__ x1r, T* __restrict__ x1i,
+                                  const float2* __restrict__ tw, float2* sm) {
+  constexpr int NT = Plan<M>::THREADS;
+  const int t = threadIdx.x;
+  const bool two = x1 != nullptr;
+  float2 v[RADIX];
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) {
+    v[r].x = ld1(x0 + t + NT * r, Fix{});
+    v[r].y = two ? ld1(x1 + t + NT * r, Fix{}) : 0.f;
+    m0 = fmaxf(m0, fabsf(v[r].x));
+    m1 = fmaxf(m1, fabsf(v[r].y));
+  }
+  const float sc = pow2_balance(block_max2<NT>(m0, m1));
+#pragma unroll
+  for (int r = 0; r < RADIX; ++r) v[r].y *= sc;
+  fft_two_real_core<T, M>(v, sc, x0r, x0i, x1r, x1i, tw, sm, two);
 }
 
 // ---------------------------------------------------------------------------

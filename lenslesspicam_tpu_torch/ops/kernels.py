@@ -6,14 +6,14 @@ storage mode of the JAX package).
 |---|---|---|
 | ``rfft_w`` (K1) | ``rfft_w`` / ``_w_rfwd_kernel`` | ``csrc/rfft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu`` |
-| ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu`` |
+| ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu``, ``csrc/lpt_fft.cuh`` |
 | ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu`` |
 | ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
 | ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cu`` |
 | ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu`` |
-| ``e1_carry`` (K10) | ``e1_carry`` / ``_e1c_kernel`` | ``csrc/e1_carry.cu`` |
+| ``e1_carry`` (K10) | ``e1_carry`` / ``_e1c_kernel`` | ``csrc/e1_carry.cu``, ``csrc/lpt_fft.cuh`` |
 | ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu``, ``csrc/lpt_fft.cuh`` |
 | ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu``, ``csrc/lpt_fft.cuh`` |
@@ -373,8 +373,8 @@ def _unpack_natural_np(m: int) -> np.ndarray:
 @lru_cache(maxsize=None)
 def _design_table(n: int, with_unpack: bool, design: str, device: torch.device,
                   radix_n: int | None = None):
-    """The table of a kernel with two designs (K1, K2, K6: length M with
-    the unpack factors E; K11-K13: length W without them; K5: length H
+    """The table of a kernel with two designs (K1-K3, K6: length M with
+    the unpack factors E; K10-K13: length W without them; K5: length H
     without them, its radix FFT over the factor ``radix_n`` = n2): the
     split-order table (:func:`_table_np`), followed in the "radix" design
     by :func:`_radix_twiddles_np` of length ``radix_n`` (default n) and,
@@ -481,6 +481,9 @@ def _tv_step(image, a0, a1, b, mu2, mu3, tau, natural=False):
     return bn + adj0 + adj1, a0n, a1n, bn
 
 
+e1_rtv_design = rfft_w_design      # K3's rule (:func:`rfft_w_design`)
+
+
 def e1_rtv_plain(image, a0, a1, b, mu2, mu3, tau):
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     rk, a0n, a1n, bn = _tv_step(image, a0, a1, b, mu2, mu3, tau)
@@ -504,7 +507,10 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
     int16 carries sat is a 0-d f32 tensor, max(max |a0'|, |a1'|) /
     (8 tau), max |b'| / (32 mu3)) over the f32 values of all planes before
     they are quantized; >= 1 means a carry clipped.  Otherwise it is 0.0
-    and nothing is launched for it."""
+    and nothing is launched for it.  The kernel's design follows M = pw /
+    2 alone (:func:`e1_rtv_design`, K1's rule): the TV step at the radix
+    FFT's pass-0 positions for M in ``RADIX_LENGTHS``, the shared-row TV
+    step and the two-stage split DFT for any other M."""
     ph, n_full = image.shape[-2:]
     _depth("e1_rtv", image, (ph, n_full))
     m, rows = n_full // 2, image.numel() // n_full
@@ -525,7 +531,7 @@ def e1_rtv(image, a0, a1, b, mu2, mu3, tau):
     _launch("e1_rtv", "lpt_e1_rtv", "pppppppppp" + "iiiii" + "fff" + "ffff"
             + "ff" + "p" + "ii",
             image, a0, a1, b, rkr, rki, a0o, a1o, bo,
-            _table(m, True, image.device), rows, ph, m, n1, n2,
+            _design_table(m, True, e1_rtv_design(m), image.device), rows, ph, m, n1, n2,
             float(mu2), float(mu3), float(tau), *_fix(sc_a), *_fix(sc_b),
             1.0 / sc_a, 1.0 / sc_b, sat.data_ptr() if i16 else None,
             _CODE[image.dtype], _CODE[a0.dtype])
@@ -1180,6 +1186,7 @@ def ifft_w(vr, vi, out_dtype=_F32):
 # ---------------------------------------------------------------------------
 
 FULL_TV_DTYPES = IO_DTYPES     # K10's TV carries: never int16 (module docstring)
+e1_carry_design = fft_w_design     # K10's rule (:func:`fft_w_design`)
 
 
 def e1_carry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
@@ -1204,7 +1211,11 @@ def e1_carry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     dtype; b, a0, a1 at one TV carry dtype, f32 or bf16 (the JAX kernel
     has no int16 TV carries here); v at the v carry dtype, f32, bf16 or
     int16 at full scale 256 mu1.  Returns (rk_wr, rk_wi, v_wr, v_wi, v',
-    a0', a1', b')."""
+    a0', a1', b').  The kernel's design follows W alone
+    (:func:`e1_carry_design`, K12's rule): the TV step and the X / v
+    update at the radix FFT's pass-0 positions for W in
+    ``IFFT_RADIX_WIDTHS``, the shared row and the two-stage split DFT for
+    any other W."""
     name = "e1_carry"
     ph, w = image.shape[-2:]
     p = _depth(name, image, (ph, w))
@@ -1227,7 +1238,7 @@ def e1_carry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     a0o, a1o, bo = (_empty(image.shape, a0) for _ in range(3))
     _launch("e1_carry", "lpt_e1_carry", "p" * 17 + "iiiii" + "ffffff" + "ff" + "iii",
             image, fwd, v, b, a0, a1, mask, dp, *spectra, vo, a0o, a1o, bo,
-            _table(w, False, image.device), rows, ph, pc, n1, n2,
+            _design_table(w, False, e1_carry_design(w), image.device), rows, ph, pc, n1, n2,
             float(mu1), float(mu2), float(mu3), float(tau), float(c_out),
             float(c_in - c_out), *_fix(_v_scale(mu1)),
             _CODE[image.dtype], _CODE[a0.dtype], _CODE[v.dtype])

@@ -65,12 +65,17 @@ def device_time_us(evt) -> float:
     return 0.0
 
 
+# a kernel's name after ``__global__ void`` and its launch bounds, whose
+# arguments may hold one level of parentheses (a constexpr call)
+KERNEL_DECL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)")
+
+
 def port_kernel_names() -> set:
     """The names of the port's own CUDA kernels, from its sources."""
     names = set()
     for path in _build.CSRC.glob("*.cu"):
-        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
-                                path.read_text()))
+        names.update(KERNEL_DECL.findall(path.read_text()))
     return names
 
 
