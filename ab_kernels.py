@@ -6,8 +6,9 @@
 A is ``lenslesspicam_tpu_torch/ops/csrc`` of this checkout, B the
 directory OTHER_CSRC holding the same sources changed (the same C
 entries); with several, B1, B2, ... in the order given.  All are built
-with ``nvcc`` (a library whose sources match one already built is
-reused), then every kernel of
+with ``nvcc``, the libraries of all trees at once (a library whose
+sources match one already built, or another tree's, is compiled once),
+then every kernel of
 ``chip_smoke.kernel_cases`` (a mode of ``chip_smoke.MODES``: headline,
 f32) and of ``chip_smoke.split_kernel_cases`` (a mode of
 ``chip_smoke.SPLIT_MODES``: f32, bench, K4, K5 and K14 among them at the
@@ -19,8 +20,9 @@ named, in the order A, B, B, A per round (A, B1 .. Bn, Bn .. B1, A with
 several; CUDA events, median of 7 after
 a warm-up, as ``chip_smoke.time_ms``), and its output is checked against
 the plain version as ``chip_smoke.check_kernels`` checks it.  Each tree's
-build prints one JSON line with ptxas's entry functions, registers and
-spills per library (libraries already built print none).  ``--planes``
+build prints one JSON line with nvcc's seconds and ptxas's entry
+functions, registers and spills per library (libraries already built
+print none).  ``--planes``
 times the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``
 and the full-width ``chip_smoke.SPLIT_KERNELS`` and ``FULL_WIDTH_H``) on stacks of P planes
 over Pc constant planes instead of one plane;
@@ -46,11 +48,23 @@ import chip_smoke as cs
 from lenslesspicam_tpu_torch.ops import _build, kernels as K
 
 
+E1_RCARRY_LIB = dict(K._E1_RCARRY_LIB)
+
+
+def sources(csrc: Path) -> list:
+    """The libraries of ``_build.SOURCES`` whose source ``csrc`` holds."""
+    return [n for n in _build.SOURCES if (csrc / f"{n}.cu").is_file()]
+
+
 def use(csrc: Path):
-    """Point the wrappers at the libraries built from ``csrc``."""
+    """Point the wrappers at the libraries built from ``csrc``.  A tree
+    that predates K8's three libraries (one a TV carry type) serves every
+    TV carry type from its one ``e1_rcarry``."""
     _build.CSRC = csrc
     _build._libs.clear()
     K._entry.cache_clear()
+    split = all(n in sources(csrc) for n in E1_RCARRY_LIB.values())
+    K._E1_RCARRY_LIB = E1_RCARRY_LIB if split else dict.fromkeys(E1_RCARRY_LIB, "e1_rcarry")
 
 
 def main():
@@ -69,13 +83,14 @@ def main():
     others = [p.resolve() for p in args.other_csrc]
     labels = ["B"] if len(others) == 1 else [f"B{i + 1}" for i in range(len(others))]
     trees = {"A": _build.CSRC, **dict(zip(labels, others))}
+    logs = _build.build_jobs([(n, tree) for tree in trees.values() for n in sources(tree)])
     for label, tree in trees.items():
-        use(tree)
-        logs = _build.build_all()
-        print(json.dumps({"tree": label, "csrc": str(tree), "ptxas": {
+        built = {n: r for (n, c), r in sorted(logs.items()) if c == tree}
+        print(json.dumps({"tree": label, "csrc": str(tree), "seconds_by_library": {
+            n: r["seconds"] for n, r in built.items()}, "ptxas": {
             n: [ln.strip() for ln in r["log"].splitlines()
                 if any(w in ln for w in ("entry function", "registers", "spill"))]
-            for n, r in sorted(logs.items())}}), flush=True)
+            for n, r in built.items()}}), flush=True)
     ph, pw = 6144, 8192
     families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
                 (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS + cs.FULL_WIDTH_H),

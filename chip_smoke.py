@@ -4,18 +4,19 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (at a small
-grid in every storage-dtype combination the kernels are built for, K1-K3
-and K6 also at 96 x 384 and 96 x 1536 and K10-K13 at 96 x 1536, where each
-runs its split design instead of the radix FFT (K3 and K10 run their
-radix designs, the TV step at the radix FFT's pass-0 positions, at the
-small grids and 12 MP), K5, which runs its
+grid in every storage-dtype combination the kernels are built for, K1-K3,
+K6, K8 and K9 also at 96 x 384 and 96 x 1536 and K10-K13 at 96 x 1536,
+where each runs its split design instead of the radix FFT (K3, K8 and K10
+run their radix designs, the TV step at the radix FFT's pass-0
+positions, at the small grids and 12 MP; K8 in all 18 of its type
+combinations at 96 x 128, 96 x 384, 96 x 1536 and 12 MP), K5, which runs its
 split design at 96 x 128, in its radix design's column form at 256 x 80,
 a guarded lane tile, and K4 and K14, which run their split designs at 96
 x 128 and their radix designs (n1 = 48) at 6144 x 80, a guarded lane
 tile, alone and stacked, K4 and K14 in both directions wherever they
 are held; at the 12 MP grid in the
 f32 mode and in the JAX bench's headline storage mode, bf16 spectra with
-int16 carries, K2, K3 and K6 there in every combination; each
+int16 carries, K2, K3, K6, K8 and K9 there in every combination; each
 kernel that takes a plane axis also on a stack of 6 planes over 3
 constant planes at the small grid and on the RGB and batch=4 rungs'
 stacks at 12 MP), runs the small-grid fused loop through the kernels against the plain loop in every storage
@@ -78,19 +79,19 @@ from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
-# padded to 96 x 384: M = 192 = 16 x 12 is no power of two, so K1, K2, K3
-# and K6 run their split designs there (kernels.rfft_w_design, one rule
-# for the four), in the fast form (both factors multiples of 4), and their
-# radix designs at M = 64 and 4096
+# padded to 96 x 384: M = 192 = 16 x 12 is no power of two, so K1, K2, K3,
+# K6, K8 and K9 run their split designs there (kernels.rfft_w_design, one
+# rule for the six), in the fast form (both factors multiples of 4), and
+# their radix designs at M = 64 and 4096
 K1_SPLIT = (48, 192)
-M_NAMES = ("rfft_w", "irfft_w", "irfft_w_dual_state", "e1_rtv")
+M_NAMES = ("rfft_w", "irfft_w", "irfft_w_dual_state", "e1_rtv", "e1_rcarry", "irfft_w_dual")
 # padded to 96 x 512: W = 512 = 4 x 128, the full-width kernels' small grid
 SMALL_SPLIT = (48, 256)
 # padded to 96 x 1536: W = 12 x 128 is no power of two, so K10-K13 run
 # their split designs there (kernels.e1_carry_design, ifft_w_dual_design,
 # fft_w_design, ifft_w_design: one rule) and their radix designs at 512
-# and 8192; K2, K3 and K6 (M = 768 = 6 x 128) their split designs in the
-# general form
+# and 8192; K2, K3, K6, K8 and K9 (M = 768 = 6 x 128) their split designs
+# in the general form
 W_SPLIT = (48, 768)
 W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w", "e1_carry")
 # K5's radix design (n2 = 128, kernels.h_combine_dual_design) with its
@@ -160,9 +161,13 @@ MODES = {"f32": (F32, F32, F32, F32), "headline": (BF16, I16, I16, F32)}
 # 2-byte carries so that all four (io, out) pairs run
 COMBOS = [(io, c, c, BF16 if c != F32 else F32) for io in (F32, BF16)
           for c in (F32, BF16, I16)]
-# K8 takes its TV and v carries independently: all 18 (io, tv, v)
+# K8 takes its TV and v carries independently: all 18 (io, tv, v), at
+# the small grid (its radix design) and at both split grids (the fast and
+# the general form of its split design), and at 12 MP
 K8_COMBOS = [(io, tv, v, F32) for io in (F32, BF16) for tv in (F32, BF16, I16)
              for v in (F32, BF16, I16)]
+K8_GRIDS = ((2 * SMALL[0], 2 * SMALL[1]), (2 * K1_SPLIT[0], 2 * K1_SPLIT[1]),
+            (2 * W_SPLIT[0], 2 * W_SPLIT[1]))
 PLANES = (6, 3)              # P planes over Pc constant planes, small-grid check
 # the stacks of the RGB (3 planes over 3 constant planes) and batch=4 (4
 # planes over 1) rungs, at 12 MP: every plane and constant plane seeded
@@ -227,7 +232,7 @@ KERNEL_INFO = {   # wrapper -> (label, CUDA source, TPU kernel it replaces)
                            "lenslesspicam_tpu/ops/pallas_kernels2.py:2090"),
     "sat_scan_i16": ("K7", "lenslesspicam_tpu_torch/ops/csrc/sat_scan.cu",
                      "lenslesspicam_tpu/ops/pallas_kernels2.py:313"),
-    "e1_rcarry": ("K8", "lenslesspicam_tpu_torch/ops/csrc/e1_rcarry.cu",
+    "e1_rcarry": ("K8", "lenslesspicam_tpu_torch/ops/csrc/e1_rcarry.cuh",
                   "lenslesspicam_tpu/ops/pallas_kernels2.py:1968"),
     "irfft_w_dual": ("K9", "lenslesspicam_tpu_torch/ops/csrc/irfft_w_dual.cu",
                      "lenslesspicam_tpu/ops/pallas_kernels2.py:2006"),
@@ -575,8 +580,8 @@ def reference_call(name, args):
 
 
 def design(name, ph, pw):
-    """{"design": ...} of a kernel with two designs chosen by shape (K1-K3
-    and K6 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 by the n2
+    """{"design": ...} of a kernel with two designs chosen by shape (K1-K3,
+    K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 by the n2
     of H = ph; K4 and K14 by its n1), else {}; ``name`` may carry a
     ":form"."""
     name = name.split(":")[0]
@@ -1476,8 +1481,8 @@ def main():
     for io, tv, v, k2_out in COMBOS:
         check_kernels(sh, sw, False, io, tv, v, k2_out,
                       f"io={NAME[io]},carry={NAME[tv]},k2_out={NAME[k2_out]}")
-    for io, tv, v, k2_out in K8_COMBOS:
-        check_kernels(sh, sw, False, io, tv, v, k2_out,
+    for (gh, gw), (io, tv, v, k2_out) in ((g, c) for g in K8_GRIDS for c in K8_COMBOS):
+        check_kernels(gh, gw, False, io, tv, v, k2_out,
                       f"io={NAME[io]},tv={NAME[tv]},v={NAME[v]}", names=("e1_rcarry",))
     for mode, dts in MODES.items():
         check_kernels(sh, sw, False, *dts, f"planes,{mode}", names=PLANE_KERNELS,
@@ -1509,13 +1514,19 @@ def main():
                           cases=split_kernel_cases)
             check_kernels(*K4_GUARDED, False, *dts, tag, planes=planes,
                           names=("h_passA", "h_passA:inverse"), cases=pallas_kernel_cases)
-    for io, tv, v, k2_out in COMBOS:     # K2's, K3's and K6's radix designs in every
-        # combination
+    for io, tv, v, k2_out in COMBOS:     # K2's, K3's, K6's and K9's radix designs in
+        # every combination
         for planes in (None, *PLANES_12MP):
             check_kernels(ph, pw, False, io, tv, v, k2_out,
                           f"{'planes,' if planes else ''}io={NAME[io]},carry={NAME[tv]},"
                           f"k2_out={NAME[k2_out]}", planes=planes,
-                          names=("irfft_w_dual_state",) if planes else M_NAMES[1:])
+                          names=("irfft_w_dual_state", "irfft_w_dual") if planes else
+                          tuple(n for n in M_NAMES[1:] if n != "e1_rcarry"))
+    for io, tv, v, k2_out in K8_COMBOS:  # K8's radix design in all 18, alone and stacked
+        for planes in (None, *PLANES_12MP):
+            check_kernels(ph, pw, False, io, tv, v, k2_out,
+                          f"{'planes,' if planes else ''}io={NAME[io]},tv={NAME[tv]},"
+                          f"v={NAME[v]}", planes=planes, names=("e1_rcarry",))
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ssh, ssw = 2 * SMALL_SPLIT[0], 2 * SMALL_SPLIT[1]

@@ -2,8 +2,9 @@
 // step of one row (K3 `e1_rtv`, K8 `e1_rcarry` in the even/odd split lane
 // layout, K10 `e1_carry` in natural lane order), through a shared row in
 // the split designs (`tv_row`) and at a thread's pass-0 positions of the
-// radix FFT in the radix designs of K3 and K10 (`tv_pass0`), and the X / v
-// update (K6 `irfft_w_dual_state`, K8, K10).
+// radix FFT in the radix designs of K3, K8 and K10 (`tv_pass0`), and the
+// X / v update (K6 `irfft_w_dual_state`, K8, K10; at the pass-0 positions
+// in K8's radix design, `xv_pass0`).
 //
 // Planes may carry a leading plane axis: a kernel sees P * ph rows, row r
 // of plane r / ph.  The H axis is periodic within a plane, so the halo
@@ -184,9 +185,9 @@ __device__ __forceinline__ void tv_row(const TI* __restrict__ img, const TC* __r
 
 // The TV / non-negativity step of one row at the thread's pass-0
 // positions j = t + T r (r < 16, T = M / 16 threads) of the radix FFT
-// (the radix designs of K3 and K10), tv_row's algebra without its shared
-// row or barrier:
-//   split lanes (K3; the row holds 2M elements, even plane at j, odd at
+// (the radix designs of K3, K8 and K10), tv_row's algebra without its
+// shared row or barrier:
+//   split lanes (K3, K8; the row holds 2M elements, even plane at j, odd at
 //     M + j): v[r] = rk_even[j] + i rk_odd[j], rfft_core's pass-0 input.
 //     roll(+1) takes odd[j-1] for the even element (odd[M-1] at j = 0)
 //     and even[j] for the odd one; roll(-1) of a1' takes a1'_odd[j] for
@@ -335,6 +336,50 @@ __device__ __forceinline__ void tv_pass0(const TI* __restrict__ img, const TC* _
     for (int i = 0; i < RB; ++i)
       tv_point<TC, M, kSat, kNat>(in[i], a0o, a1o, bo, o, t + NT * (r0 + i), mu2, mu3, thr, fa,
                                   fb, v[r0 + i], amax, bmax);
+  }
+}
+
+// The X / v update of one row at the thread's pass-0 positions j = t + T r
+// (r < 16, T = M / 16 threads) of the radix FFT, split lanes (K8's radix
+// design; the row holds 2M elements, even plane at j, odd at M + j): fwd,
+// v, the mask row and dp loaded at j and M + j, v' = xv_update stored at
+// the v carry type TV (factors fv) and left, before quantization, in
+// x[r] = v'_even[j] + i v'_odd[j], rfft_core's pass-0 input.  fr is the
+// row's element offset, mr its mask row's (const_row).  The positions go
+// in batches of RB as in tv_pass0: every load of a batch is issued before
+// its first store.  No shared memory, no barrier.
+template <typename TI, typename TV, int M, int RB>
+__device__ __forceinline__ void xv_pass0(const TI* __restrict__ fwd, const TV* __restrict__ v,
+                                         const TI* __restrict__ mask, const TI* __restrict__ dp,
+                                         TV* __restrict__ vo, size_t fr, size_t mr, float mu1,
+                                         float c_out, float c_diff, Fix fv,
+                                         float2 (&x)[fft::RADIX]) {
+  static_assert(fft::RADIX % RB == 0, "whole batches");
+  constexpr int NT = fft::Plan<M>::THREADS;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r0 = 0; r0 < fft::RADIX; r0 += RB) {
+    float u[RB][8];  // fwd, v, mask, dp; even then odd
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t j = t + NT * (r0 + i) + (size_t)h * M;
+        u[i][h] = ld1(fwd + fr + j, Fix{});
+        u[i][2 + h] = ld1(v + fr + j, fv);
+        u[i][4 + h] = ld1(mask + mr + j, Fix{});
+        u[i][6 + h] = ld1(dp + fr + j, Fix{});
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const size_t j = t + NT * (r0 + i);
+      const float ne = xv_update(u[i][0], u[i][2], u[i][4], u[i][6], mu1, c_out, c_diff);
+      const float no = xv_update(u[i][1], u[i][3], u[i][5], u[i][7], mu1, c_out, c_diff);
+      st1(vo + fr + j, ne, fv);
+      st1(vo + fr + M + j, no, fv);
+      x[r0 + i] = make_float2(ne, no);
+    }
   }
 }
 

@@ -5,14 +5,14 @@ storage mode of the JAX package).
 | wrapper | TPU kernel it replaces | CUDA source |
 |---|---|---|
 | ``rfft_w`` (K1) | ``rfft_w`` / ``_w_rfwd_kernel`` | ``csrc/rfft_w.cu``, ``csrc/lpt_fft.cuh`` |
-| ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu`` |
+| ``irfft_w`` (K2) | ``irfft_w`` / ``_w_rinv_kernel`` | ``csrc/irfft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``e1_rtv`` (K3) | ``e1_rtv`` / ``_e1rtv_kernel`` | ``csrc/e1_rtv.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_passA_pair`` (K4) | ``h_passA_pair`` / ``_h_passA_pair_kernel`` | ``csrc/h_pass_a.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_combine_dual`` (K5) | ``_h_combine_dual_kernel`` | ``csrc/h_combine.cu``, ``csrc/lpt_fft.cuh`` |
-| ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu`` |
+| ``irfft_w_dual_state`` (K6) | ``irfft_w_dual_state`` / ``_w_rinv_dual_state_kernel`` | ``csrc/w_dual_state.cu``, ``csrc/lpt_fft.cuh`` |
 | ``sat_scan_i16`` (K7) | ``sat_scan_i16`` / ``_sat_scan_kernel`` | ``csrc/sat_scan.cu`` |
-| ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cu`` |
-| ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu`` |
+| ``e1_rcarry`` (K8) | ``e1_rcarry`` / ``_e1cr_kernel`` | ``csrc/e1_rcarry.cuh`` (built as ``e1_rcarry.cu``, ``e1_rcarry_tv_bf16.cu``, ``e1_rcarry_tv_i16.cu``), ``csrc/lpt_fft.cuh`` |
+| ``irfft_w_dual`` (K9) | ``irfft_w_dual`` / ``_w_rinv_dual_kernel`` | ``csrc/irfft_w_dual.cu``, ``csrc/lpt_fft.cuh`` |
 | ``e1_carry`` (K10) | ``e1_carry`` / ``_e1c_kernel`` | ``csrc/e1_carry.cu``, ``csrc/lpt_fft.cuh`` |
 | ``ifft_w_dual`` (K11) | ``ifft_w_dual`` / ``_w_inv_dual_kernel`` | ``csrc/ifft_w_dual.cu``, ``csrc/lpt_fft.cuh`` |
 | ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu``, ``csrc/lpt_fft.cuh`` |
@@ -1013,6 +1013,13 @@ def carry_sat_fraction(x, scale, ops=None):
 # ---------------------------------------------------------------------------
 
 
+e1_rcarry_design = rfft_w_design     # K8's rule (:func:`rfft_w_design`)
+# K8's CUDA library by TV carry dtype: its 18 type combinations in both
+# designs are built as three libraries, compiled in parallel, each with the
+# entry ``lpt_e1_rcarry`` for its TV carry type (csrc/e1_rcarry.cuh)
+_E1_RCARRY_LIB = {_F32: "e1_rcarry", _BF16: "e1_rcarry_tv_bf16", _I16: "e1_rcarry_tv_i16"}
+
+
 def e1_rcarry_plain(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     sc_a, sc_b = _tv_scales(mu2, mu3, tau)
     rk, a0n, a1n, bn = _tv_step(image, a0, a1, b, mu2, mu3, tau)
@@ -1035,7 +1042,11 @@ def e1_rcarry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     spectra at the io dtype; b, a0, a1 at one TV carry dtype and v at the
     v carry dtype, each f32, bf16 or int16.  Returns (rk_wr, rk_wi, v_wr,
     v_wi, v', a0', a1', b'), the spectra at half width.  No saturation
-    output: v2 scans the stored carries (:func:`carry_sat_fraction`)."""
+    output: v2 scans the stored carries (:func:`carry_sat_fraction`).
+    The kernel's design follows M = pw / 2 alone (:func:`e1_rcarry_design`,
+    K1's rule): the TV step and the X / v update at the radix FFT's pass-0
+    positions for M in ``RADIX_LENGTHS``, the shared-row steps and the
+    two-stage split DFT for any other M."""
     name = "e1_rcarry"
     ph, n_full = image.shape[-2:]
     p = _depth(name, image, (ph, n_full))
@@ -1056,9 +1067,10 @@ def e1_rcarry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
     spectra = [_empty(half, image) for _ in range(4)]
     vo = _empty(image.shape, v)
     a0o, a1o, bo = (_empty(image.shape, a0) for _ in range(3))
-    _launch("e1_rcarry", "lpt_e1_rcarry", "p" * 17 + "iiiiii" + "ffff" + "ff" + "ffffff" + "iii",
+    _launch(_E1_RCARRY_LIB[a0.dtype], "lpt_e1_rcarry",
+            "p" * 17 + "iiiiii" + "ffff" + "ff" + "ffffff" + "iii",
             image, fwd, v, b, a0, a1, mask, dp, *spectra, vo, a0o, a1o, bo,
-            _table(m, True, image.device), rows, ph, pc, m, n1, n2,
+            _design_table(m, True, e1_rcarry_design(m), image.device), rows, ph, pc, m, n1, n2,
             float(mu1), float(mu2), float(mu3), float(tau), float(c_out),
             float(c_in - c_out), *_fix(sc_a), *_fix(sc_b), *_fix(_v_scale(mu1)),
             _CODE[image.dtype], _CODE[a0.dtype], _CODE[v.dtype])
@@ -1069,6 +1081,9 @@ def e1_rcarry(image, fwd, v, b, a0, a1, mask, dp, mu1, mu2, mu3, tau):
 # ---------------------------------------------------------------------------
 # K9: v2 post-transform step (DC patch + dual inverse W transform)
 # ---------------------------------------------------------------------------
+
+
+irfft_w_dual_design = rfft_w_design     # K9's rule (:func:`rfft_w_design`)
 
 
 def irfft_w_dual_plain(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
@@ -1083,7 +1098,10 @@ def irfft_w_dual(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
     the f32 DC/Nyquist patch columns p0*/p1* (one value per row; the JAX
     kernel's (m, 128) column operands use only column 0), then both
     inverse W transforms.  Half spectra (ph, pw/2) or stacks (P, ph,
-    pw/2), columns (.., ph).  Returns (image, fwd) at a0r's dtype."""
+    pw/2), columns (.., ph).  Returns (image, fwd) at a0r's dtype.  The
+    kernel's design follows M = pw/2 alone (:func:`irfft_w_dual_design`,
+    K1's rule): the radix inverse rows of ``csrc/lpt_fft.cuh`` for M in
+    ``RADIX_LENGTHS``, the two-stage split DFT for any other M."""
     name = "irfft_w_dual"
     p, ph, m = _dual_inputs(name, [a0r, a0i, a1r, a1i], [p0r, p0i, p1r, p1i])
     cuda = _on_card(name, [a0r, a0i, a1r, a1i], (a0r.dtype,) * 4,
@@ -1095,7 +1113,8 @@ def irfft_w_dual(a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i):
     image, fwd = _empty(full, a0r), _empty(full, a0r)
     _launch("irfft_w_dual", "lpt_irfft_w_dual", "ppppppppppp" + "iiiii",
             a0r, a0i, a1r, a1i, p0r, p0i, p1r, p1i, image, fwd,
-            _table(m, True, a0r.device), p * ph, m, n1, n2, _CODE[a0r.dtype])
+            _design_table(m, True, irfft_w_dual_design(m), a0r.device), p * ph, m, n1, n2,
+            _CODE[a0r.dtype])
     irfft_w_dual.launches += 1
     return image, fwd
 

@@ -25,10 +25,11 @@ Two kernel placements of the same recurrence (``placement``):
   -> K9 ``irfft_w_dual`` (image and forward plane, both stored).  Its
   saturation channel scans every int16 carry every iteration (K7).
 
-v3 is the placement to use on the H100: it moves fewer bytes per
-iteration and runs faster in every storage mode.  v2 is kept for parity
-with the JAX package's v2 path and for K9, which the JAX package's
-multi-device solver also runs.
+v3 moves fewer bytes per iteration and is the faster placement on the
+H100 in the headline storage mode (bf16 spectra, int16 carries); at f32
+v2 is the faster, its K8 and K9 running closer to their bound than v3's
+K3 and K6 (PERF.md).  v3 stays the default, as in the JAX package; v2
+also carries K9, which the JAX package's multi-device solver runs.
 
 Storage modes are arguments, not globals: ``io`` (f32 or bf16) for the
 spectra, the image and the static planes handed between kernels,

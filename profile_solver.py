@@ -1,6 +1,6 @@
 """In-loop kernel times of the port's solvers on one card.
 
-    python3 profile_solver.py [--solver rsplit|split|pallas|rgb|batch4]
+    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4]
                               [--mode bench|f32] [--n 20]
 
 Builds the port's kernels, makes the 12 MP certification measurement of
@@ -17,17 +17,18 @@ window); per iteration the bytes that PyTorch's operations read and write
 views and allocations nothing); the solver's it/s by the difference method
 (``chip_smoke.rate``); and the card's name and power limit.
 
-``--solver rsplit`` is the half-spectrum ``run_rsplit``, ``split`` the
+``--solver rsplit`` is the half-spectrum ``run_rsplit`` (v3 placement),
+``rsplit_v2`` the same solver in the v2 placement (K8, K4, K5, K4, K9), ``split`` the
 full-width ``run_split(backend="fused")``, ``pallas`` the full-width
 ``run_split(backend="pallas")``, ``rgb`` and ``batch4`` the JAX bench's RGB
 (3 planes) and gray batch=4 rungs through ``run_rsplit_general`` (always
 in the headline mode); ``--mode bench`` runs a solver in the storage modes
 the JAX bench's headline environment gives it (bf16 spectra, int16
 carries; the full-width fused path keeps f32 TV carries, the pallas path
-has no carries), ``f32`` at f32.  The ``rsplit``, ``split``, ``rgb`` and
-``batch4`` solvers use only package API that they have had since they
-landed, so the script also times an older checkout: run it from that
-checkout's root.  Exits non-zero without a CUDA device.
+has no carries), ``f32`` at f32.  The ``rsplit``, ``rsplit_v2``, ``split``,
+``rgb`` and ``batch4`` solvers use only package API that they have had
+since they landed, so the script also times an older checkout: run it
+from that checkout's root.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,11 +50,12 @@ from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.recon import admm_split
 
 HEADLINE = dict(io="bf16", carry_tv="i16", carry_v="i16")
-MODES = {("rsplit", "bench"): HEADLINE,
+MODES = {("rsplit", "bench"): HEADLINE, ("rsplit_v2", "bench"): HEADLINE,
          ("split", "bench"): dict(io="bf16", carry_tv="f32", carry_v="i16"),
          ("pallas", "bench"): dict(io="bf16"),
          ("rgb", "bench"): HEADLINE, ("batch4", "bench"): HEADLINE,
-         ("rsplit", "f32"): {}, ("split", "f32"): {}, ("pallas", "f32"): {}}
+         ("rsplit", "f32"): {}, ("rsplit_v2", "f32"): {}, ("split", "f32"): {},
+         ("pallas", "f32"): {}}
 
 
 def device_time_us(evt) -> float:
@@ -72,9 +74,10 @@ KERNEL_DECL = re.compile(
 
 
 def port_kernel_names() -> set:
-    """The names of the port's own CUDA kernels, from its sources."""
+    """The names of the port's own CUDA kernels, from its sources and
+    headers."""
     names = set()
-    for path in _build.CSRC.glob("*.cu"):
+    for path in (*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")):
         names.update(KERNEL_DECL.findall(path.read_text()))
     return names
 
@@ -122,7 +125,8 @@ def measurement(solver, scene, psf2d):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--solver", choices=("rsplit", "split", "pallas", "rgb", "batch4"),
+    ap.add_argument("--solver",
+                    choices=("rsplit", "rsplit_v2", "split", "pallas", "rgb", "batch4"),
                     default="rsplit")
     ap.add_argument("--mode", choices=("bench", "f32"), default="bench")
     ap.add_argument("--n", type=int, default=20)
@@ -137,11 +141,12 @@ def main():
     scene, psf2d = cs.cert_scene_psf(cs.SENSOR, np.random.RandomState(0))
     meas, psf = measurement(args.solver, scene, psf2d)
     modes = MODES[(args.solver, args.mode)]
-    if args.solver == "rsplit":
+    if args.solver in ("rsplit", "rsplit_v2"):
         pre = admm_split.precompute_rsplit(psf, meas)
+        placement = "v2" if args.solver == "rsplit_v2" else "v3"
 
         def solve(k):
-            return admm_split.run_rsplit(pre, n_iter=k, **modes)
+            return admm_split.run_rsplit(pre, n_iter=k, placement=placement, **modes)
     elif args.solver in ("rgb", "batch4"):
         pre, info = admm_split.precompute_rsplit_general(psf, meas)
         meas_t = torch.from_numpy(meas).to("cuda")
