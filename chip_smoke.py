@@ -49,7 +49,13 @@ runs every kernel and the v3, full-width fused and pallas solvers at the
 padded grids of GRIDS, where the split designs take their general form
 (phase ``grids``: the published baseline's 540 x 960, 768 x 1024, 480 x
 640, 96 x 270), passes CUDA tensors that require grad to the public entry
-points against numpy inputs (phase ``device_inputs``), checks that each counted run went
+points against numpy inputs (phase ``device_inputs``), runs the classical
+solvers, the public API and the evaluation layer (phase ``classical``:
+``GradientDescent``, ``NesterovGradientDescent``, ``FISTA``, ``ADMM`` with an
+initial estimate and ``APGD`` at 12 MP, with ``apply(disp_iter=...)``
+chunks, ``reconstruction_error``, PSNR / SSIM and rates; every new entry
+point at 32 x 40 x 3 on the card against the CPU; ``benchmark`` at the
+DiffuserCam grid on both), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -65,15 +71,21 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
+import lenslesspicam_tpu_torch as lpt
+from lenslesspicam_tpu_torch.eval import lpips
+from lenslesspicam_tpu_torch.eval.benchmark import benchmark
+from lenslesspicam_tpu_torch.eval.metrics import compute_metrics, ssim
+from lenslesspicam_tpu_torch.eval.pnp import parameterize_perturb
 from lenslesspicam_tpu_torch.ops import _build, kernels as K, probe_bw as PB
 from lenslesspicam_tpu_torch.ops import split_fft as sf
 from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.ops.padding import padded_size
-from lenslesspicam_tpu_torch.recon import admm, admm_split
+from lenslesspicam_tpu_torch.recon import admm, admm_split, apgd
 from lenslesspicam_tpu_torch.recon.admm import ADMMParams
 from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
 
@@ -1444,6 +1456,204 @@ def grids_phase():
     return recs
 
 
+# phase ``classical``: the classical solvers, the public API and the
+# evaluation layer, which launch none of the port's kernels (torch.fft,
+# matmul and cuDNN convolutions, as the JAX package computes them outside
+# any Pallas kernel)
+CLASSICAL_N, CLASSICAL_DISP = 10, 4
+CLASSICAL_SMALL = (32, 40, 3)        # tests/test_api.py's grid
+DIFFUSERCAM = GRIDS[0]               # 270 x 480 (bench.py:34)
+TOL_CHUNKED = 1e-5                   # apply(disp_iter) against one run, normalized
+# the card against the CPU, max |card - cpu| / max |cpu|: iterative solvers
+# and LPIPS's 13 convolutions (cuFFT / cuDNN against pocketfft / oneDNN
+# sums), one-pass products and filters, and benchmark()'s metric averages
+TOL_CARD_CPU = {"solver": 1e-4, "lpips": 1e-4, "one_pass": 1e-5, "benchmark": 1e-4}
+GD_CLASSES = ("GradientDescent", "NesterovGradientDescent", "FISTA")
+
+
+def on_device(x, label, device="cuda"):
+    """``x``, after checking that each of its tensors is on ``device``."""
+    for t in tensors(x):
+        if t.device.type != torch.device(device).type:
+            raise AssertionError(f"{label}: an output is on {t.device}, not {device}")
+    return x
+
+
+def classical_12mp(psf2d, meas, scene_n, device="cuda"):
+    """The classical solvers through the public API at the f32 phase's
+    scene and PSF: ``GradientDescent``, ``NesterovGradientDescent``,
+    ``FISTA``, ``ADMM`` (with an initial estimate) and ``APGD`` (nonneg),
+    each at n = CLASSICAL_N with no launch of the port's kernels, on the
+    card; apply in chunks of CLASSICAL_DISP with a callback against one
+    run; reconstruction_error at n = CLASSICAL_N below n = 2; PSNR and SSIM
+    against the scene (compute_metrics); it/s by ``rate``, n = 2 against
+    12.  Returns one record per solver.  ``device="cpu"`` rehearses it on
+    a small scene (with ``torch.cuda.synchronize`` patched out)."""
+    psf = psf2d[None, :, :, None]
+    data = meas[:, :, None]
+    target = scene_n[None, None, :, :, None]
+    n = CLASSICAL_N
+    recs = {}
+    for name in (*GD_CLASSES, "ADMM", "APGD"):
+        if name == "APGD":
+            conv = apgd.make_convolver(psf, device=device)
+
+            def solve(k, conv=conv):
+                return lpt.APGD(conv, data, k)[0]
+            rec_err = lpt.FISTA(psf, device=device).reconstruction_error
+        else:
+            kw = ({"initial_est": torch.full((1, *meas.shape, 1), float(meas.mean()),
+                                             device=device)} if name == "ADMM" else {})
+            r = getattr(lpt, name)(psf, device=device, **kw)
+            r.set_data(data)
+            solve, rec_err = r.apply, r.reconstruction_error
+        out, _ = counted(lambda: on_device(solve(n), name, device), zero_counts(), name)
+        if tuple(out.shape) != (1, *meas.shape, 1) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output not finite at (1, {tuple(meas.shape)}, 1)")
+        rec = {}
+        if name != "APGD":      # APGD has no chunked apply, as in the JAX package
+            seen = []
+            chunked = solve(n, disp_iter=CLASSICAL_DISP,
+                            callback=lambda img, it: seen.append((it, img.device.type)))
+            rec["chunked_vs_one_run"] = nerr(chunked, out)
+            rec["callbacks"] = seen
+            if not (rec["chunked_vs_one_run"] <= TOL_CHUNKED
+                    and [it for it, _ in seen] == [4, 8, 10]
+                    and all(d == torch.device(device).type for _, d in seen)):
+                raise AssertionError(f"{name}: apply(disp_iter={CLASSICAL_DISP}) against one "
+                                     f"run {rec['chunked_vs_one_run']:.3e}, callbacks {seen}")
+        rec["reconstruction_error"] = {2: float(rec_err(solve(2), data[None])[0]),
+                                       n: float(rec_err(out, data[None])[0])}
+        if not rec["reconstruction_error"][n] < rec["reconstruction_error"][2]:
+            raise AssertionError(f"{name}: reconstruction_error did not fall from n = 2 to "
+                                 f"n = {n}: {rec['reconstruction_error']}")
+        m = compute_metrics(out[None], target)
+        rec.update(psnr_db=float(m["PSNR"]), ssim=float(m["SSIM"]), mse=float(m["MSE"]),
+                   it_per_s=rate(solve, base=2, full=12, pairs=3))
+        recs[name] = rec
+        del out
+    return recs
+
+
+def _t_denoise(x, level):
+    return (x + torch.roll(x, 1, dims=-3) + torch.roll(x, 1, dims=-2)) / (3.0 + 1e-3 * level)
+
+
+def classical_cases():
+    """Every new entry point as ``fn(device) -> tensor(s)`` at the small
+    grid, with its tolerance class."""
+    rng = np.random.RandomState(18)
+    h, w, c = CLASSICAL_SMALL
+    psf = rng.rand(1, h, w, c).astype(np.float32)
+    psf /= np.linalg.norm(psf)
+    data = rng.rand(h, w, c).astype(np.float32)
+    small = rng.rand(h // 2, w // 2, c).astype(np.float32)
+    P, Q = rng.randn(h + 6, h), rng.randn(w + 8, w)
+    mask = types.SimpleNamespace(resolution=(h + 6, w + 8))
+    meas = rng.rand(h + 6, w + 8, c).astype(np.float32)
+    a, b = (rng.rand(2, 1, h, w, c).astype(np.float32) for _ in range(2))
+    la, lb = (rng.rand(2, 64, 64, 3).astype(np.float32) for _ in range(2))
+    lp_weights = lpips.random_params(0, "vgg")
+    gain = {"gain": rng.rand(c).astype(np.float32) + 0.5, "bias": rng.rand(c).astype(np.float32)}
+
+    def t(x, d):
+        return torch.from_numpy(x).to(d)
+
+    def klass(name):
+        def fn(d):
+            r = getattr(lpt, name)(psf, device=d)
+            r.set_data(data)
+            return r.apply(n_iter=CLASSICAL_N)
+        return fn
+
+    def apgd_ds(d):
+        conv, ds = apgd.make_downsampling_convolver(psf, small.shape, device=d)
+        return lpt.APGD(conv, small, CLASSICAL_N, ds_factor=ds)
+
+    def pnp(d):
+        conv = FFTConvolver.from_psf(psf, pad=True, norm="backward", device=d)
+        pred, params = parameterize_perturb(lambda p, x: p["gain"] * x + p["bias"],
+                                            {k: t(v, d) for k, v in gain.items()}, conv,
+                                            t(a[:1], d), mu=1e-2, lr=0.5, n_iter=10)
+        return pred, params["gain"], params["bias"]
+
+    return {
+        **{name: ("solver", klass(name)) for name in (*GD_CLASSES, "ADMM")},
+        "APGD": ("solver", lambda d: lpt.APGD(apgd.make_convolver(psf, device=d), data,
+                                              CLASSICAL_N)),
+        "APGD:ds_factor": ("solver", apgd_ds),
+        "CodedApertureReconstruction": ("one_pass", lambda d: lpt.CodedApertureReconstruction(
+            mask, (h, w), P=P, Q=Q, lmbd=1e-2, device=d).apply(meas)),
+        "ssim": ("one_pass", lambda d: ssim(t(a, d)[:, 0], t(b, d)[:, 0])),
+        "compute_metrics": ("one_pass", lambda d: tuple(compute_metrics(t(a, d), t(b, d))
+                                                        .values())),
+        "run_pnp": ("solver", lambda d: admm.run_pnp(admm.make_convolver(psf, device=d), data,
+                                                     _t_denoise, n_iter=CLASSICAL_N,
+                                                     use_dual=True)),
+        "parameterize_perturb": ("solver", pnp),
+        "LPIPS": ("lpips", lambda d: lpips.model_from_state_dict(lp_weights, "vgg", d)(
+            t(la, d), t(lb, d))),
+    }
+
+
+def classical_benchmark(device):
+    """benchmark() over 2 batches of 2 synthetic RGB pairs at the
+    DiffuserCam grid, an ADMM at n = CLASSICAL_N reconstructing and as
+    ``model`` (ReconstructionError), no noise."""
+    rng = np.random.RandomState(19)
+    scene, psf2d = cert_scene_psf(DIFFUSERCAM, rng)
+    psf = np.stack([psf2d, np.roll(psf2d, 3, 0), np.roll(psf2d, 5, 1)], axis=-1)[None]
+    fwd = FFTConvolver.from_psf(psf, pad=True, norm="backward", device="cpu")
+    batches = []
+    for i in range(2):
+        lensed = np.stack([np.stack([np.roll(scene, 7 * (2 * i + j) + k, 1) * (1.0 - 0.1 * k)
+                                     for k in range(3)], -1)[None]
+                           for j in range(2)]).astype(np.float32)
+        lensless = fwd.convolve(torch.from_numpy(lensed))
+        lensless = lensless / lensless.amax(dim=(-4, -3, -2, -1), keepdim=True)
+        batches.append({"lensless": lensless.numpy(), "lensed": lensed})
+    model = ADMM(psf, n_iter=CLASSICAL_N, device=device)
+
+    def reconstruct(x):
+        return on_device(model.batch_apply(x), "benchmark", device)
+
+    return benchmark(reconstruct, batches, model=model, device=device)
+
+
+def classical_phase(psf2d, meas, scene_n):
+    """The phase ``classical``: :func:`classical_12mp`, every entry point of
+    :func:`classical_cases` on the card against the CPU (each output on
+    the card), and :func:`classical_benchmark` on both, its metric dict
+    within TOL_CARD_CPU["benchmark"] relative.  TF32 is off (``main``).
+    Returns the phase's record."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("f32 parity needs TF32 off")
+    t0 = time.perf_counter()
+    solvers = classical_12mp(psf2d, meas, scene_n)
+    small = {}
+    for name, (kind, fn) in classical_cases().items():
+        card = on_device(fn("cuda"), name)
+        cpu = fn("cpu")
+        err = max(nerr(x.cpu(), y) for x, y in zip(tensors(card), tensors(cpu)))
+        small[name] = {"max_rel_err": err, "tol": TOL_CARD_CPU[kind]}
+        if not err <= TOL_CARD_CPU[kind]:
+            raise AssertionError(f"{name} at {CLASSICAL_SMALL}: card against CPU {err:.3e}")
+    bench_card, bench_cpu = classical_benchmark("cuda"), classical_benchmark("cpu")
+    bench_err = {k: abs(bench_card[k] - bench_cpu[k]) / abs(bench_cpu[k]) for k in bench_cpu}
+    if list(bench_card) != list(bench_cpu) or \
+            not max(bench_err.values()) <= TOL_CARD_CPU["benchmark"]:
+        raise AssertionError(f"benchmark card {bench_card} against CPU {bench_cpu}")
+    rec = {"phase": "classical", "grid": list(SENSOR), "n_iter": CLASSICAL_N,
+           "disp_iter": CLASSICAL_DISP, "tol_chunked": TOL_CHUNKED, "solvers": solvers,
+           "small_grid": list(CLASSICAL_SMALL), "card_vs_cpu": small,
+           "benchmark": {"grid": list(DIFFUSERCAM), "batches": 2, "batch_size": 2,
+                         "card": bench_card, "cpu": bench_cpu, "rel_err": bench_err,
+                         "tol": TOL_CARD_CPU["benchmark"]},
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1652,7 +1862,7 @@ def main():
     seconds["split_pallas"] = pallas["seconds"]
     rates.update({k: pallas[k] for k in ("split_pallas_f32_it_per_s",
                                          "split_pallas_bf16_it_per_s")})
-    del meas, spre
+    del spre
 
     modes = {}
     for mode in ("rgb", "batch4"):
@@ -1661,6 +1871,11 @@ def main():
     for mode in modes:
         rates[f"{mode}_it_per_s"] = modes[mode]["it_per_s"]
         rates[f"{mode}_plane_it_per_s"] = modes[mode]["plane_it_per_s"]
+    classical = classical_phase(psf2d, meas, scene_n)
+    seconds["classical"] = classical["seconds"]
+    rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
+                  for name, rec in classical["solvers"].items()})
+    del meas
     emit({"phase": "rate", "grid": list(SENSOR), "method": "(n=52 - n=2) pairs",
           "unit": "solver iterations per second of the whole solve; plane_it_per_s: "
                   "times the planes", **rates, "card": smi})

@@ -43,3 +43,16 @@ def as_host(x, dtype=np.float32) -> np.ndarray:
         x = x.detach().cpu()
         x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x, dtype)
+
+
+def as_tensor(x, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``x`` as a tensor for the functional entry points (metrics, noise,
+    solvers' inputs): a tensor stays on its device and in its autograd
+    graph unless ``device`` names another; anything else is placed on
+    ``resolve_device(device)``.  ``dtype=None`` keeps a tensor's dtype (and
+    makes float32 of anything else)."""
+    if isinstance(x, torch.Tensor):
+        dev = None if device is None else resolve_device(device)
+        return x.to(device=dev, dtype=dtype or x.dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype or torch.float32).to(
+        resolve_device(device))

@@ -1,10 +1,10 @@
-"""Carry solver constants and state across from the JAX package.
+"""Carry solver constants, state and weights across from the JAX package.
 
 The single-image solvers have no learned weights: what stands in for
-them is the loop-invariant operator set and the solver state.  These
-functions take plain numpy arrays (``np.asarray`` of the JAX arrays,
-keyed by the JAX field names) and build the port's structures on a
-device; nothing here imports JAX.
+them is the loop-invariant operator set and the solver state.  The LPIPS
+metric has weights (:func:`lpips_state_dict`).  These functions take
+plain numpy arrays (``np.asarray`` of the JAX arrays, keyed by the JAX
+field names) and build the port's structures; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -103,3 +103,21 @@ def admm_state(arrays: dict, device=None) -> ADMMState:
     device = resolve_device(device)
     return ADMMState(*[_t(arrays[f], device, np.float32)
                        for f in ADMMState._fields])
+
+
+def lpips_state_dict(variables) -> dict:
+    """The port's LPIPS ``state_dict`` (``eval.lpips.LPIPS``) from the JAX
+    package's LPIPS variables as numpy arrays: the flax tree ``{"params":
+    {net: {conv: {"kernel": HWIO, "bias"}}, "lin<i>": (C,)}}`` (or the
+    tree under "params").  Kernels become OIHW."""
+    params = variables.get("params", variables)
+    sd = {}
+    for key, value in params.items():
+        if isinstance(value, dict):
+            for conv, leaves in value.items():
+                kernel = np.transpose(np.asarray(leaves["kernel"], np.float32), (3, 2, 0, 1))
+                sd[f"{key}.{conv}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel))
+                sd[f"{key}.{conv}.bias"] = torch.from_numpy(np.array(leaves["bias"], np.float32))
+        else:
+            sd[key] = torch.from_numpy(np.array(value, np.float32).reshape(-1))
+    return sd

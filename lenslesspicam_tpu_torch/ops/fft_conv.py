@@ -6,7 +6,9 @@ data.  Each spatial dim is padded to at least ``2N - 1`` so circular
 convolution equals linear convolution.  When both padded sizes are even
 the trailing ``ifftshift`` is folded into ``H`` as the real
 ``(-1)^(ky + kx)`` mask, so ``deconvolve`` uses ``conj(H)`` of the same
-stored spectrum.  Forward only: the hand-written backward of
+stored spectrum.  ``norm`` applies to ``H`` only: the data's FFTs keep
+the backward norm, as in the JAX package (and the reference's
+``RealFFTConvolve2D``).  Forward only: the hand-written backward of
 ``filtered_synthesis`` comes with training.
 """
 
@@ -135,3 +137,8 @@ class FFTConvolver:
     def mag_sq(self):
         """|H|^2, real."""
         return torch.real(self.H * torch.conj(self.H))
+
+
+def make_convolver(psf, **kwargs) -> FFTConvolver:
+    """Convenience alias for :meth:`FFTConvolver.from_psf`."""
+    return FFTConvolver.from_psf(psf, **kwargs)

@@ -1,5 +1,6 @@
 """ADMM with TV prior and non-negativity: the exact solver (port of
-lenslesspicam_tpu/recon/admm.py:43-205).
+lenslesspicam_tpu/recon/admm.py:43-275), and its plug-and-play form
+:func:`run_pnp`.
 
 All state lives on the padded grid.  The accumulating duals are never
 carried: each is rebuilt in :func:`step` from one identity (xi = mu1*fwd
@@ -14,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.fft_conv import FFTConvolver
+from ..ops.fft_conv import FFTConvolver, filtered_synthesis
 from ..ops.tv import (finite_diff, finite_diff_adj, finite_diff_gram_spectrum,
                       soft_thresh)
 
@@ -141,3 +142,41 @@ def run(conv: FFTConvolver, data, params: ADMMParams = ADMMParams(),
         n_iter: int = 100, initial_est=None):
     """Full reconstruction: returns ``(batch, depth, H, W, C)``."""
     return run_state(conv, data, params, n_iter, initial_est=initial_est)[0]
+
+
+def run_pnp(conv: FFTConvolver, data, denoiser, params: ADMMParams = ADMMParams(),
+            n_iter: int = 100, noise_level: float = 10.0, use_dual: bool = False,
+            initial_est=None):
+    """Plug-and-play ADMM: the TV prox is replaced by a denoiser.
+
+    ``denoiser(image, noise_level) -> image`` works on the padded grid
+    (B, D, Ph, Pw, C).  With ``use_dual`` the denoiser takes ``U + eta /
+    mu2`` and the eta dual is tracked; otherwise it denoises the current
+    image estimate and eta stays zero.  Returns the cropped image
+    ``(batch, depth, H, W, C)`` clipped at 0."""
+    mu1, mu2, mu3 = params.mu1, params.mu2, params.mu3
+    pre = precompute(conv, data, params)
+    shape = (pre.data_pad.shape[0],) + tuple(conv.padded_shape)
+    ph, pw = conv.padded_spatial_shape
+    dtype, device = conv.H.real.dtype, conv.H.device
+    zeros = torch.zeros(shape, dtype=dtype, device=device)
+    # U and eta are image-shaped here (Psi is the identity)
+    if initial_est is not None:
+        image = torch.as_tensor(initial_est, dtype=dtype).to(device).expand(shape)
+        forward_out = conv.convolve(image)
+    else:
+        image, forward_out = zeros, zeros
+    U, xi, eta, rho = zeros, zeros, zeros, zeros
+    for _ in range(int(n_iter)):
+        U = denoiser(U + eta / mu2 if use_dual else image, noise_level)
+        X = pre.X_divmat * (xi + mu1 * forward_out + pre.data_pad)
+        W = torch.clamp(rho / mu3 + image, min=0.0)
+        prior = mu2 * U - eta if use_dual else mu2 * U
+        rk = (mu3 * W - rho) + prior + conv.deconvolve(mu1 * X - xi)
+        image = filtered_synthesis(rk, pre.R_divmat, (ph, pw))
+        forward_out = conv.convolve(image)
+        if use_dual:
+            eta = eta + mu2 * (image - U)
+        xi = xi + mu1 * (forward_out - X)
+        rho = rho + mu3 * (image - W)
+    return torch.clamp(conv.crop(image), min=0.0)

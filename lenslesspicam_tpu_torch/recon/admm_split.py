@@ -3,8 +3,8 @@ fused half-spectrum solver, the system's hot path (:205-525, both kernel
 placements, at every storage mode of the JAX package, for one plane or a
 batched RGB / 3-D stack of planes), and the full-width split solver
 (:30-192, 528-701; ``precompute_split``, ``run_split`` with its
-``"torch"``, ``"fused"`` and ``"pallas"`` backends, ``run_split_general``,
-at the end of this module).
+``"jax"`` (also named ``"torch"``), ``"fused"`` and ``"pallas"``
+backends, ``run_split_general``, at the end of this module).
 
 Spatial planes ride in the even/odd split lane layout; spectra, filter
 constants and all H-axis work are half width (``ops/split_fft.py``).
@@ -364,9 +364,10 @@ def run_rsplit_general(pre: RSplitPrecomp, info: dict, data,
 # natural lane order, full-width complex spectra in split order on both
 # axes (ops/split_fft.py).
 #
-# ``run_split(backend="torch")`` is the JAX package's ``"jax"`` backend: the
-# unfused loop of admm_split.py:534-601 through the plain split transforms,
-# at f32.  ``backend="pallas"`` (``run_split_pallas``) is the same loop
+# ``run_split(backend="jax")``, the default as in the JAX package, is that
+# package's ``"jax"`` backend: the unfused loop of admm_split.py:534-601
+# through the plain split transforms, at f32; ``"torch"`` names the same
+# loop.  ``backend="pallas"`` (``run_split_pallas``) is the same loop
 # through the pass-level kernels (admm_split.py:110-133): per iteration K12
 # -> K14 -> K15 for rk, K12 -> K14 -> K16 for v with the spectrum combine,
 # K17 -> K4 -> 2 K13 for the image and the forward plane, the state algebra
@@ -393,7 +394,7 @@ class SplitPrecomp(NamedTuple):
 
 
 SPLIT_FIELDS = ("Hr", "Hi", "R", "X_divmat", "data_pad")
-BACKENDS = ("torch", "fused", "pallas")
+BACKENDS = ("jax", "torch", "fused", "pallas")
 
 
 def precompute_split_np(psf2d: np.ndarray, data2d: np.ndarray,
@@ -615,11 +616,12 @@ def run_split_pallas(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
 
 
 def run_split(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
-              n_iter: int = 100, backend: str = "torch", io: str = "f32",
+              n_iter: int = 100, backend: str = "jax", io: str = "f32",
               carry_tv: str = "f32", carry_v: str = "f32"):
     """Full-width split ADMM of one plane (or a stack); returns the cropped
-    image clipped at 0.  ``backend``: "torch", the JAX package's "jax"
-    backend (the unfused loop through the plain transforms, f32 only),
+    image clipped at 0.  ``backend``: "jax" (the default, as in the JAX
+    package) or its other name "torch", the unfused loop through the plain
+    transforms (f32 only),
     "fused" (:func:`run_split_fused`, which takes the storage modes) or
     "pallas" (:func:`run_split_pallas`, which takes ``io`` and has no
     carries: ``carry_tv`` and ``carry_v`` must be "f32")."""
@@ -630,10 +632,10 @@ def run_split(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
             raise ValueError("the pallas backend has no carries (its state is f32 duals "
                              "and io planes); carry_tv and carry_v must be 'f32'")
         return run_split_pallas(pre, params, n_iter, io=io)
-    if backend != "torch":
+    if backend not in ("jax", "torch"):
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     if (io, carry_tv, carry_v) != ("f32", "f32", "f32"):
-        raise ValueError("the torch backend runs at f32, as the JAX package's jax "
+        raise ValueError(f"the {backend} backend runs at f32, as the JAX package's jax "
                          "backend; storage modes are for backend='fused' or 'pallas'")
     _check_planes(pre)
     return _run_split_torch(pre, params, n_iter)
@@ -660,7 +662,7 @@ def precompute_split_general(psf, data, params: ADMMParams = ADMMParams(), devic
 
 def run_split_general(pre: SplitPrecomp, info: dict, data,
                       params: ADMMParams = ADMMParams(), n_iter: int = 100,
-                      backend: str = "torch", io: str = "f32", carry_tv: str = "f32",
+                      backend: str = "jax", io: str = "f32", carry_tv: str = "f32",
                       carry_v: str = "f32"):
     """Batched RGB / 3-D full-width split ADMM (the JAX package's
     ``run_split_general``); returns (B, D, H, W, C), clipped at 0.

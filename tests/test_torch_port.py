@@ -1,5 +1,6 @@
-"""Properties of the PyTorch/CUDA port that hold on any machine: it
-imports nothing of JAX or of the JAX package, its entry points refuse to
+"""Properties of the PyTorch/CUDA port that hold on any machine: every
+module of it imports with JAX, the JAX package, flax, OpenCV and
+matplotlib blocked, its entry points refuse to
 run on the CPU unless asked to, and importing it builds nothing."""
 
 import os
@@ -19,15 +20,25 @@ from lenslesspicam_tpu_torch.recon.base import ADMM
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PURITY = r"""
-import importlib, pkgutil, re, sys
+import importlib, os, pkgutil, re, sys
+# what the port must not need at import: JAX, the JAX package, and the
+# JAX package's host dependencies that the card's machine does not have
+BLOCKED = ("jax", "jaxlib", "flax", "cv2", "matplotlib", "lenslesspicam_tpu")
+for name in BLOCKED:
+    sys.modules[name] = None          # an import of it raises ImportError
 import lenslesspicam_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
-import chip_smoke, ab_kernels
-bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib") or re.match(r"^lenslesspicam_tpu(\.|$)", m)]
-print("BAD", bad)
-sys.exit(1 if bad else 0)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke, ab_kernels, profile_solver
+files = {os.path.relpath(os.path.join(d, f), os.path.dirname(pkg.__path__[0]))[:-3]
+         .replace(os.sep, ".").removesuffix(".__init__")
+         for d, _, fs in os.walk(pkg.__path__[0]) for f in fs if f.endswith(".py")}
+missed = sorted(files - set(names) - {pkg.__name__})
+bad = [m for m in sys.modules if sys.modules[m] is not None
+       and (m.split(".")[0] in BLOCKED or re.match(r"^lenslesspicam_tpu(\.|$)", m))]
+print("BAD", bad, "MISSED", missed, "IMPORTED", len(names))
+sys.exit(1 if bad or missed else 0)
 """
 
 

@@ -379,7 +379,9 @@ def test_split_modes_and_backends_are_validated(monkeypatch):
     with pytest.raises(ValueError, match="no carries"):
         tsplit.run_split(pre, P, 1, backend="pallas", io="bf16", carry_v="i16")
     with pytest.raises(ValueError):
-        tsplit.run_split(pre, P, 1, backend="jax")
+        tsplit.run_split(pre, P, 1, backend="numpy")
+    with pytest.raises(ValueError):
+        tsplit.run_split(pre, P, 1, backend="jax", io="bf16")
     with pytest.raises(ValueError):
         tsplit.run_split(pre, P, 1, backend="torch", io="bf16")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
