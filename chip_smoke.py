@@ -55,7 +55,12 @@ solvers, the public API and the evaluation layer (phase ``classical``:
 initial estimate and ``APGD`` at 12 MP, with ``apply(disp_iter=...)``
 chunks, ``reconstruction_error``, PSNR / SSIM and rates; every new entry
 point at 32 x 40 x 3 on the card against the CPU; ``benchmark`` at the
-DiffuserCam grid on both), checks that each counted run went
+DiffuserCam grid on both), serves the learned models (phase ``learned``:
+the zoo's ``Unet4M+U5+Unet4M`` and ``U20`` built by ``build_model`` on
+seeded weights carried from a JAX-layout tree, a batch of 4 DiffuserCam
+measurements, images/s, peak memory, the card against the CPU; every
+other learned family on the card against the CPU at 64 x 112 x 3; no
+kernel of the port launched), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -65,6 +70,7 @@ printing any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -77,6 +83,7 @@ import numpy as np
 import torch
 
 import lenslesspicam_tpu_torch as lpt
+from lenslesspicam_tpu_torch import convert
 from lenslesspicam_tpu_torch.eval import lpips
 from lenslesspicam_tpu_torch.eval.benchmark import benchmark
 from lenslesspicam_tpu_torch.eval.metrics import compute_metrics, ssim
@@ -87,7 +94,10 @@ from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.ops.padding import padded_size
 from lenslesspicam_tpu_torch.recon import admm, admm_split, apgd
 from lenslesspicam_tpu_torch.recon.admm import ADMMParams
+from lenslesspicam_tpu_torch.models.trainable_recon import processor_block
+from lenslesspicam_tpu_torch.models.unet import drunet_denoise
 from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
+from lenslesspicam_tpu_torch.zoo.model_dict import _UNET_NC, build_model
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
 SMALL = (48, 64)             # padded to 96 x 128
@@ -1654,6 +1664,227 @@ def classical_phase(psf2d, meas, scene_n):
     return rec
 
 
+# the learned models (phase ``learned``), which launch none of the port's
+# kernels either: cuFFT for the unrolled solvers and the Wiener filters,
+# cuDNN for the convolutions, as the JAX package computes them outside any
+# Pallas kernel
+LEARNED_NAME = "Unet4M+U5+Unet4M"    # zoo/model_dict.py:60, DiffuserCam MirFlickr (TCI)
+LEARNED_BATCH = 4
+LEARNED_SMALL = (64, 112, 3)
+TOL_LEARNED = 1e-4                   # card against CPU, max |card - cpu| / max |cpu|
+LEARNED_SEED = 21
+# The Restormer pipeline is ill-conditioned wherever its post-processor's
+# input is exactly zero (the unrolled solver's clamp at 0, most of the
+# image on a random measurement): the Restormer's convolutions and
+# layernorms are bias-free, so zero is a fixed point at which each
+# layernorm multiplies a feature by up to 1 / sqrt(1e-5), and a rounding
+# difference there grows to O(1) within a few blocks.  So its Restormers'
+# output convolutions are seeded RESTORMER_OUTPUT_SCALE times smaller (a
+# trained restorer corrects its input by a little; a seeded one by about
+# +-14, which the [0, 1] clamp saturates), each stage is held on the card
+# against the CPU on the CPU's own input (learned_stages), and for
+# LEARNED_STAGED_SEEDS weight seeds the end-to-end error is held to the
+# larger of TOL_LEARNED and 10x the CPU's own spread under a 1e-6 relative
+# perturbation of the measurement.
+LEARNED_STAGED = ("Transformer4M+U5+Transformer4M",)
+LEARNED_STAGED_SEEDS = 3
+RESTORMER_OUTPUT_SCALE = 1e-3
+
+
+def learned_model(model, seed=LEARNED_SEED):
+    """``model`` with seeded weights carried from a JAX-layout tree drawn
+    with numpy (``convert.random_variables`` -> ``convert.state_dict``), in
+    eval mode."""
+    model.load_state_dict(convert.state_dict(model, convert.random_variables(model, seed)))
+    return model.eval()
+
+
+def staged_model(name, seed):
+    """The Restormer pipeline ``name`` on the CPU with seeded weights, its
+    Restormers' output convolutions RESTORMER_OUTPUT_SCALE times the draw."""
+    model = learned_model(build_model(name, device="cpu"), seed)
+    with torch.no_grad():
+        for net in (model.pre_process_model, model.post_process_model):
+            net.output.weight.mul_(RESTORMER_OUTPUT_SCALE)
+    return model
+
+
+def learned_inputs(hw, batch, psf_channels=3, seed=LEARNED_SEED):
+    """A seeded PSF (1, H, W, psf_channels), measurement (batch, 1, H, W, 3)
+    and background (a fifth of the measurement's scale), numpy float32."""
+    rng = np.random.RandomState(seed)
+    psf = rng.rand(1, *hw, psf_channels).astype(np.float32)
+    psf /= np.linalg.norm(psf)
+    data = rng.rand(batch, 1, *hw, 3).astype(np.float32)
+    return psf, data, (0.2 * rng.rand(*data.shape)).astype(np.float32)
+
+
+def learned_cases():
+    """Every other learned family as ``(model on the CPU, its inputs)`` at
+    LEARNED_SMALL, batch 2, seeded weights (the Restormer pipelines' by
+    :func:`staged_model`); a model whose parameters are made on its first
+    call (FISTA's steps, SVDeconvNet's PSF copies) has run once."""
+    from lenslesspicam_tpu_torch.models.background import IntegratedBackgroundSub
+    from lenslesspicam_tpu_torch.models.compensation import CompensationBranch
+    from lenslesspicam_tpu_torch.models.trainable_recon import TrainableRecon
+    from lenslesspicam_tpu_torch.models.unet import UNet, UNetRes
+    from lenslesspicam_tpu_torch.models.unrolled import UnrolledADMM, UnrolledFISTA
+
+    h, w, _ = LEARNED_SMALL
+    psf, data, bg = learned_inputs((h, w), 2)
+    psf1 = learned_inputs((h, w), 2, psf_channels=1)[0]
+    nc4 = _UNET_NC["4M"]
+    cpu = {"device": "cpu"}
+
+    def unet4m(**kw):
+        return UNetRes(in_nc=4, out_nc=3, nc=nc4, nb=4, **kw, **cpu)
+
+    def admm5():
+        return UnrolledADMM(n_iter=5, **cpu)
+
+    cases = {name: (build_model(name, device="cpu"), (data, psf1 if "MWDN" in name else psf))
+             for name in ("TrainInv+Unet8M", "SVDecon+UNet8M", "MWDN8M") + LEARNED_STAGED}
+    cases.update({
+        "UnrolledFISTA": (TrainableRecon(camera_inversion=UnrolledFISTA(n_iter=5, **cpu),
+                                         **cpu), (data, psf)),
+        # the compensation branch of the reference's MMCN (5 rungs for 5 iterations)
+        "MMCN4M+Unet4M": (TrainableRecon(
+            camera_inversion=admm5(),
+            compensation_branch=CompensationBranch(nc=(24, 64, 128, 256, 400), **cpu),
+            post_process=unet4m(concatenate_compensation=400), **cpu), (data, psf)),
+        "IntegratedBackgroundSub": (TrainableRecon(
+            camera_inversion=admm5(), pre_process=IntegratedBackgroundSub(**cpu),
+            integrated_background_subtraction=True, **cpu), (data, psf, bg)),
+        "direct_background_subtraction": (TrainableRecon(
+            camera_inversion=admm5(), pre_process=unet4m(), post_process=unet4m(),
+            direct_background_subtraction=True, **cpu), (data, psf, bg)),
+        "learned_background_subtraction": (TrainableRecon(
+            camera_inversion=admm5(), pre_process=unet4m(), post_process=unet4m(),
+            background_network=UNetRes(in_nc=4, out_nc=3, nc=_UNET_NC["2M"], nb=4, **cpu),
+            **cpu), (data, psf, bg)),
+        "UNet": (UNet(in_nc=3, out_nc=3, **cpu),
+                 (torch.from_numpy(data[:, 0]).permute(0, 3, 1, 2),)),
+        "drunet_denoise": (UNetRes(in_nc=4, out_nc=3, **cpu), (data[:, 0], 15.0)),
+    })
+    with torch.no_grad():
+        for name in ("UnrolledFISTA", "SVDecon+UNet8M"):
+            cases[name][0](*cases[name][1])
+    return {name: (staged_model(name, LEARNED_SEED + i) if name in LEARNED_STAGED else
+                   learned_model(model, seed=LEARNED_SEED + i), args)
+            for i, (name, (model, args)) in enumerate(cases.items())}
+
+
+def learned_stages(model, args, device):
+    """Max relative errors of the card against the CPU for each stage of a
+    TrainableRecon with Restormer pre- and post-processors (the port's
+    ``processor_block`` and camera inversion), each stage given the CPU's
+    input; with the end-to-end error and the CPU's own spread under a 1e-6
+    relative perturbation of the measurement."""
+    data, psf = (torch.from_numpy(a) for a in args[:2])
+    card = copy.deepcopy(model).to(device)
+    stages = (
+        ("pre", lambda m, x, p: processor_block(m.pre_process_model, m.pre_process_param, x)),
+        ("inversion", lambda m, x, p: m.camera_inversion(m._make_convolver(p), x, p)),
+        ("post", lambda m, x, p: processor_block(m.post_process_model, m.post_process_param,
+                                                 x)))
+    errs, x = {}, data
+    for name, stage in stages:
+        y = stage(model, x, psf)
+        errs[name] = nerr(on_device(stage(card, x.to(device), psf.to(device)), name,
+                                    device).cpu(), y)
+        x = y
+    noisy = data * (1 + 1e-6 * torch.randn(data.shape, generator=torch.Generator().manual_seed(0)))
+    errs["end_to_end"] = nerr(card(data.to(device), psf.to(device)).cpu(), x)
+    errs["cpu_spread_1e-6"] = nerr(model(noisy, psf), x)
+    return errs
+
+
+def learned_call(name, model, args, device):
+    """One forward of a case on ``device``, its tensors moved there."""
+    args = [torch.as_tensor(a).to(device) if isinstance(a, (np.ndarray, torch.Tensor)) else a
+            for a in args]
+    if name == "drunet_denoise":
+        return drunet_denoise(model, *args)
+    return model(*args[:2], **({"background": args[2]} if len(args) > 2 else {}))
+
+
+def learned_phase(device="cuda"):
+    """The phase ``learned``: the zoo's ``Unet4M+U5+Unet4M`` (pre and post
+    UNetRes nc (32, 64, 116, 128), nb = 4, around a 5-iteration unrolled
+    ADMM), built by ``build_model`` on carried seeded weights, serving a
+    batch of LEARNED_BATCH DiffuserCam measurements (270 x 480 x 3) in
+    ``eval()`` under ``torch.inference_mode()``: images/s by ``rate`` (1
+    against 6 forward calls, 3 pairs), peak device memory, the output on the
+    card, the card against the CPU at batch 1; ``U20`` (20 unrolled
+    iterations, no processors) the same way; every other family
+    (:func:`learned_cases`) on the card against the CPU.  Every counted
+    run launches none of the port's kernels.  Returns the phase's record.
+    ``device="cpu"`` rehearses it (with the CUDA calls patched out)."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("f32 parity needs TF32 off")
+    t0 = time.perf_counter()
+    psf, data, _ = learned_inputs(DIFFUSERCAM, LEARNED_BATCH)
+    psf_t, data_t = torch.from_numpy(psf).to(device), torch.from_numpy(data).to(device)
+    serving = {}
+    for name in (LEARNED_NAME, "U20"):
+        model = learned_model(build_model(name, device=device))
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()   # the model, inputs, earlier phases
+            out, counts = counted(lambda: on_device(model(data_t, psf_t), name, device),
+                                  zero_counts(), name)
+            peak = torch.cuda.max_memory_allocated()
+            if tuple(out.shape) != data.shape or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name}: output not finite at {data.shape}")
+            calls = rate(lambda k: [model(data_t, psf_t) for _ in range(k)], base=1, full=6,
+                         pairs=3)
+            err = nerr(model(data_t[:1], psf_t).cpu(), copy.deepcopy(model).cpu()(data[:1], psf))
+        if not err <= TOL_LEARNED:
+            raise AssertionError(f"{name} at {DIFFUSERCAM}: card against CPU {err:.3e}")
+        serving[name] = {
+            "images_per_s": {"median": calls["median"] * LEARNED_BATCH,
+                             "iqr": calls["iqr"] * LEARNED_BATCH, "pairs": calls["pairs"],
+                             "rates": [r * LEARNED_BATCH for r in calls["rates"]]},
+            "calls_per_s": calls, "peak_mem_bytes": peak, "resident_bytes": resident,
+            "forward_peak_bytes": peak - resident, "launches": counts,
+            "card_vs_cpu_batch1": err, "out_device": out.device.type,
+            "parameters": sum(p.numel() for p in model.parameters())}
+        del model, out
+    small = {}
+    for i, (name, (model, args)) in enumerate(learned_cases().items()):
+        card_model = copy.deepcopy(model).to(device)
+        seeded = [model] + [staged_model(name, LEARNED_SEED + i + 100 * k)
+                            for k in range(1, LEARNED_STAGED_SEEDS) if name in LEARNED_STAGED]
+        with torch.inference_mode():
+            card, _ = counted(lambda: on_device(learned_call(name, card_model, args, device),
+                                                name, device), zero_counts(), name)
+            small[name] = {"out_device": card.device.type}
+            if name in LEARNED_STAGED:
+                runs = [counted(lambda: learned_stages(m, args, device), zero_counts(), name)[0]
+                        for m in seeded]
+                small[name]["stages_by_seed"] = runs
+                err = max(r[k] for r in runs for k in ("pre", "inversion", "post"))
+                for r in runs:
+                    if not r["end_to_end"] <= max(TOL_LEARNED, 10 * r["cpu_spread_1e-6"]):
+                        raise AssertionError(f"{name}: end to end {r}")
+            else:
+                err = nerr(card.cpu(), learned_call(name, model, args, "cpu"))
+        small[name]["max_rel_err"] = err
+        if not err <= TOL_LEARNED:
+            raise AssertionError(f"{name} at {LEARNED_SMALL}: card against CPU {err:.3e}")
+        del card_model, card
+    rec = {"phase": "learned", "model": LEARNED_NAME, "grid": [*DIFFUSERCAM, 3],
+           "batch": LEARNED_BATCH, "method": "(6 - 1) forward calls, 3 pairs; images = calls "
+                                             "x batch", "serving": serving,
+           "small_grid": list(LEARNED_SMALL), "small_batch": 2, "card_vs_cpu": small,
+           "tol": TOL_LEARNED, "launches": serving[LEARNED_NAME]["launches"],
+           "kernels": "none of the port's: cuFFT (torch.fft) and cuDNN convolutions",
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1873,6 +2104,8 @@ def main():
         rates[f"{mode}_plane_it_per_s"] = modes[mode]["plane_it_per_s"]
     classical = classical_phase(psf2d, meas, scene_n)
     seconds["classical"] = classical["seconds"]
+    learned = learned_phase()
+    seconds["learned"] = learned["seconds"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
     del meas
@@ -1900,7 +2133,7 @@ def main():
              "round_trip": counts_rt, "split_bench": split["launches_bench"],
              "split_round_trip": counts_srt, "split_pallas_bf16": pallas["launches_bf16"],
              "filtered_synthesis": synthesis["launches"], "fft_h_combine2": counts_c2["bf16"],
-             "bandwidth": counts_bw}
+             "bandwidth": counts_bw, "learned": learned["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else

@@ -10,7 +10,10 @@ full-width split solver (``precompute_split`` / ``run_split``,
 ``*_general``), whose kernels are hand-written CUDA C++ for ``sm_90a``
 (``ops/csrc``), at the storage modes of the JAX package.  ``eval`` holds
 the metrics (MSE, PSNR, SSIM, LPIPS), Parameterize-and-Perturb and the
-benchmark harness.  Entry points run on the CUDA card unless the caller
+benchmark harness; ``models`` the learned reconstructions (unrolled ADMM
+and FISTA, the trainable inversions, MultiWiener, UNetRes / DRUNet,
+Restormer and their composition ``TrainableRecon``) as ``nn.Module``s, and
+``zoo.model_dict.build_model`` makes them from the zoo's names.  Entry points run on the CUDA card unless the caller
 asks for ``device="cpu"``.
 """
 
@@ -29,21 +32,27 @@ from .recon.apgd import APGDPriors  # noqa: F401
 from .recon.tikhonov import CodedApertureReconstruction  # noqa: F401
 from .hardware.sensor import SensorOptions, VirtualSensor, sensor_dict  # noqa: F401
 
-# the JAX package's lazy model exports, which the port has not reached yet
-_MODELS = ("TrainableRecon", "TrainableReconstructionAlgorithm", "UnrolledADMM",
-           "UnrolledFISTA", "TrainableInversion", "SVDeconvNet", "MultiWiener", "UNetRes",
-           "Restormer")
+# the JAX package's lazy exports: the learned models (nn.Modules) and APGD
+_LAZY = {
+    "TrainableRecon": ("models.trainable_recon", "TrainableRecon"),
+    "TrainableReconstructionAlgorithm": ("models.trainable_recon", "TrainableRecon"),
+    "UnrolledADMM": ("models.unrolled", "UnrolledADMM"),
+    "UnrolledFISTA": ("models.unrolled", "UnrolledFISTA"),
+    "TrainableInversion": ("models.inversion", "TrainableInversion"),
+    "SVDeconvNet": ("models.inversion", "SVDeconvNet"),
+    "MultiWiener": ("models.multi_wiener", "MultiWiener"),
+    "UNetRes": ("models.unet", "UNetRes"),
+    "Restormer": ("models.restormer", "Restormer"),
+    "APGD": ("recon.apgd", "run"),
+}
 
 
 def __getattr__(name):
-    """``APGD`` (``recon.apgd.run``) on first use, as the JAX package
-    exports it; the learned models raise until they are ported."""
-    if name == "APGD":
-        from .recon.apgd import run
+    """The learned models and ``APGD`` (``recon.apgd.run``) on first use, as
+    the JAX package exports them."""
+    if name in _LAZY:
+        import importlib
 
-        return run
-    if name in _MODELS:
-        raise AttributeError(
-            f"{name} is a learned model, which the port does not have yet "
-            "(ROADMAP Queue 1 item 13)")
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f".{module}", __name__), attr)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,6 +27,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def same_device(device: torch.device, *tensors) -> None:
+    """Raise unless every tensor lies on ``device``, the device of the
+    module or convolver it is fed to, as a PyTorch layer raises: the port
+    never copies an input across devices to suit a module."""
+    for t in tensors:
+        if t.device != device:
+            raise RuntimeError(
+                f"expected a tensor on {device}, got one on {t.device}: move the "
+                "input, or the module with .to(), so that both lie on one device")
+
+
+def module_input(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor for a module whose tensors lie on
+    ``device`` (taken from one of them): an array-like is placed there, a
+    tensor must lie there already (:func:`same_device`) and keeps its
+    autograd graph.  ``dtype=None`` keeps a tensor's dtype."""
+    if isinstance(x, torch.Tensor):
+        same_device(device, x)
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype or torch.float32).to(device)
+
+
 def as_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``x`` as a ``dtype`` tensor on ``device``: a tensor is detached and
     moved without a round trip through the host, anything else goes

@@ -8,8 +8,9 @@ the trailing ``ifftshift`` is folded into ``H`` as the real
 ``(-1)^(ky + kx)`` mask, so ``deconvolve`` uses ``conj(H)`` of the same
 stored spectrum.  ``norm`` applies to ``H`` only: the data's FFTs keep
 the backward norm, as in the JAX package (and the reference's
-``RealFFTConvolve2D``).  Forward only: the hand-written backward of
-``filtered_synthesis`` comes with training.
+``RealFFTConvolve2D``).  ``filtered_synthesis`` is differentiated by
+plain autograd: the JAX package's hand-written backward, a memory saving
+for training, comes with training.
 """
 
 from __future__ import annotations
@@ -134,9 +135,20 @@ class FFTConvolver:
         """Adjoint ``H^T y``."""
         return self._apply_filter(y, torch.conj(self.H))
 
+    def convolve_fft(self, x):
+        """Frequency-domain output ``rfft2(pad(x)) * H`` (the reference's
+        return_fft path; with ``shift_folded`` it carries the sign mask)."""
+        if self.pad:
+            x = self.pad_input(x)
+        return torch.fft.rfft2(x, dim=(-3, -2)) * self.H
+
     def mag_sq(self):
         """|H|^2, real."""
         return torch.real(self.H * torch.conj(self.H))
+
+    def with_filter(self, H_new) -> "FFTConvolver":
+        """Same geometry, another frequency response (e.g. Wiener)."""
+        return dataclasses.replace(self, H=H_new)
 
 
 def make_convolver(psf, **kwargs) -> FFTConvolver:

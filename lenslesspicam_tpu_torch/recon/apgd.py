@@ -52,16 +52,25 @@ def _keys_cubic(x):
     return np.where(x >= 2.0, 0.0, out)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) float64 weights of ``jax.image.resize(method="cubic")``
-    along one axis: half-pixel sample positions, the kernel widened by the
-    scale when downsampling (antialias), each row renormalized over the
-    taps inside the input, rows sampling outside it zero."""
+def _triangle(x):
+    """The triangle kernel (``jax.image.resize``'s "linear" / "bilinear")."""
+    return np.maximum(0.0, 1.0 - x)
+
+
+_KERNELS = {"cubic": _keys_cubic, "linear": _triangle, "bilinear": _triangle}
+
+
+def resize_weights(n_in: int, n_out: int, method: str = "cubic") -> np.ndarray:
+    """(n_out, n_in) float64 weights of ``jax.image.resize(method=method)``
+    ("cubic", or "linear" / "bilinear") along one axis: half-pixel sample
+    positions, the kernel widened by the scale when downsampling
+    (antialias), each row renormalized over the taps inside the input, rows
+    sampling outside it zero."""
     inv_scale = n_in / n_out
     kernel_scale = max(inv_scale, 1.0)
     sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
-    w = _keys_cubic(np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
-                    / kernel_scale)
+    w = _KERNELS[method](np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
+                         / kernel_scale)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, 1.0), 0.0)
@@ -76,9 +85,9 @@ def resize_cubic(psf, hw) -> np.ndarray:
     is left as it is."""
     out = np.asarray(psf, np.float64)
     if out.shape[1] != hw[0]:
-        out = np.einsum("yh,dhwc->dywc", _resize_weights(out.shape[1], hw[0]), out)
+        out = np.einsum("yh,dhwc->dywc", resize_weights(out.shape[1], hw[0]), out)
     if out.shape[2] != hw[1]:
-        out = np.einsum("xw,dywc->dyxc", _resize_weights(out.shape[2], hw[1]), out)
+        out = np.einsum("xw,dywc->dyxc", resize_weights(out.shape[2], hw[1]), out)
     return out
 
 

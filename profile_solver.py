@@ -1,6 +1,6 @@
 """In-loop kernel times of the port's solvers on one card.
 
-    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4]
+    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4|learned]
                               [--mode bench|f32] [--n 20]
 
 Builds the port's kernels, makes the 12 MP certification measurement of
@@ -28,7 +28,15 @@ carries; the full-width fused path keeps f32 TV carries, the pallas path
 has no carries), ``f32`` at f32.  The ``rsplit``, ``rsplit_v2``, ``split``,
 ``rgb`` and ``batch4`` solvers use only package API that they have had
 since they landed, so the script also times an older checkout: run it
-from that checkout's root.  Exits non-zero without a CUDA device.
+from that checkout's root.  ``--solver learned`` traces ``--n`` forward
+calls of ``chip_smoke.py``'s learned serving model (the zoo's
+``Unet4M+U5+Unet4M`` on seeded weights, a batch of 4 DiffuserCam
+measurements, 270 x 480 x 3, ``eval()``, ``torch.inference_mode()``, TF32
+off; no kernel of the port is built or launched) and adds the device time
+by group (``groups``: cuDNN's layout transposes, its convolutions, cuFFT's
+transforms, the rest), the convolutions' operations per call counted from
+their shapes (2 per multiply-add) and their time at the card's f32 peak,
+and images/s; its it/s are forward calls per second.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -123,10 +131,84 @@ def measurement(solver, scene, psf2d):
     return meas.cpu().numpy(), psf
 
 
+# device kernels by what computes them, from their names: cuDNN's layout
+# transposes around its convolutions, its convolutions (implicit GEMM,
+# the transposed convolutions' dgrad engine), cuFFT's transforms
+KERNEL_GROUPS = (("layout", re.compile(r"nhwcToNchw|nchwToNhwc", re.I)),
+                 ("convolution", re.compile(r"conv|cudnn|xmma|winograd|implicit|fprop", re.I)),
+                 ("fft", re.compile(r"fft", re.I)))
+
+
+def card_name():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def profile_learned(n):
+    """Trace ``n`` forward calls of the learned serving model (module
+    docstring); print one JSON line."""
+    from lenslesspicam_tpu_torch.zoo.model_dict import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = cs.learned_model(build_model(cs.LEARNED_NAME))
+    psf, data, _ = cs.learned_inputs(cs.DIFFUSERCAM, cs.LEARNED_BATCH)
+    psf, data = torch.from_numpy(psf).cuda(), torch.from_numpy(data).cuda()
+
+    def forward(k):
+        for _ in range(k):
+            model(data, psf)
+
+    flops = [0]
+
+    def count(mod, inputs, out):    # 2 x multiply-adds of one call, from its shapes
+        k = mod.weight[0].numel()        # (in / groups) * kH * kW, or out / groups * kH * kW
+        flops[0] += 2 * k * (out.numel() if isinstance(mod, torch.nn.Conv2d)
+                             else inputs[0].numel())
+
+    convs = [m for m in model.modules() if isinstance(m, (torch.nn.Conv2d,
+                                                           torch.nn.ConvTranspose2d))]
+    hooks = [m.register_forward_hook(count) for m in convs]
+    with torch.inference_mode():
+        forward(1)
+    for h in hooks:
+        h.remove()
+    with torch.inference_mode():
+        forward(2)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            forward(n)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        calls = cs.rate(forward, base=1, full=6, pairs=3)
+    kernels = {}
+    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = device_time_us(evt)
+            kernels[evt.key] = {"us": us, "calls": evt.count, "us_per_call": us / max(evt.count, 1)}
+            groups[next((g for g, rx in KERNEL_GROUPS if rx.search(evt.key)), "other")] += us
+    total = sum(k["us"] for k in kernels.values())
+    print(json.dumps({"solver": "learned", "model": cs.LEARNED_NAME,
+                      "grid": [*cs.DIFFUSERCAM, 3], "batch": cs.LEARNED_BATCH, "forward_calls": n,
+                      "kernels": kernels, "kernel_us": total, "groups": groups,
+                      "group_share": {g: us / total for g, us in groups.items()} if total else None,
+                      "kernel_us_per_call": total / n, "conv_flops_per_call": flops[0],
+                      "conv_bound_us_per_call": flops[0] / cs.F32_FLOP_PER_S * 1e6,
+                      "wall_us": wall_us,
+                      "busy_share": total / wall_us if wall_us else None, "it_per_s": calls,
+                      "images_per_s": calls["median"] * cs.LEARNED_BATCH,
+                      "card": card_name()}), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--solver",
-                    choices=("rsplit", "rsplit_v2", "split", "pallas", "rgb", "batch4"),
+                    choices=("rsplit", "rsplit_v2", "split", "pallas", "rgb", "batch4",
+                             "learned"),
                     default="rsplit")
     ap.add_argument("--mode", choices=("bench", "f32"), default="bench")
     ap.add_argument("--n", type=int, default=20)
@@ -134,6 +216,8 @@ def main():
     if not torch.cuda.is_available():
         print("profile_solver: no CUDA device", file=sys.stderr)
         return 1
+    if args.solver == "learned":
+        return profile_learned(args.n)
     if (args.solver, args.mode) not in MODES:
         print(f"profile_solver: {args.solver} runs in the bench mode only", file=sys.stderr)
         return 2
@@ -182,8 +266,7 @@ def main():
         with ByteCount() as bc:
             solve(k)
         counted.append(bc.bytes)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     print(json.dumps({"solver": args.solver, "mode": args.mode, "modes": modes,
                       "n_iter": args.n, "grid": list(cs.SENSOR), "kernels": kernels,
                       "kernel_us": total, "port_us": port_us, "torch_us": total - port_us,

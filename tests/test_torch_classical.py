@@ -346,8 +346,8 @@ def test_public_surface_mirrors_jax():
         assert hasattr(jlpt, name) and hasattr(tlpt, name), name
     assert callable(tlpt.APGD)
     for name in ("UnrolledADMM", "UNetRes", "TrainableRecon", "Restormer"):
-        with pytest.raises(AttributeError, match="item 13"):
-            getattr(tlpt, name)
+        # the learned models resolve to the port's modules
+        assert getattr(tlpt, name).__module__.startswith("lenslesspicam_tpu_torch.models.")
     with pytest.raises(AttributeError):
         tlpt.no_such_name
 

@@ -30,6 +30,13 @@ import lenslesspicam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# the learned models and the zoo, and the public names that resolve to them
+learned = {f"{pkg.__name__}.models.{m}" for m in (
+    "unet", "unrolled", "inversion", "multi_wiener", "compensation", "background",
+    "restormer", "trainable_recon")} | {f"{pkg.__name__}.zoo.model_dict"}
+missed_learned = sorted(learned - set(names))
+for public in pkg._LAZY:
+    getattr(pkg, public)
 import chip_smoke, ab_kernels, profile_solver
 files = {os.path.relpath(os.path.join(d, f), os.path.dirname(pkg.__path__[0]))[:-3]
          .replace(os.sep, ".").removesuffix(".__init__")
@@ -37,8 +44,8 @@ files = {os.path.relpath(os.path.join(d, f), os.path.dirname(pkg.__path__[0]))[:
 missed = sorted(files - set(names) - {pkg.__name__})
 bad = [m for m in sys.modules if sys.modules[m] is not None
        and (m.split(".")[0] in BLOCKED or re.match(r"^lenslesspicam_tpu(\.|$)", m))]
-print("BAD", bad, "MISSED", missed, "IMPORTED", len(names))
-sys.exit(1 if bad or missed else 0)
+print("BAD", bad, "MISSED", missed + missed_learned, "IMPORTED", len(names))
+sys.exit(1 if bad or missed or missed_learned else 0)
 """
 
 
