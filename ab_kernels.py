@@ -15,17 +15,20 @@ f32) and of ``chip_smoke.split_kernel_cases`` (a mode of
 lane width W as "name:full_width", K4's inverse as
 "h_passA_pair:full_width_inverse"; K4's inverse at the v3 lanes is
 "h_passA_pair:inverse"; K13 alone in
-``chip_smoke.PALLAS_K13_MODES``: pallas_bf16) is timed at 12 MP in each mode
-named, in the order A, B, B, A per round (A, B1 .. Bn, Bn .. B1, A with
+``chip_smoke.PALLAS_K13_MODES``: pallas_bf16; and of
+``chip_smoke.pallas_kernel_cases``, K14-K18 in every form, in a mode of
+``PALLAS_AB_MODES``: pallas_io_f32, pallas_io_bf16) is timed at 12 MP in each
+mode named, in the order A, B, B, A per round (A, B1 .. Bn, Bn .. B1, A with
 several; CUDA events, median of 7 after
 a warm-up, as ``chip_smoke.time_ms``), and its output is checked against
 the plain version as ``chip_smoke.check_kernels`` checks it.  Each tree's
 build prints one JSON line with nvcc's seconds and ptxas's entry
 functions, registers and spills per library (libraries already built
 print none).  ``--planes``
-times the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``
-and the full-width ``chip_smoke.SPLIT_KERNELS`` and ``FULL_WIDTH_H``) on stacks of P planes
-over Pc constant planes instead of one plane;
+times the kernels that take a plane axis (``chip_smoke.PLANE_KERNELS``,
+the full-width ``chip_smoke.SPLIT_KERNELS`` and ``FULL_WIDTH_H`` and
+every pallas case) on stacks of P planes over Pc constant planes instead
+of one plane;
 ``--kernels`` keeps only the kernels named (a wrapper's name keeps its
 "name:form" rows too).  Prints one JSON line per
 kernel, mode and stack with each tree's median and its ratio to A (with
@@ -67,6 +70,11 @@ def use(csrc: Path):
     K._E1_RCARRY_LIB = E1_RCARRY_LIB if split else dict.fromkeys(E1_RCARRY_LIB, "e1_rcarry")
 
 
+# chip_smoke.PALLAS_MODES under names of their own, so that the default
+# modes (headline, f32) leave the pallas family out
+PALLAS_AB_MODES = {f"pallas_io_{m}": dts for m, dts in cs.PALLAS_MODES.items()}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("other_csrc", type=Path, nargs="+")
@@ -92,9 +100,11 @@ def main():
                 if any(w in ln for w in ("entry function", "registers", "spill"))]
             for n, r in built.items()}}), flush=True)
     ph, pw = 6144, 8192
+    # (modes, cases, the kernels timed on a stack or in the K13 mode; None: all)
     families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
                 (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS + cs.FULL_WIDTH_H),
-                (cs.PALLAS_K13_MODES, cs.split_kernel_cases, ("ifft_w",)))
+                (cs.PALLAS_K13_MODES, cs.split_kernel_cases, ("ifft_w",)),
+                (PALLAS_AB_MODES, cs.pallas_kernel_cases, None))
     for mode, planes, (modes, case_fn, names) in [
             (m, st, fam) for m in args.modes.split(",") for st in stacks or [None]
             for fam in families if m in fam[0]]:
@@ -103,7 +113,8 @@ def main():
         cases = case_fn(ph, pw, gen, *modes[mode], planes=planes)
         for name, (inputs, _) in cases.items():
             fn = name.split(":")[0]     # "name:form": the wrapper ``name`` at another shape
-            if (name not in names and (planes or modes is cs.PALLAS_K13_MODES)) or (
+            if (names is not None and name not in names
+                    and (planes or modes is cs.PALLAS_K13_MODES)) or (
                     keep and fn not in keep and name not in keep):
                 continue
             wrapper, plain = getattr(K, fn), getattr(K, fn + "_plain")

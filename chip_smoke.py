@@ -120,8 +120,12 @@ W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w", "e1_carry")
 # last lane tile guarded: H = 2 x 128, half width 40, not a multiple of
 # the 32-lane tile (padded grid; the 12 MP and 768 x 1024 grids run the
 # radix design on whole tiles, the 96 x 128 grid and GRIDS' 540 x 960,
-# 480 x 640 and 96 x 270 the split one)
+# 480 x 640 and 96 x 270 the split one); K15's and K17's radix design
+# (the same rule, kernels.h_pass_b_design) there at the full width 80
 K5_GUARDED = (256, 80)
+# K15's radix design at an odd lane width, where it takes one column a
+# thread at bf16 io too (a column pair's 4-byte load needs an even W)
+K15_ODD_W = (256, 79)
 # K4's and K14's radix design (n1 = 48, kernels.h_pass_a_design) with its
 # last lane tile cut: H = 48 x 128, lane widths 40 (K4 in the v3 loop's
 # cases, M = W / 2) and 80 (K4 and K14 at the full width W), neither a
@@ -222,10 +226,18 @@ FULL_WIDTH_H = ("h_passA_pair:full_width", "h_passA_pair:full_width_inverse",
                 "h_combine_dual:full_width", "h_passA:full_width")
 # the pass-level backend: io f32 or bf16, no carries
 PALLAS_IO = {"f32": F32, "bf16": BF16}
+# PALLAS_IO as the case builders' (io, carry_tv, carry_v, out) modes
+PALLAS_MODES = {m: (io, F32, F32, F32) for m, io in PALLAS_IO.items()}
 # the kernels of the pallas backend's loop (K12, K13 and the K14 and K15
 # forward forms included: the pallas solve runs them; K4 stays on its
 # half-spectrum path)
 PALLAS_NAMES = ("fft_w", "ifft_w", "h_passA", "h_passB", "h_passB_combine", "h_passB_dual")
+# every form of K15 and K17 in pallas_kernel_cases: their radix design
+# (n2 = 128, kernels.h_pass_b_design) runs at 12 MP, 768 x 1024,
+# K5_GUARDED and K15_ODD_W, their split design at the 96 x 512 grid and
+# GRIDS' others
+K15_K17_FORMS = ("h_passB", "h_passB:inverse", "h_passB:filter", "h_passB:inverse_filter",
+                 "h_passB_dual")
 TOL_SYNTHESIS = 1e-4         # filtered_synthesis_pallas2 vs torch.fft (tests/test_pallas_fft.py:93)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # a streaming reading above the data sheet's rate by more than 5 % is a
@@ -503,7 +515,9 @@ def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
     (ph, pw) plane at ``io``, R at its loop scale (up to 1/mu3); with
     ``planes`` = (P, Pc) stacks.  A key "name:form" is the wrapper
     ``name`` in another form than the one of the loop's forward passes
-    (K14 and K15 inverse, K15 with its filter); K18 takes the stage-1 planes
+    (K14 and K15 inverse, K15 with its filter in either direction: the
+    loop runs K15 forward alone, ``filtered_synthesis_pallas2`` also its
+    filtered inverse); K18 takes the stage-1 planes
     of rk and v, as ``fft_h_combine2`` gives them.  Operations: 5 log2 n per
     point of a length-n stage, 6 per twiddle and per complex product,
     F_OPS per point of the combine."""
@@ -525,6 +539,9 @@ def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
         "h_passA": ((rn(*lp), rn(*lp), ph, False), s1),
         "h_passA:inverse": ((rn(*lp), rn(*lp), ph, True), s1 + 2 * pts),
         "h_passB": ((rn(*lp), rn(*lp), ph, False), s2),
+        "h_passB:inverse": ((rn(*lp), rn(*lp), ph, True), s2),
+        "h_passB:filter": ((rn(*lp), rn(*lp), ph, False, rn(*lc), rn(*lc)),
+                           s2 + CMUL_OPS * pts),
         "h_passB:inverse_filter": ((rn(*lp), rn(*lp), ph, True, rn(*lc), rn(*lc)),
                                    s2 + CMUL_OPS * pts),
         "h_passB_combine": ((rn(*lp), rn(*lp), rn(*lp), rn(*lp), rn(*lc), rn(*lc), rr, ph),
@@ -573,9 +590,12 @@ def library_call(name, args):
                          torch.complex(args[2].float(), args[3].float())])
         return lambda: torch.fft.ifft(z, dim=-1).real
     if name == "h_passB":     # stage 2 is the length-n2 DFT along the n2 axis (the
-        # filtered inverse form is a product and an ifft: no one call)
+        # filtered forms are a product and a DFT: no one call)
         z = torch.complex(args[0].float(), args[1].float())
         return lambda: torch.fft.fft(z, dim=-2)
+    if name == "h_passB:inverse":     # the unscaled inverse DFT along n2
+        z = torch.complex(args[0].float(), args[1].float())
+        return lambda: torch.fft.ifft(z, dim=-2, norm="forward")
     lib = probe_library(name)[1]
     if lib:
         return lambda: lib(args[0])
@@ -603,9 +623,9 @@ def reference_call(name, args):
 
 def design(name, ph, pw):
     """{"design": ...} of a kernel with two designs chosen by shape (K1-K3,
-    K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 by the n2
-    of H = ph; K4 and K14 by its n1), else {}; ``name`` may carry a
-    ":form"."""
+    K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5, K15
+    and K17 by the n2 of H = ph; K4 and K14 by its n1), else {}; ``name``
+    may carry a ":form"."""
     name = name.split(":")[0]
     if name in M_NAMES:
         return {"design": K.rfft_w_design(pw // 2)}
@@ -613,6 +633,8 @@ def design(name, ph, pw):
         return {"design": K.fft_w_design(pw)}
     if name == "h_combine_dual":
         return {"design": K.h_combine_dual_design(K.factors(ph)[1])}
+    if name in ("h_passB", "h_passB_dual"):
+        return {"design": K.h_pass_b_design(K.factors(ph)[1])}
     if name in K4_NAMES:
         return {"design": K.h_pass_a_design(K.factors(ph)[0])}
     return {}
@@ -1415,8 +1437,7 @@ def grids_phase():
         t0 = time.perf_counter()
         ph, pw = (padded_size(s) for s in sensor)
         for cases, modes in ((kernel_cases, MODES), (split_kernel_cases, SPLIT_MODES),
-                             (pallas_kernel_cases,
-                              {m: (io, F32, F32, F32) for m, io in PALLAS_IO.items()})):
+                             (pallas_kernel_cases, PALLAS_MODES)):
             for mode, dts in modes.items():
                 check_kernels(ph, pw, False, *dts, f"grid,{mode}", cases=cases)
         rng = np.random.RandomState(16)
@@ -2005,6 +2026,12 @@ def main():
                       cases=pallas_kernel_cases)
         check_kernels(ssh, ssw, False, io, F32, F32, F32, f"planes,io={mode}",
                       planes=PLANES, cases=pallas_kernel_cases)
+    for mode, io in PALLAS_IO.items():   # K15's and K17's radix design on a guarded
+        # lane tile and at an odd lane width, every form
+        for grid, planes in ((K5_GUARDED, None), (K5_GUARDED, PLANES), (K15_ODD_W, None)):
+            check_kernels(*grid, False, io, F32, F32, F32,
+                          f"{'planes,' if planes else ''}io={mode}", names=K15_K17_FORMS,
+                          planes=planes, cases=pallas_kernel_cases)
     pallas_rows = {mode: check_kernels(ph, pw, True, io, F32, F32, F32, f"io={mode}",
                                        cases=pallas_kernel_cases)
                    for mode, io in PALLAS_IO.items()}

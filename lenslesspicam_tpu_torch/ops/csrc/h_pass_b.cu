@@ -19,16 +19,52 @@
 // bf16) and every product and contraction runs in f32 (FFMA).
 //
 // Bound on the H100: bytes (K15 16 bytes per point at f32, 24 with the
-// filter; K16 and K18 36; K17 32; half at bf16; a length-128 DFT runs as an 8 x 16
-// split stage, 24 complex multiply-adds per point).  The contraction runs
-// down the strided H columns, so a block takes one k1 and 32 consecutive
-// lanes of W, as K5 does: loads and stores are runs of 32 contiguous
-// elements and the n2 x 32 tile stays in shared memory for the DFT (two
-// tiles, 66 KB at 12 MP, three blocks per SM; K17 and K18 three tiles,
-// 99 KB, two blocks).  The planes may be a stack of P (grid.y = P); the constant
-// planes (filter, H, R) a stack of Pc, P % Pc == 0, plane p reading
-// constant plane p % Pc.
-#include "lpt_dft.cuh"
+// filter; K16 and K18 36; K17 32; half at bf16).
+//
+// K15 and K17 have two designs, chosen by n2 alone (kernels.h_pass_b_design,
+// K5's rule): the radix design for n2 = RN2 = 128 (the 12 MP grid's H = 48
+// x 128, 768 = 6 x 128), any n1 and W, and the split design for any other
+// n2.  Neither falls back on the other.  K16 and K18 run the split design
+// at every n2.
+//
+// The split design (every kernel, any n2): a length-n2 DFT runs as an a x b
+// split stage (8 x 16 at n2 = 128, 24 complex multiply-adds per point).  The
+// contraction runs down the strided H columns, so a block takes one k1 and
+// 32 consecutive lanes of W, as K5 does: loads and stores are runs of 32
+// contiguous elements and the n2 x 32 tile stays in shared memory for the
+// DFT (two tiles, 66 KB at 12 MP, three blocks per SM; K17 and K18 three
+// tiles, 99 KB, two blocks).
+//
+// The radix design (K15 and K17 at n2 = RN2): K5's column form of the radix
+// FFT (lpt_fft.cuh), 16 + 8 points a column thread.  A block takes one k1
+// and RTW = 32 lanes, 8 threads a lane (256), and one 32 KB buffer
+// [position][lane] for the transform's one exchange.  Each thread loads
+// the 16 registers of its column straight from device memory (all loads
+// before the first butterfly, each a warp's consecutive lanes of one row)
+// and stores them straight back: the forward transform reads the natural
+// rows j2 = t + 8 r and leaves register i R + c at frequency(t + 8 i, c)
+// (digit order), which it stores to that row, so the output is in natural
+// order with no second exchange; the inverse (the forward network
+// transposed) reads each register from the row of the frequency it stands
+// for and leaves the natural rows j2 = t + 8 r.  A filter (K15) or H (K17)
+// is read at the same rows as y and multiplied in f32 on the loaded
+// registers.  K15 keeps one column array live, K17 two (y, then H y,
+// through the same buffer behind a barrier).  K15 at bf16 io and an even
+// W takes two adjacent columns a thread (64 lanes a block, one 4-byte load
+// of a bf16 pair a row, a 64 KB buffer): its forward form ran 10-19 %
+// faster than with one column a thread, whose warp accesses are 64 bytes
+// (0.1409-0.1413 against 0.1566-0.1689 ms at 12 MP), and the pallas loop
+// at bf16 io 0.3 % faster end to end; at f32 two columns a thread gained
+// nothing.  Both kernels take K5's launch bound, two blocks a
+// multiprocessor: a bound of three or four (80 or 64 registers) ran K15
+// no faster (within 0.8 %; ab_kernels.py on an NVIDIA H100 80GB HBM3 at
+// 700 W).
+//
+// The planes may be a stack of P (grid.y = P); the constant planes (filter,
+// H, R) a stack of Pc, P % Pc == 0, plane p reading constant plane p % Pc.
+// The radix design runs a single plane through an instantiation without
+// the plane offsets (kStack false), as K5 does.
+#include "lpt_fft.cuh"
 
 using namespace lpt;
 
@@ -289,32 +325,281 @@ __global__ void __launch_bounds__(THREADS) h_pass_b_combine2_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The radix design of K15 and K17: n2 = RN2, any n1 and W (the last lane
+// tile guarded where RTW does not divide W).
+// ---------------------------------------------------------------------------
+
+constexpr int RN2 = 128;                                     // kernels.H_RADIX_N2
+constexpr int RTW = 32;                                      // lanes a block
+constexpr int RTHREADS = fft::Plan<RN2>::THREADS * RTW;      // 8 a lane
+constexpr int RNT = fft::Plan<RN2>::THREADS;
+constexpr int RR = fft::Plan<RN2>::radix(fft::Plan<RN2>::PASSES - 1);  // the last pass's radix
+
+// Thread (lane, t) of a radix block and its kL columns (k1, w0 + kL lane +
+// e), e < kL, the block's tile kL RTW lanes: base and cbase offset the
+// first column in the plane stack and in the constant stack.
+template <bool kStack, bool kGen, int kL = 1>
+struct RCol {
+  int lane, t;
+  // the guarded tile: lanes past w load 0 and store nothing (kL = 2 runs
+  // an even w only, so a pair lies inside the plane or outside it whole)
+  bool live;
+  size_t base, cbase;
+  __device__ RCol(int pc, int n1, int w) {
+    lane = threadIdx.x % RTW;
+    t = threadIdx.x / RTW;
+    const int wtiles = tiles<kGen>(w, kL * RTW);
+    const int k1 = blockIdx.x / wtiles, w0 = (blockIdx.x % wtiles) * kL * RTW;
+    live = !kGen || w0 + kL * lane < w;
+    const size_t plane = (size_t)n1 * RN2 * w;
+    const size_t col = (size_t)k1 * RN2 * w + w0 + kL * lane;
+    base = (kStack ? blockIdx.y * plane : 0) + col;
+    cbase = (kStack ? (blockIdx.y % pc) * plane : 0) + col;
+  }
+};
+
+// Row of the column that register k of thread t stands for: the natural
+// position j2 = t + T k, or the frequency k2 that register k holds in the
+// transform's digit order (fft::frequency; k is a constant once the
+// caller's loop unrolls).
+__device__ __forceinline__ int natural_row(int t, int k) { return t + RNT * k; }
+__device__ __forceinline__ int digit_row(int t, int k) {
+  return fft::frequency<RN2>(t + RNT * (k / RR), k % RR);
+}
+
+// x[0..kL) <- p[0..kL), widened to f32, in one load (kL = 2: a 4-byte
+// bf16 pair, p aligned to it).
+template <int kL, typename T>
+__device__ __forceinline__ void ld_lanes(const T* __restrict__ p, float (&x)[kL]) {
+  if constexpr (kL == 1) {
+    x[0] = ld1(p, Fix{});
+  } else {
+    static_assert(kL == 2 && sizeof(T) == 2, "pairs of 2-byte elements");
+    unpack2(__ldg(reinterpret_cast<const unsigned int*>(p)), x, T{}, Fix{});
+  }
+}
+
+// p[0..kL) <- x[0..kL), rounded to T, in one store.
+template <int kL, typename T>
+__device__ __forceinline__ void st_lanes(T* __restrict__ p, const float (&x)[kL]) {
+  if constexpr (kL == 1) {
+    st1(p, x[0], Fix{});
+  } else {
+    static_assert(kL == 2 && sizeof(T) == 2, "pairs of 2-byte elements");
+    *reinterpret_cast<uint32_t*>(p) = bits(x[0], T{}, Fix{}) | (bits(x[1], T{}, Fix{}) << 16);
+  }
+}
+
+// Columns a thread of the radix K15 takes where W is even, by io type: two
+// at bf16 (one column a thread makes a warp access of 64 bytes), one at
+// f32 (two, as float2, ran within 2.4 % either way of one).
+template <typename T>
+constexpr int k15_lanes() { return sizeof(T) == 2 ? 2 : 1; }
+
+// K15, radix design: stage 2 of (yr, yi), forward (kInv false) or inverse,
+// the spectrum multiplied by the filter (fr, fi) first (kFilt); kL
+// columns a thread, each through its own RTW-lane part of the buffer.
+template <typename T, int kL, bool kStack, bool kGen, bool kInv, bool kFilt>
+__global__ void __launch_bounds__(RTHREADS, 2) h_pass_b_radix_kernel(
+    const T* __restrict__ yr, const T* __restrict__ yi, const T* __restrict__ fr,
+    const T* __restrict__ fi, T* __restrict__ outr, T* __restrict__ outi,
+    const float2* __restrict__ tw, int pc, int n1, int w) {
+  using namespace fft;
+  extern __shared__ float2 sm[];  // RN2 x kL RTW, [position][lane]
+  const RCol<kStack, kGen, kL> c(pc, n1, w);
+  float2 v[kL][RADIX];
+  float f_r[kL][RADIX], f_i[kL][RADIX];
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = (size_t)(kInv ? digit_row(c.t, k) : natural_row(c.t, k)) * w;
+    float re[kL] = {}, im[kL] = {}, hr[kL] = {}, hi[kL] = {};
+    if (c.live) {
+      ld_lanes<kL>(yr + c.base + g, re);
+      ld_lanes<kL>(yi + c.base + g, im);
+      if (kFilt) {
+        ld_lanes<kL>(fr + c.cbase + g, hr);
+        ld_lanes<kL>(fi + c.cbase + g, hi);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kL; ++e) {
+      v[e][k] = make_float2(re[e], im[e]);
+      f_r[e][k] = hr[e];
+      f_i[e][k] = hi[e];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kL; ++e) {
+    if constexpr (kFilt) {
+#pragma unroll
+      for (int k = 0; k < RADIX; ++k) {  // in f32, in the JAX kernel's order
+        const float2 y = v[e][k];
+        v[e][k] = make_float2(y.x * f_r[e][k] - y.y * f_i[e][k], y.x * f_i[e][k] + y.y * f_r[e][k]);
+      }
+    }
+    if constexpr (kInv) {
+      col_ifft<RN2, kL * RTW>(v[e], sm, tw, c.t, e * RTW + c.lane);
+    } else {
+      col_fft<RN2, kL * RTW>(v[e], sm, tw, c.t, e * RTW + c.lane);
+    }
+  }
+  if (!c.live) return;
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = c.base + (size_t)(kInv ? natural_row(c.t, k) : digit_row(c.t, k)) * w;
+    float re[kL], im[kL];
+#pragma unroll
+    for (int e = 0; e < kL; ++e) {
+      re[e] = v[e][k].x;
+      im[e] = v[e][k].y;
+    }
+    st_lanes<kL>(outr + g, re);
+    st_lanes<kL>(outi + g, im);
+  }
+}
+
+// K17, radix design: a0 = inverse stage 2 of y, a1 = inverse stage 2 of H y.
+template <typename T, bool kStack, bool kGen>
+__global__ void __launch_bounds__(RTHREADS, 2) h_pass_b_dual_radix_kernel(
+    const T* __restrict__ yr, const T* __restrict__ yi, const T* __restrict__ hr,
+    const T* __restrict__ hi, T* __restrict__ a0r, T* __restrict__ a0i, T* __restrict__ a1r,
+    T* __restrict__ a1i, const float2* __restrict__ tw, int pc, int n1, int w) {
+  using namespace fft;
+  extern __shared__ float2 sm[];  // RN2 x RTW, [position][lane]
+  const RCol<kStack, kGen> c(pc, n1, w);
+  float2 a[RADIX], b[RADIX];
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = (size_t)digit_row(c.t, k) * w;
+    a[k] = b[k] = make_float2(0.f, 0.f);
+    if (c.live) {
+      a[k] = make_float2(ld1(yr + c.base + g, Fix{}), ld1(yi + c.base + g, Fix{}));
+      b[k] = make_float2(ld1(hr + c.cbase + g, Fix{}), ld1(hi + c.cbase + g, Fix{}));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k)  // H y in f32, in the JAX kernel's order
+    b[k] = make_float2(a[k].x * b[k].x - a[k].y * b[k].y, a[k].x * b[k].y + a[k].y * b[k].x);
+  auto store = [&](const float2(&v)[RADIX], T* outr, T* outi) {
+    if (!c.live) return;
+#pragma unroll
+    for (int k = 0; k < RADIX; ++k) {
+      const size_t g = c.base + (size_t)natural_row(c.t, k) * w;
+      st1(outr + g, v[k].x, Fix{});
+      st1(outi + g, v[k].y, Fix{});
+    }
+  };
+  col_ifft<RN2, RTW>(a, sm, tw, c.t, c.lane);
+  store(a, a0r, a0i);
+  __syncthreads();  // every read of a's exchange is done: the buffer is free
+  col_ifft<RN2, RTW>(b, sm, tw, c.t, c.lane);
+  store(b, a1r, a1i);
+}
+
+// The radix launches.  The twiddles follow the split design's table
+// (kernels._design_table), read at make_plan(tab, n1, RN2).e as K5 reads them.
+static dim3 radix_grid(int planes, int n1, int w, int lanes) {
+  return dim3(n1 * ((w + lanes - 1) / lanes), planes);
+}
+
+template <typename T, int kL, bool kStack, bool kGen>
+static auto radix_b_kernel(bool inverse, bool filt) {
+  return inverse ? (filt ? h_pass_b_radix_kernel<T, kL, kStack, kGen, true, true>
+                         : h_pass_b_radix_kernel<T, kL, kStack, kGen, true, false>)
+                 : (filt ? h_pass_b_radix_kernel<T, kL, kStack, kGen, false, true>
+                         : h_pass_b_radix_kernel<T, kL, kStack, kGen, false, false>);
+}
+
+template <typename T, int kL>
+static int run_radix_b_lanes(const void* yr, const void* yi, const void* fr, const void* fi,
+                             void* outr, void* outi, const float2* tab, int planes, int pc,
+                             int n1, int w, int inverse, void* stream) {
+  const bool gen = w % (kL * RTW), inv = inverse, filt = fr != nullptr;
+  auto kernel = planes == 1 ? (gen ? radix_b_kernel<T, kL, false, true>(inv, filt)
+                                   : radix_b_kernel<T, kL, false, false>(inv, filt))
+                            : (gen ? radix_b_kernel<T, kL, true, true>(inv, filt)
+                                   : radix_b_kernel<T, kL, true, false>(inv, filt));
+  return launch(kernel, radix_grid(planes, n1, w, kL * RTW), dim3(RTHREADS),
+                sizeof(float2) * RN2 * kL * RTW, stream, (const T*)yr, (const T*)yi,
+                (const T*)fr, (const T*)fi, (T*)outr, (T*)outi, make_plan(tab, n1, RN2).e, pc,
+                n1, w);
+}
+
+// K15's radix design: k15_lanes<T>() columns a thread where W is even, one
+// where it is odd (a pair's load would be unaligned).
+template <typename T>
+static int run_radix_b(const void* yr, const void* yi, const void* fr, const void* fi,
+                       void* outr, void* outi, const float2* tab, int planes, int pc, int n1,
+                       int w, int inverse, void* stream) {
+  if constexpr (k15_lanes<T>() == 2)
+    if (w % 2 == 0)
+      return run_radix_b_lanes<T, 2>(yr, yi, fr, fi, outr, outi, tab, planes, pc, n1, w,
+                                     inverse, stream);
+  return run_radix_b_lanes<T, 1>(yr, yi, fr, fi, outr, outi, tab, planes, pc, n1, w, inverse,
+                                 stream);
+}
+
+template <typename T>
+static int run_radix_dual(const void* yr, const void* yi, const void* hr, const void* hi,
+                          void* a0r, void* a0i, void* a1r, void* a1i, const float2* tab,
+                          int planes, int pc, int n1, int w, void* stream) {
+  const bool gen = w % RTW;
+  auto kernel = planes == 1 ? (gen ? h_pass_b_dual_radix_kernel<T, false, true>
+                                   : h_pass_b_dual_radix_kernel<T, false, false>)
+                            : (gen ? h_pass_b_dual_radix_kernel<T, true, true>
+                                   : h_pass_b_dual_radix_kernel<T, true, false>);
+  return launch(kernel, radix_grid(planes, n1, w, RTW), dim3(RTHREADS),
+                sizeof(float2) * RN2 * RTW, stream, (const T*)yr, (const T*)yi, (const T*)hr,
+                (const T*)hi, (T*)a0r, (T*)a0i, (T*)a1r, (T*)a1i, make_plan(tab, n1, RN2).e, pc,
+                n1, w);
+}
+
 static dim3 grid_of(int planes, int n1, int w) { return dim3(n1 * ((w + TW - 1) / TW), planes); }
 
 // Every array is a stack of `planes` planes of (n1, n2, w) but the constant
 // ones (filter, H, R), stacks of pc.  io: storage code of all arrays (F32
 // or BF16).
 
-// K15.  fr, fi null: no filter.
+// K15 and K17 of io type T: the radix design for n2 = RN2, else the split design.
+template <typename T>
+static int run_b(const void* yr, const void* yi, const void* fr, const void* fi, void* outr,
+                 void* outi, const float2* tab, int planes, int pc, int n1, int n2, int w,
+                 int inverse, void* stream) {
+  if (n2 == RN2) return run_radix_b<T>(yr, yi, fr, fi, outr, outi, tab, planes, pc, n1, w,
+                                       inverse, stream);
+  return launch(general_tile(n2, w, TW) ? h_pass_b_kernel<T, true> : h_pass_b_kernel<T, false>,
+                grid_of(planes, n1, w), dim3(THREADS), smem_bytes(2, n2), stream,
+                (const T*)yr, (const T*)yi, (const T*)fr, (const T*)fi, (T*)outr, (T*)outi, tab,
+                pc, n1, n2, w, inverse);
+}
+
+template <typename T>
+static int run_dual(const void* yr, const void* yi, const void* hr, const void* hi, void* a0r,
+                    void* a0i, void* a1r, void* a1i, const float2* tab, int planes, int pc,
+                    int n1, int n2, int w, void* stream) {
+  if (n2 == RN2) return run_radix_dual<T>(yr, yi, hr, hi, a0r, a0i, a1r, a1i, tab, planes, pc,
+                                          n1, w, stream);
+  return launch(general_tile(n2, w, TW) ? h_pass_b_dual_kernel<T, true>
+                                        : h_pass_b_dual_kernel<T, false>,
+                grid_of(planes, n1, w), dim3(THREADS), smem_bytes(3, n2), stream, (const T*)yr,
+                (const T*)yi, (const T*)hr, (const T*)hi, (T*)a0r, (T*)a0i, (T*)a1r, (T*)a1i,
+                tab, pc, n1, n2, w);
+}
+
+// K15.  fr, fi null: no filter.  n2 = RN2 runs the radix design (tab: the
+// split table, then the radix twiddles of RN2), any other n2 the split
+// design (tab: the split table); K17 alike.
 extern "C" int lpt_h_pass_b(const void* yr, const void* yi, const void* fr, const void* fi,
                             void* outr, void* outi, const float2* tab, int planes, int pc, int n1,
                             int n2, int w, int inverse, int io, void* stream) {
-  const size_t smem = smem_bytes(2, n2);
   switch (io) {
     case F32:
-      return launch(general_tile(n2, w, TW) ? h_pass_b_kernel<float, true>
-                                            : h_pass_b_kernel<float, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem, stream,
-                    (const float*)yr, (const float*)yi, (const float*)fr, (const float*)fi,
-                    (float*)outr, (float*)outi, tab, pc, n1, n2, w, inverse);
-    case BF16: {
-      using B = __nv_bfloat16;
-      return launch(general_tile(n2, w, TW) ? h_pass_b_kernel<B, true>
-                                            : h_pass_b_kernel<B, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem, stream,
-                    (const B*)yr, (const B*)yi, (const B*)fr, (const B*)fi, (B*)outr, (B*)outi,
-                    tab, pc, n1, n2, w, inverse);
-    }
+      return run_b<float>(yr, yi, fr, fi, outr, outi, tab, planes, pc, n1, n2, w, inverse,
+                          stream);
+    case BF16:
+      return run_b<__nv_bfloat16>(yr, yi, fr, fi, outr, outi, tab, planes, pc, n1, n2, w,
+                                  inverse, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -351,23 +636,13 @@ extern "C" int lpt_h_pass_b_dual(const void* yr, const void* yi, const void* hr,
                                  void* a0r, void* a0i, void* a1r, void* a1i, const float2* tab,
                                  int planes, int pc, int n1, int n2, int w, int io,
                                  void* stream) {
-  const size_t smem = smem_bytes(3, n2);
   switch (io) {
     case F32:
-      return launch(general_tile(n2, w, TW) ? h_pass_b_dual_kernel<float, true>
-                                            : h_pass_b_dual_kernel<float, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem,
-                    stream, (const float*)yr, (const float*)yi, (const float*)hr,
-                    (const float*)hi, (float*)a0r, (float*)a0i, (float*)a1r, (float*)a1i, tab,
-                    pc, n1, n2, w);
-    case BF16: {
-      using B = __nv_bfloat16;
-      return launch(general_tile(n2, w, TW) ? h_pass_b_dual_kernel<B, true>
-                                            : h_pass_b_dual_kernel<B, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem,
-                    stream, (const B*)yr, (const B*)yi, (const B*)hr, (const B*)hi, (B*)a0r,
-                    (B*)a0i, (B*)a1r, (B*)a1i, tab, pc, n1, n2, w);
-    }
+      return run_dual<float>(yr, yi, hr, hi, a0r, a0i, a1r, a1i, tab, planes, pc, n1, n2, w,
+                             stream);
+    case BF16:
+      return run_dual<__nv_bfloat16>(yr, yi, hr, hi, a0r, a0i, a1r, a1i, tab, planes, pc, n1,
+                                     n2, w, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

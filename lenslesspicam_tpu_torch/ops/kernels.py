@@ -374,13 +374,14 @@ def _unpack_natural_np(m: int) -> np.ndarray:
 def _design_table(n: int, with_unpack: bool, design: str, device: torch.device,
                   radix_n: int | None = None):
     """The table of a kernel with two designs (K1-K3, K6: length M with
-    the unpack factors E; K10-K13: length W without them; K5: length H
-    without them, its radix FFT over the factor ``radix_n`` = n2): the
-    split-order table (:func:`_table_np`), followed in the "radix" design
-    by :func:`_radix_twiddles_np` of length ``radix_n`` (default n) and,
-    with the unpack factors, by :func:`_unpack_natural_np`.  The prefix is
-    the split design's whole table, so a build of either design reads its
-    constants from the same argument."""
+    the unpack factors E; K10-K13: length W without them; K5, K15, K17:
+    length H without them, the radix FFT over the factor ``radix_n`` =
+    n2): the split-order table (:func:`_table_np`), followed in the
+    "radix" design by :func:`_radix_twiddles_np` of length ``radix_n``
+    (default n) and, with the unpack factors, by
+    :func:`_unpack_natural_np`.  The prefix is the split design's whole
+    table, so a build of either design reads its constants from the same
+    argument."""
     t = _table_np(n, with_unpack)
     if design == "radix":
         t = np.concatenate([t, _radix_twiddles_np(radix_n or n)]
@@ -677,7 +678,9 @@ def h_passB(yr, yi, n, inverse, filt_r=None, filt_i=None):
     inverse F2 (``inverse``, unscaled: the 1/n is stage 1's).  With the
     filter planes ``filt_r``/``filt_i`` (a plane or a stack of Pc, P % Pc
     == 0) the spectrum is multiplied by the filter in f32 before the
-    contraction.  io dtype in and out.  Returns (zr, zi)."""
+    contraction.  io dtype in and out.  The kernel's design follows n2
+    alone (:func:`h_pass_b_design`, K5's rule): the radix column form for
+    n2 = 128, the split design for any other n2.  Returns (zr, zi)."""
     name = "h_passB"
     _check(name, [yr, yi], yr.shape, IO_DTYPES)
     filt = [] if filt_r is None else [filt_r, filt_i]
@@ -692,8 +695,8 @@ def h_passB(yr, yi, n, inverse, filt_r=None, filt_i=None):
     zr, zi = _empty(yr.shape, yr), _empty(yr.shape, yr)
     _launch("h_pass_b", "lpt_h_pass_b", "ppppppp" + "iiiiiii", yr, yi,
             filt_r if filt else None, filt_i if filt else None, zr, zi,
-            _table(n, False, yr.device), p, pc, n1, n2, w, int(bool(inverse)),
-            _CODE[yr.dtype])
+            _design_table(n, False, h_pass_b_design(n2), yr.device, radix_n=n2), p, pc, n1,
+            n2, w, int(bool(inverse)), _CODE[yr.dtype])
     h_passB.launches += 1
     return zr, zi
 
@@ -745,7 +748,8 @@ def h_passB_dual(yr, yi, hr, hi, n):
     """The inverse stage 2 (unscaled) of the split-order spectrum y and of
     H y, from one read of y; y (n1, n2, W) or a stack (P, n1, n2, W), H a
     plane or a stack of Pc (P % Pc == 0), all at the io dtype; H y is
-    formed in f32.  Returns (a0r, a0i, a1r, a1i)."""
+    formed in f32.  The kernel's design follows n2 alone, as K15's
+    (:func:`h_pass_b_design`).  Returns (a0r, a0i, a1r, a1i)."""
     name = "h_passB_dual"
     ins = [yr, yi, hr, hi]
     _check(name, ins[:2], yr.shape, IO_DTYPES)
@@ -757,7 +761,8 @@ def h_passB_dual(yr, yi, hr, hi, n):
         return h_passB_dual_plain(*ins, n)
     outs = [_empty(yr.shape, yr) for _ in range(4)]
     _launch("h_pass_b", "lpt_h_pass_b_dual", "ppppppppp" + "iiiiii", *ins, *outs,
-            _table(n, False, yr.device), p, pc, n1, n2, w, _CODE[yr.dtype])
+            _design_table(n, False, h_pass_b_design(n2), yr.device, radix_n=n2), p, pc, n1,
+            n2, w, _CODE[yr.dtype])
     h_passB_dual.launches += 1
     return tuple(outs)
 
@@ -813,6 +818,12 @@ def h_combine_dual_design(n2: int) -> str:
     ``lpt_h_combine_dual`` makes the same choice; neither design falls
     back on the other."""
     return "radix" if n2 == H_RADIX_N2 else "split"
+
+
+# K15's and K17's rule (csrc/h_pass_b.cu: K5's column form, K15 on one
+# column array, K17 on two without the combine); K16 and K18 run their
+# split design at every n2 and read the split table alone
+h_pass_b_design = h_combine_dual_design
 
 
 def h_combine_dual_plain(xar, xai, yar, yai, hr, hi, rr, n):

@@ -350,7 +350,7 @@ def test_library_hash_follows_its_includes(tmp_path, monkeypatch):
         after = {n: _build.lib_path(n) for n in _build.SOURCES}
         assert {n for n in before if before[n] != after[n]} == want, header
         before = after
-    assert {"sat_scan", "h_pass_b", "probe_bw"}.isdisjoint(want)
+    assert {"sat_scan", "probe_bw"}.isdisjoint(want)
 
 
 def test_smoke_run_names_k8_k9_designs():
