@@ -2,6 +2,7 @@
 
     python3 ab_kernels.py OTHER_CSRC [OTHER_CSRC ...] [--modes headline,f32]
                           [--rounds 2] [--planes 3x3,4x1] [--kernels h_combine_dual]
+                          [--probes 5]
 
 A is ``lenslesspicam_tpu_torch/ops/csrc`` of this checkout, B the
 directory OTHER_CSRC holding the same sources changed (the same C
@@ -32,8 +33,13 @@ of one plane;
 ``--kernels`` keeps only the kernels named (a wrapper's name keeps its
 "name:form" rows too).  Prints one JSON line per
 kernel, mode and stack with each tree's median and its ratio to A (with
-one other tree also ``a_ms``, ``b_ms`` and ``b_over_a``), then the card's
-name and power limit.  Exits non-zero without a CUDA device.
+one other tree also ``a_ms``, ``b_ms`` and ``b_over_a``).  ``--probes N``
+then times the bandwidth probe's P1 and P2 of this checkout against their
+PyTorch calls (``x.clone()``, ``torch.mul``) on the same 12 MP plane at
+f32 and bf16 (br = 16), N rounds of kernel, library, library, kernel,
+each output first held bit-equal to its plain version; one JSON line per
+probe and dtype.  Last, the card's name and power limit.  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from lenslesspicam_tpu_torch.ops import _build, kernels as K
+from lenslesspicam_tpu_torch.ops import _build, kernels as K, probe_bw as PB
 
 
 E1_RCARRY_LIB = dict(K._E1_RCARRY_LIB)
@@ -70,6 +76,34 @@ def use(csrc: Path):
     K._E1_RCARRY_LIB = E1_RCARRY_LIB if split else dict.fromkeys(E1_RCARRY_LIB, "e1_rcarry")
 
 
+def probe_ab(ph, pw, rounds):
+    """P1 and P2 against their library calls (``--probes``): medians of
+    ``rounds`` rounds of kernel, library, library, kernel."""
+    use(_build.CSRC)
+    for io in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(ph)
+        cases = cs.probe_kernel_cases(ph, pw, gen, io)
+        for name in cs.STREAM_PROBES:
+            inputs, _ = cases[name]
+            kernel, plain = getattr(PB, name), getattr(PB, name + "_plain")
+            if not torch.equal(cs.bits(kernel(*inputs)), cs.bits(plain(*inputs))):
+                raise AssertionError(f"{name} ({io}): not bit-equal to its plain version")
+            lib_name, lib = cs.probe_library(name)
+            calls = {"kernel": lambda: kernel(*inputs), "library": lambda: lib(inputs[0])}
+            times = {label: [] for label in calls}
+            for _ in range(rounds):
+                for label in ("kernel", "library", "library", "kernel"):
+                    times[label].append(cs.time_ms(calls[label]))
+            med = {label: statistics.median(ts) for label, ts in times.items()}
+            print(json.dumps({"probe": cs.KERNEL_INFO[name][0], "name": name,
+                              "dtype": str(io).removeprefix("torch."), "grid": [ph, pw],
+                              "br": inputs[1], "library": lib_name, "kernel_ms": med["kernel"],
+                              "library_ms": med["library"],
+                              "kernel_over_library": med["kernel"] / med["library"],
+                              "times": times}), flush=True)
+
+
 # chip_smoke.PALLAS_MODES under names of their own, so that the default
 # modes (headline, f32) leave the pallas family out
 PALLAS_AB_MODES = {f"pallas_io_{m}": dts for m, dts in cs.PALLAS_MODES.items()}
@@ -82,6 +116,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--planes", default="", help="stacks PxPc, comma separated")
     ap.add_argument("--kernels", default="", help="kernel names, comma separated")
+    ap.add_argument("--probes", type=int, default=0,
+                    help="rounds of P1 and P2 against their library calls (0: none)")
     args = ap.parse_args()
     stacks = [tuple(int(n) for n in st.split("x")) for st in args.planes.split(",") if st]
     keep = set(args.kernels.split(",")) - {""}
@@ -135,6 +171,8 @@ def main():
                               "planes": list(planes) if planes else None, **ab, "ms": med,
                               "over_a": {label: m / med["A"] for label, m in med.items()},
                               "times": times}), flush=True)
+    if args.probes:
+        probe_ab(ph, pw, args.probes)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)

@@ -36,7 +36,9 @@ loop runs it, the K12 -> K13 round trip, the f32 and bench-mode solves
 against the exact one, their rates),
 runs its pass-level backend (``run_split(backend="pallas")``, K12, K14, K15, K16, K17, K4, K13; phase
 ``split_pallas``: K14-K18 against their plain versions at 96 x 512 in both
-io modes and as a 6-over-3 stack and at 12 MP with kernel rows, the
+io modes and as a 6-over-3 stack and at 12 MP with kernel rows, K15-K18's
+radix design also at 256 x 80, a guarded lane tile, alone and stacked,
+and at 256 x 79, an odd lane width, the
 ``fft_h`` and ``ifft_h_dual`` chains against torch.fft, K18's composition
 ``fft_h_combine2`` against ``fft_h`` then ``fft_h_combine``,
 ``filtered_synthesis_pallas2`` at 12 MP against torch.fft, the f32 and bf16
@@ -120,11 +122,13 @@ W_SPLIT_NAMES = ("ifft_w_dual", "fft_w", "ifft_w", "e1_carry")
 # last lane tile guarded: H = 2 x 128, half width 40, not a multiple of
 # the 32-lane tile (padded grid; the 12 MP and 768 x 1024 grids run the
 # radix design on whole tiles, the 96 x 128 grid and GRIDS' 540 x 960,
-# 480 x 640 and 96 x 270 the split one); K15's and K17's radix design
-# (the same rule, kernels.h_pass_b_design) there at the full width 80
+# 480 x 640 and 96 x 270 the split one); K15's, K16's, K17's and K18's
+# radix design (the same rule, kernels.h_pass_b_design) there at the full
+# width 80
 K5_GUARDED = (256, 80)
-# K15's radix design at an odd lane width, where it takes one column a
-# thread at bf16 io too (a column pair's 4-byte load needs an even W)
+# K15's and K16's radix design at an odd lane width, where they take one
+# column a thread at bf16 io too (a column pair's 4-byte load needs an even
+# W)
 K15_ODD_W = (256, 79)
 # K4's and K14's radix design (n1 = 48, kernels.h_pass_a_design) with its
 # last lane tile cut: H = 48 x 128, lane widths 40 (K4 in the v3 loop's
@@ -232,12 +236,13 @@ PALLAS_MODES = {m: (io, F32, F32, F32) for m, io in PALLAS_IO.items()}
 # forward forms included: the pallas solve runs them; K4 stays on its
 # half-spectrum path)
 PALLAS_NAMES = ("fft_w", "ifft_w", "h_passA", "h_passB", "h_passB_combine", "h_passB_dual")
-# every form of K15 and K17 in pallas_kernel_cases: their radix design
-# (n2 = 128, kernels.h_pass_b_design) runs at 12 MP, 768 x 1024,
-# K5_GUARDED and K15_ODD_W, their split design at the 96 x 512 grid and
-# GRIDS' others
+# every form of K15 and K17 in pallas_kernel_cases, then K16 and K18: their
+# radix design (n2 = 128, kernels.h_pass_b_design) runs at 12 MP, 768 x
+# 1024, K5_GUARDED and K15_ODD_W, their split design at the 96 x 512 grid
+# and GRIDS' others
 K15_K17_FORMS = ("h_passB", "h_passB:inverse", "h_passB:filter", "h_passB:inverse_filter",
                  "h_passB_dual")
+K16_K18_FORMS = ("h_passB_combine", "h_passB_combine2")
 TOL_SYNTHESIS = 1e-4         # filtered_synthesis_pallas2 vs torch.fft (tests/test_pallas_fft.py:93)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # a streaming reading above the data sheet's rate by more than 5 % is a
@@ -623,8 +628,8 @@ def reference_call(name, args):
 
 def design(name, ph, pw):
     """{"design": ...} of a kernel with two designs chosen by shape (K1-K3,
-    K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5, K15
-    and K17 by the n2 of H = ph; K4 and K14 by its n1), else {}; ``name``
+    K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 and
+    K15-K18 by the n2 of H = ph; K4 and K14 by its n1), else {}; ``name``
     may carry a ":form"."""
     name = name.split(":")[0]
     if name in M_NAMES:
@@ -633,7 +638,7 @@ def design(name, ph, pw):
         return {"design": K.fft_w_design(pw)}
     if name == "h_combine_dual":
         return {"design": K.h_combine_dual_design(K.factors(ph)[1])}
-    if name in ("h_passB", "h_passB_dual"):
+    if name.startswith("h_passB"):        # K15-K18
         return {"design": K.h_pass_b_design(K.factors(ph)[1])}
     if name in K4_NAMES:
         return {"design": K.h_pass_a_design(K.factors(ph)[0])}
@@ -2026,12 +2031,13 @@ def main():
                       cases=pallas_kernel_cases)
         check_kernels(ssh, ssw, False, io, F32, F32, F32, f"planes,io={mode}",
                       planes=PLANES, cases=pallas_kernel_cases)
-    for mode, io in PALLAS_IO.items():   # K15's and K17's radix design on a guarded
-        # lane tile and at an odd lane width, every form
+    for mode, io in PALLAS_IO.items():   # K15-K18's radix design on a guarded lane
+        # tile and at an odd lane width, every form
         for grid, planes in ((K5_GUARDED, None), (K5_GUARDED, PLANES), (K15_ODD_W, None)):
             check_kernels(*grid, False, io, F32, F32, F32,
-                          f"{'planes,' if planes else ''}io={mode}", names=K15_K17_FORMS,
-                          planes=planes, cases=pallas_kernel_cases)
+                          f"{'planes,' if planes else ''}io={mode}",
+                          names=K15_K17_FORMS + K16_K18_FORMS, planes=planes,
+                          cases=pallas_kernel_cases)
     pallas_rows = {mode: check_kernels(ph, pw, True, io, F32, F32, F32, f"io={mode}",
                                        cases=pallas_kernel_cases)
                    for mode, io in PALLAS_IO.items()}

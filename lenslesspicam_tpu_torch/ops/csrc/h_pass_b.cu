@@ -21,23 +21,23 @@
 // Bound on the H100: bytes (K15 16 bytes per point at f32, 24 with the
 // filter; K16 and K18 36; K17 32; half at bf16).
 //
-// K15 and K17 have two designs, chosen by n2 alone (kernels.h_pass_b_design,
+// Every kernel has two designs, chosen by n2 alone (kernels.h_pass_b_design,
 // K5's rule): the radix design for n2 = RN2 = 128 (the 12 MP grid's H = 48
 // x 128, 768 = 6 x 128), any n1 and W, and the split design for any other
-// n2.  Neither falls back on the other.  K16 and K18 run the split design
-// at every n2.
+// n2.  Neither falls back on the other.
 //
-// The split design (every kernel, any n2): a length-n2 DFT runs as an a x b
-// split stage (8 x 16 at n2 = 128, 24 complex multiply-adds per point).  The
+// The split design (any n2): a length-n2 DFT runs as an a x b split stage
+// (8 x 16 at n2 = 128, 24 complex multiply-adds per point).  The
 // contraction runs down the strided H columns, so a block takes one k1 and
 // 32 consecutive lanes of W, as K5 does: loads and stores are runs of 32
 // contiguous elements and the n2 x 32 tile stays in shared memory for the
 // DFT (two tiles, 66 KB at 12 MP, three blocks per SM; K17 and K18 three
-// tiles, 99 KB, two blocks).
+// tiles, 99 KB, two blocks); K16 and K18 combine after the transform, out
+// of shared memory.
 //
-// The radix design (K15 and K17 at n2 = RN2): K5's column form of the radix
-// FFT (lpt_fft.cuh), 16 + 8 points a column thread.  A block takes one k1
-// and RTW = 32 lanes, 8 threads a lane (256), and one 32 KB buffer
+// The radix design (n2 = RN2): K5's column form of the radix FFT
+// (lpt_fft.cuh), 16 + 8 points a column thread.  A block takes one k1 and
+// RTW = 32 lanes, 8 threads a lane (256), and one 32 KB buffer
 // [position][lane] for the transform's one exchange.  Each thread loads
 // the 16 registers of its column straight from device memory (all loads
 // before the first butterfly, each a warp's consecutive lanes of one row)
@@ -48,17 +48,24 @@
 // transposed) reads each register from the row of the frequency it stands
 // for and leaves the natural rows j2 = t + 8 r.  A filter (K15) or H (K17)
 // is read at the same rows as y and multiplied in f32 on the loaded
-// registers.  K15 keeps one column array live, K17 two (y, then H y,
-// through the same buffer behind a barrier).  K15 at bf16 io and an even
-// W takes two adjacent columns a thread (64 lanes a block, one 4-byte load
+// registers.  K16 and K18 combine on the registers as K5 does: at each
+// register's frequency row they read a (K16), H and R, form F = R (a +
+// conj(H) b) in f32 and store F to that row, so no tile but the
+// transform's buffer lives in shared memory.  K15 and K16 keep one array
+// a column live, K17 and K18 two (y, then H y; x, then y), each
+// transformed through the same buffer behind a barrier.  K15 at bf16 io and an even W
+// takes two adjacent columns a thread (64 lanes a block, one 4-byte load
 // of a bf16 pair a row, a 64 KB buffer): its forward form ran 10-19 %
 // faster than with one column a thread, whose warp accesses are 64 bytes
 // (0.1409-0.1413 against 0.1566-0.1689 ms at 12 MP), and the pallas loop
 // at bf16 io 0.3 % faster end to end; at f32 two columns a thread gained
-// nothing.  Both kernels take K5's launch bound, two blocks a
-// multiprocessor: a bound of three or four (80 or 64 registers) ran K15
-// no faster (within 0.8 %; ab_kernels.py on an NVIDIA H100 80GB HBM3 at
-// 700 W).
+// nothing.  K16 takes K15's rule: with two bf16 columns a thread it ran
+// 5.5 % faster than with one (0.3242 against 0.3431 ms at 12 MP; in the
+// pallas loop 0.323 against 0.346 ms, 0.3 % faster end to end), though it
+// spills 52 bytes (88 on a stack); K18 takes one column.  Every radix
+// kernel takes K5's launch bound, two blocks a multiprocessor: a bound of
+// three or four (80 or 64 registers) ran K15 no faster (within 0.8 %;
+// ab_kernels.py on an NVIDIA H100 80GB HBM3 at 700 W).
 //
 // The planes may be a stack of P (grid.y = P); the constant planes (filter,
 // H, R) a stack of Pc, P % Pc == 0, plane p reading constant plane p % Pc.
@@ -326,8 +333,8 @@ __global__ void __launch_bounds__(THREADS) h_pass_b_combine2_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The radix design of K15 and K17: n2 = RN2, any n1 and W (the last lane
-// tile guarded where RTW does not divide W).
+// The radix design of K15-K18: n2 = RN2, any n1 and W (the last lane tile
+// guarded where RTW does not divide W).
 // ---------------------------------------------------------------------------
 
 constexpr int RN2 = 128;                                     // kernels.H_RADIX_N2
@@ -391,9 +398,9 @@ __device__ __forceinline__ void st_lanes(T* __restrict__ p, const float (&x)[kL]
   }
 }
 
-// Columns a thread of the radix K15 takes where W is even, by io type: two
-// at bf16 (one column a thread makes a warp access of 64 bytes), one at
-// f32 (two, as float2, ran within 2.4 % either way of one).
+// Columns a thread of the radix K15 and K16 take where W is even, by io
+// type: two at bf16 (one column a thread makes a warp access of 64 bytes),
+// one at f32 (two, as float2, ran within 2.4 % either way of one).
 template <typename T>
 constexpr int k15_lanes() { return sizeof(T) == 2 ? 2 : 1; }
 
@@ -497,6 +504,91 @@ __global__ void __launch_bounds__(RTHREADS, 2) h_pass_b_dual_radix_kernel(
   store(b, a1r, a1i);
 }
 
+// K16, radix design: b = forward stage 2 of (yr, yi) on the registers, then
+// F = R (a + conj(H) b) at each register's frequency row, a, H and R read
+// there (one register at a time, to keep few live) and F stored there; kL
+// columns a thread, each through its own RTW-lane part of the buffer.
+template <typename T, int kL, bool kStack, bool kGen>
+__global__ void __launch_bounds__(RTHREADS, 2) h_pass_b_combine_radix_kernel(
+    const T* __restrict__ yr, const T* __restrict__ yi, const T* __restrict__ ar,
+    const T* __restrict__ ai, const T* __restrict__ hr, const T* __restrict__ hi,
+    const T* __restrict__ rr, T* __restrict__ fr_out, T* __restrict__ fi_out,
+    const float2* __restrict__ tw, int pc, int n1, int w) {
+  using namespace fft;
+  extern __shared__ float2 sm[];  // RN2 x kL RTW, [position][lane]
+  const RCol<kStack, kGen, kL> c(pc, n1, w);
+  float2 v[kL][RADIX];
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = c.base + (size_t)natural_row(c.t, k) * w;
+    float re[kL] = {}, im[kL] = {};
+    if (c.live) {
+      ld_lanes<kL>(yr + g, re);
+      ld_lanes<kL>(yi + g, im);
+    }
+#pragma unroll
+    for (int e = 0; e < kL; ++e) v[e][k] = make_float2(re[e], im[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < kL; ++e) col_fft<RN2, kL * RTW>(v[e], sm, tw, c.t, e * RTW + c.lane);
+  if (!c.live) return;
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = (size_t)digit_row(c.t, k) * w;
+    float a_r[kL], a_i[kL], h_r[kL], h_i[kL], rv[kL], o_r[kL], o_i[kL];
+    ld_lanes<kL>(ar + c.base + g, a_r);
+    ld_lanes<kL>(ai + c.base + g, a_i);
+    ld_lanes<kL>(hr + c.cbase + g, h_r);
+    ld_lanes<kL>(hi + c.cbase + g, h_i);
+    ld_lanes<kL>(rr + c.cbase + g, rv);
+#pragma unroll
+    for (int e = 0; e < kL; ++e) {  // in f32, in the JAX kernel's order
+      const float2 b = v[e][k];
+      o_r[e] = rv[e] * (a_r[e] + h_r[e] * b.x + h_i[e] * b.y);
+      o_i[e] = rv[e] * (a_i[e] + h_r[e] * b.y - h_i[e] * b.x);
+    }
+    st_lanes<kL>(fr_out + c.base + g, o_r);
+    st_lanes<kL>(fi_out + c.base + g, o_i);
+  }
+}
+
+// K18, radix design: a = forward stage 2 of (xr, xi), b = forward stage 2
+// of (yr, yi), both on the registers (K5's first half); F = R (a + conj(H)
+// b) at each register's frequency row, H and R read there and F stored
+// there.  One column a thread: two would hold four column arrays.
+template <typename T, bool kStack, bool kGen>
+__global__ void __launch_bounds__(RTHREADS, 2) h_pass_b_combine2_radix_kernel(
+    const T* __restrict__ xr, const T* __restrict__ xi, const T* __restrict__ yr,
+    const T* __restrict__ yi, const T* __restrict__ hr, const T* __restrict__ hi,
+    const T* __restrict__ rr, T* __restrict__ fr_out, T* __restrict__ fi_out,
+    const float2* __restrict__ tw, int pc, int n1, int w) {
+  using namespace fft;
+  extern __shared__ float2 sm[];  // RN2 x RTW, [position][lane]
+  const RCol<kStack, kGen> c(pc, n1, w);
+  float2 a[RADIX], b[RADIX];
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = c.base + (size_t)natural_row(c.t, k) * w;
+    a[k] = b[k] = make_float2(0.f, 0.f);
+    if (c.live) {
+      a[k] = make_float2(ld1(xr + g, Fix{}), ld1(xi + g, Fix{}));
+      b[k] = make_float2(ld1(yr + g, Fix{}), ld1(yi + g, Fix{}));
+    }
+  }
+  col_fft<RN2, RTW>(a, sm, tw, c.t, c.lane);
+  __syncthreads();  // every read of a's exchange is done: the buffer is free
+  col_fft<RN2, RTW>(b, sm, tw, c.t, c.lane);
+  if (!c.live) return;
+#pragma unroll
+  for (int k = 0; k < RADIX; ++k) {
+    const size_t g = (size_t)digit_row(c.t, k) * w;
+    const float h_r = ld1(hr + c.cbase + g, Fix{}), h_i = ld1(hi + c.cbase + g, Fix{});
+    const float rv = ld1(rr + c.cbase + g, Fix{});
+    st1(fr_out + c.base + g, rv * (a[k].x + h_r * b[k].x + h_i * b[k].y), Fix{});
+    st1(fi_out + c.base + g, rv * (a[k].y + h_r * b[k].y - h_i * b[k].x), Fix{});
+  }
+}
+
 // The radix launches.  The twiddles follow the split design's table
 // (kernels._design_table), read at make_plan(tab, n1, RN2).e as K5 reads them.
 static dim3 radix_grid(int planes, int n1, int w, int lanes) {
@@ -555,13 +647,48 @@ static int run_radix_dual(const void* yr, const void* yi, const void* hr, const 
                 n1, w);
 }
 
+// K16 (kTwo false) and K18 (kTwo true) take seven inputs (K16: y, a, H,
+// R; K18: x, y, H, R; each complex array as its r and i planes) and give F
+// as fr, fi.
+template <typename T, bool kTwo, int kL, bool kStack, bool kGen>
+static auto combine_radix_kernel() {
+  if constexpr (kTwo) return h_pass_b_combine2_radix_kernel<T, kStack, kGen>;
+  else return h_pass_b_combine_radix_kernel<T, kL, kStack, kGen>;
+}
+
+template <typename T, bool kTwo, int kL>
+static int run_radix_combine_lanes(const void* const* in, void* fr, void* fi,
+                                   const float2* tab, int planes, int pc, int n1, int w,
+                                   void* stream) {
+  const bool gen = w % (kL * RTW);
+  auto kernel = planes == 1 ? (gen ? combine_radix_kernel<T, kTwo, kL, false, true>()
+                                   : combine_radix_kernel<T, kTwo, kL, false, false>())
+                            : (gen ? combine_radix_kernel<T, kTwo, kL, true, true>()
+                                   : combine_radix_kernel<T, kTwo, kL, true, false>());
+  return launch(kernel, radix_grid(planes, n1, w, kL * RTW), dim3(RTHREADS),
+                sizeof(float2) * RN2 * kL * RTW, stream, (const T*)in[0], (const T*)in[1],
+                (const T*)in[2], (const T*)in[3], (const T*)in[4], (const T*)in[5],
+                (const T*)in[6], (T*)fr, (T*)fi, make_plan(tab, n1, RN2).e, pc, n1, w);
+}
+
+// K16 takes K15's columns a thread (k15_lanes<T>()) where W is even, one
+// where it is odd; K18 one.
+template <typename T, bool kTwo>
+static int run_radix_combine(const void* const* in, void* fr, void* fi, const float2* tab,
+                             int planes, int pc, int n1, int w, void* stream) {
+  if constexpr (!kTwo && k15_lanes<T>() == 2)
+    if (w % 2 == 0)
+      return run_radix_combine_lanes<T, kTwo, 2>(in, fr, fi, tab, planes, pc, n1, w, stream);
+  return run_radix_combine_lanes<T, kTwo, 1>(in, fr, fi, tab, planes, pc, n1, w, stream);
+}
+
 static dim3 grid_of(int planes, int n1, int w) { return dim3(n1 * ((w + TW - 1) / TW), planes); }
 
 // Every array is a stack of `planes` planes of (n1, n2, w) but the constant
 // ones (filter, H, R), stacks of pc.  io: storage code of all arrays (F32
 // or BF16).
 
-// K15 and K17 of io type T: the radix design for n2 = RN2, else the split design.
+// K15-K18 of io type T: the radix design for n2 = RN2, else the split design.
 template <typename T>
 static int run_b(const void* yr, const void* yi, const void* fr, const void* fi, void* outr,
                  void* outi, const float2* tab, int planes, int pc, int n1, int n2, int w,
@@ -587,9 +714,23 @@ static int run_dual(const void* yr, const void* yi, const void* hr, const void* 
                 tab, pc, n1, n2, w);
 }
 
+template <typename T, bool kTwo>
+static int run_combine(const void* const* in, void* fr, void* fi, const float2* tab,
+                       int planes, int pc, int n1, int n2, int w, void* stream) {
+  if (n2 == RN2) return run_radix_combine<T, kTwo>(in, fr, fi, tab, planes, pc, n1, w, stream);
+  const bool gen = general_tile(n2, w, TW);
+  auto kernel = kTwo ? (gen ? h_pass_b_combine2_kernel<T, true>
+                            : h_pass_b_combine2_kernel<T, false>)
+                     : (gen ? h_pass_b_combine_kernel<T, true> : h_pass_b_combine_kernel<T, false>);
+  return launch(kernel, grid_of(planes, n1, w), dim3(THREADS), smem_bytes(kTwo ? 3 : 2, n2),
+                stream, (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
+                (const T*)in[4], (const T*)in[5], (const T*)in[6], (T*)fr, (T*)fi, tab, pc, n1,
+                n2, w);
+}
+
 // K15.  fr, fi null: no filter.  n2 = RN2 runs the radix design (tab: the
 // split table, then the radix twiddles of RN2), any other n2 the split
-// design (tab: the split table); K17 alike.
+// design (tab: the split table); K16, K17 and K18 alike.
 extern "C" int lpt_h_pass_b(const void* yr, const void* yi, const void* fr, const void* fi,
                             void* outr, void* outi, const float2* tab, int planes, int pc, int n1,
                             int n2, int w, int inverse, int io, void* stream) {
@@ -610,23 +751,13 @@ extern "C" int lpt_h_pass_b_combine(const void* yr, const void* yi, const void* 
                                     const void* rr, void* fr, void* fi, const float2* tab,
                                     int planes, int pc, int n1, int n2, int w, int io,
                                     void* stream) {
-  const size_t smem = smem_bytes(2, n2);
+  const void* in[7] = {yr, yi, ar, ai, hr, hi, rr};
   switch (io) {
     case F32:
-      return launch(general_tile(n2, w, TW) ? h_pass_b_combine_kernel<float, true>
-                                            : h_pass_b_combine_kernel<float, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem,
-                    stream, (const float*)yr, (const float*)yi, (const float*)ar,
-                    (const float*)ai, (const float*)hr, (const float*)hi, (const float*)rr,
-                    (float*)fr, (float*)fi, tab, pc, n1, n2, w);
-    case BF16: {
-      using B = __nv_bfloat16;
-      return launch(general_tile(n2, w, TW) ? h_pass_b_combine_kernel<B, true>
-                                            : h_pass_b_combine_kernel<B, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem,
-                    stream, (const B*)yr, (const B*)yi, (const B*)ar, (const B*)ai, (const B*)hr,
-                    (const B*)hi, (const B*)rr, (B*)fr, (B*)fi, tab, pc, n1, n2, w);
-    }
+      return run_combine<float, false>(in, fr, fi, tab, planes, pc, n1, n2, w, stream);
+    case BF16:
+      return run_combine<__nv_bfloat16, false>(in, fr, fi, tab, planes, pc, n1, n2, w,
+                                              stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -653,24 +784,13 @@ extern "C" int lpt_h_pass_b_combine2(const void* xr, const void* xi, const void*
                                      const void* rr, void* fr, void* fi, const float2* tab,
                                      int planes, int pc, int n1, int n2, int w, int io,
                                      void* stream) {
-  const size_t smem = smem_bytes(3, n2);
+  const void* in[7] = {xr, xi, yr, yi, hr, hi, rr};
   switch (io) {
     case F32:
-      return launch(general_tile(n2, w, TW) ? h_pass_b_combine2_kernel<float, true>
-                                            : h_pass_b_combine2_kernel<float, false>,
-                    grid_of(planes, n1, w), dim3(THREADS),
-                    smem, stream, (const float*)xr, (const float*)xi, (const float*)yr,
-                    (const float*)yi, (const float*)hr, (const float*)hi, (const float*)rr,
-                    (float*)fr, (float*)fi, tab, pc, n1, n2, w);
-    case BF16: {
-      using B = __nv_bfloat16;
-      return launch(general_tile(n2, w, TW) ? h_pass_b_combine2_kernel<B, true>
-                                            : h_pass_b_combine2_kernel<B, false>,
-                    grid_of(planes, n1, w), dim3(THREADS), smem,
-                    stream, (const B*)xr, (const B*)xi, (const B*)yr, (const B*)yi,
-                    (const B*)hr, (const B*)hi, (const B*)rr, (B*)fr, (B*)fi, tab, pc, n1, n2,
-                    w);
-    }
+      return run_combine<float, true>(in, fr, fi, tab, planes, pc, n1, n2, w, stream);
+    case BF16:
+      return run_combine<__nv_bfloat16, true>(in, fr, fi, tab, planes, pc, n1, n2, w,
+                                              stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,10 +18,10 @@ storage mode of the JAX package).
 | ``fft_w`` (K12) | ``fft_w`` / ``_w_fwd_kernel`` | ``csrc/fft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``ifft_w`` (K13) | ``ifft_w`` / ``_w_inv_kernel`` | ``csrc/ifft_w.cu``, ``csrc/lpt_fft.cuh`` |
 | ``h_passA`` (K14) | ``h_passA`` / ``_h_passA_kernel`` | ``csrc/h_pass_a.cu``, ``csrc/lpt_fft.cuh`` |
-| ``h_passB`` (K15) | ``h_passB`` / ``_h_passB_kernel`` | ``csrc/h_pass_b.cu`` |
-| ``h_passB_combine`` (K16) | ``h_passB_combine`` / ``_h_passB_combine_kernel`` | ``csrc/h_pass_b.cu`` |
-| ``h_passB_dual`` (K17) | ``h_passB_dual`` / ``_h_passB_dual_kernel`` | ``csrc/h_pass_b.cu`` |
-| ``h_passB_combine2`` (K18) | ``fft_h_combine2`` / ``_h_passB_combine2_kernel`` | ``csrc/h_pass_b.cu`` |
+| ``h_passB`` (K15) | ``h_passB`` / ``_h_passB_kernel`` | ``csrc/h_pass_b.cu``, ``csrc/lpt_fft.cuh`` |
+| ``h_passB_combine`` (K16) | ``h_passB_combine`` / ``_h_passB_combine_kernel`` | ``csrc/h_pass_b.cu``, ``csrc/lpt_fft.cuh`` |
+| ``h_passB_dual`` (K17) | ``h_passB_dual`` / ``_h_passB_dual_kernel`` | ``csrc/h_pass_b.cu``, ``csrc/lpt_fft.cuh`` |
+| ``h_passB_combine2`` (K18) | ``fft_h_combine2`` / ``_h_passB_combine2_kernel`` | ``csrc/h_pass_b.cu``, ``csrc/lpt_fft.cuh`` |
 
 A wrapper given CPU tensors runs the plain version (``*_plain``).  Given
 CUDA tensors it launches its kernel on the current stream or raises: it
@@ -374,7 +374,7 @@ def _unpack_natural_np(m: int) -> np.ndarray:
 def _design_table(n: int, with_unpack: bool, design: str, device: torch.device,
                   radix_n: int | None = None):
     """The table of a kernel with two designs (K1-K3, K6: length M with
-    the unpack factors E; K10-K13: length W without them; K5, K15, K17:
+    the unpack factors E; K10-K13: length W without them; K5, K15-K18:
     length H without them, the radix FFT over the factor ``radix_n`` =
     n2): the split-order table (:func:`_table_np`), followed in the
     "radix" design by :func:`_radix_twiddles_np` of length ``radix_n``
@@ -720,8 +720,9 @@ def h_passB_combine(yr, yi, ar, ai, hr, hi, rr, n):
     """Forward stage 2 of the stage-1 plane y, b = F2 y, fused with the
     ADMM spectrum combine F = R (a + conj(H) b) in f32; y and the spectrum
     a (n1, n2, W) or stacks (P, n1, n2, W), the filter planes H and R a
-    plane or a stack of Pc (P % Pc == 0), all at the io dtype.  Returns
-    (fr, fi)."""
+    plane or a stack of Pc (P % Pc == 0), all at the io dtype.  The
+    kernel's design follows n2 alone, as K15's (:func:`h_pass_b_design`).
+    Returns (fr, fi)."""
     name = "h_passB_combine"
     ins = [yr, yi, ar, ai, hr, hi, rr]
     _check(name, ins[:4], yr.shape, IO_DTYPES)
@@ -733,7 +734,8 @@ def h_passB_combine(yr, yi, ar, ai, hr, hi, rr, n):
         return h_passB_combine_plain(*ins, n)
     fr, fi = _empty(yr.shape, yr), _empty(yr.shape, yr)
     _launch("h_pass_b", "lpt_h_pass_b_combine", "pppppppppp" + "iiiiii", *ins, fr, fi,
-            _table(n, False, yr.device), p, pc, n1, n2, w, _CODE[yr.dtype])
+            _design_table(n, False, h_pass_b_design(n2), yr.device, radix_n=n2), p, pc, n1,
+            n2, w, _CODE[yr.dtype])
     h_passB_combine.launches += 1
     return fr, fi
 
@@ -779,7 +781,8 @@ def h_passB_combine2(xr, xi, yr, yi, hr, hi, rr, n):
     f32: K16 with its spectrum a computed instead of read, so that it is
     never stored.  x and y (n1, n2, W) or stacks (P, n1, n2, W), the
     filter planes H and R a plane or a stack of Pc (P % Pc == 0), all at
-    the io dtype.  Returns (fr, fi)."""
+    the io dtype.  The kernel's design follows n2 alone, as K15's
+    (:func:`h_pass_b_design`).  Returns (fr, fi)."""
     name = "h_passB_combine2"
     ins = [xr, xi, yr, yi, hr, hi, rr]
     _check(name, ins[:4], xr.shape, IO_DTYPES)
@@ -791,7 +794,8 @@ def h_passB_combine2(xr, xi, yr, yi, hr, hi, rr, n):
         return h_passB_combine2_plain(*ins, n)
     fr, fi = _empty(xr.shape, xr), _empty(xr.shape, xr)
     _launch("h_pass_b", "lpt_h_pass_b_combine2", "pppppppppp" + "iiiiii", *ins, fr, fi,
-            _table(n, False, xr.device), p, pc, n1, n2, w, _CODE[xr.dtype])
+            _design_table(n, False, h_pass_b_design(n2), xr.device, radix_n=n2), p, pc, n1,
+            n2, w, _CODE[xr.dtype])
     h_passB_combine2.launches += 1
     return fr, fi
 
@@ -820,9 +824,9 @@ def h_combine_dual_design(n2: int) -> str:
     return "radix" if n2 == H_RADIX_N2 else "split"
 
 
-# K15's and K17's rule (csrc/h_pass_b.cu: K5's column form, K15 on one
-# column array, K17 on two without the combine); K16 and K18 run their
-# split design at every n2 and read the split table alone
+# K15's, K16's, K17's and K18's rule (csrc/h_pass_b.cu: K5's column form,
+# K15 and K16 on one column array, K17 and K18 on two; K16 and K18 with
+# K5's combine on the registers, K15 and K17 without it)
 h_pass_b_design = h_combine_dual_design
 
 

@@ -210,11 +210,12 @@ def test_c_entries_take_the_same_rule():
     """``lpt_h_pass_b`` and ``lpt_h_pass_b_dual`` run the radix design for
     n2 == RN2 alone, and RN2 is ``kernels.H_RADIX_N2``: the rules cannot
     drift apart (a radix launch on a split-only table would read past its
-    end).  K16's and K18's entries launch their split kernels alone."""
+    end).  K16's and K18's entries take the same branch
+    (tests/test_torch_h_combine_radix.py)."""
     src = (Path(K.__file__).parent / "csrc" / "h_pass_b.cu").read_text()
     assert re.findall(r"constexpr int RN2 = (\d+);", src) == [str(K.H_RADIX_N2)]
-    assert re.findall(r"if \(n2 == (\w+)\) return (run_radix_\w+)<T>", src) == [
-        ("RN2", "run_radix_b"), ("RN2", "run_radix_dual")]
+    assert re.findall(r"if \(n2 == (\w+)\) return (run_radix_\w+)<T", src) == [
+        ("RN2", "run_radix_b"), ("RN2", "run_radix_dual"), ("RN2", "run_radix_combine")]
 
     def entry(name):
         body = src[src.index(f'extern "C" int {name}('):]
@@ -223,7 +224,7 @@ def test_c_entries_take_the_same_rule():
     assert set(re.findall(r"return (\w+)<", entry("lpt_h_pass_b"))) == {"run_b"}
     assert set(re.findall(r"return (\w+)<", entry("lpt_h_pass_b_dual"))) == {"run_dual"}
     for name in ("lpt_h_pass_b_combine", "lpt_h_pass_b_combine2"):
-        assert "radix" not in entry(name)
+        assert set(re.findall(r"return (\w+)<", entry(name))) == {"run_combine"}
 
 
 @pytest.mark.parametrize("h", (96, 540) + HEIGHTS + (6144,))
@@ -243,9 +244,8 @@ def test_table_keeps_the_split_table_as_prefix(h):
 
 @pytest.mark.parametrize("h,w", [(768, 64), (768, 40), (96, 40), (6144, 32)])
 def test_card_path_passes_the_design_table(monkeypatch, h, w):
-    """On the card K15 and K17 get the table of the design the shape rule
-    names, K16 and K18 the split table (``_table``), each with (n1, n2, W)
-    beside it."""
+    """On the card K15, K16, K17 and K18 get the table of the design the
+    shape rule names, each with (n1, n2, W) beside it."""
     launched = []
 
     def on_card(name, tensors, combo, built, cols=()):
@@ -263,12 +263,10 @@ def test_card_path_passes_the_design_table(monkeypatch, h, w):
     K.h_passB_combine2(*p, h)
     assert [fn for fn, _ in launched] == ["lpt_h_pass_b"] * 2 + [
         "lpt_h_pass_b_dual", "lpt_h_pass_b_combine", "lpt_h_pass_b_combine2"]
-    split = K._table_np(h, False)
     for fn, args in launched:
         at = 6 if fn == "lpt_h_pass_b" else 8 if fn == "lpt_h_pass_b_dual" else 9
         tab = torch.view_as_complex(args[at]).numpy()
-        want = _h_table(h) if fn in ("lpt_h_pass_b", "lpt_h_pass_b_dual") else split
-        assert np.array_equal(tab, want), fn
+        assert np.array_equal(tab, _h_table(h)), fn
         assert list(args[at + 1:at + 6]) == [1, 1, n1, n2, w], fn
 
 
@@ -277,7 +275,8 @@ def test_smoke_run_names_and_holds_k15_k17_designs():
     names: the radix design at 12 MP, 768 x 1024, the guarded tile (the
     full width 80, not a multiple of the 32-lane tile) and the odd lane
     width 79, the split design
-    at the pallas check's 96 x 512 grid and GRIDS' others; its guarded-tile
+    at the pallas check's 96 x 512 grid and GRIDS' others (K16 and K18
+    alike, tests/test_torch_h_combine_radix.py); its guarded-tile
     check holds every form of K15 and K17 that its pallas cases give, and
     the odd lane width where K15 takes one column a thread at bf16 too."""
     import chip_smoke as cs
@@ -289,7 +288,7 @@ def test_smoke_run_names_and_holds_k15_k17_designs():
             assert cs.design(name, ph, pw) == {"design": "split"}, (name, ph)
     assert cs.K5_GUARDED[1] % 32 and cs.K15_ODD_W[1] % 2
     for name in ("h_passB_combine", "h_passB_combine2"):
-        assert cs.design(name, 6144, 8192) == {}
+        assert cs.design(name, 6144, 8192) == {"design": "radix"}
     gen = torch.Generator().manual_seed(5)
     cases = cs.pallas_kernel_cases(*cs.K5_GUARDED, gen, torch.float32, planes=cs.PLANES)
     forms = {n for n in cases if n.split(":")[0] in ("h_passB", "h_passB_dual")}
