@@ -34,11 +34,15 @@ of one plane;
 "name:form" rows too).  Prints one JSON line per
 kernel, mode and stack with each tree's median and its ratio to A (with
 one other tree also ``a_ms``, ``b_ms`` and ``b_over_a``).  ``--probes N``
-then times the bandwidth probe's P1 and P2 of this checkout against their
-PyTorch calls (``x.clone()``, ``torch.mul``) on the same 12 MP plane at
-f32 and bf16 (br = 16), N rounds of kernel, library, library, kernel,
-each output first held bit-equal to its plain version; one JSON line per
-probe and dtype.  Last, the card's name and power limit.  Exits non-zero
+then times the bandwidth probe's P1-P3 of every tree on the same 12 MP
+plane at f32 and bf16 (br = 16, P3 with 40 constant planes), P1 and P2
+also against their PyTorch calls (``x.clone()``, ``torch.mul``), N rounds
+of A, B1 .. Bn, library, library, Bn .. B1, A, each tree's output first
+held bit-equal to its plain version; one JSON line per probe and dtype,
+with ``kernel_over_parent`` (B1 is the parent) beside
+``kernel_over_library``.  A mode that names no kernel family (``--modes
+none``) times no kernel but the probes and builds only their library.
+Last, the card's name and power limit.  Exits non-zero
 without a CUDA device.
 """
 
@@ -76,32 +80,49 @@ def use(csrc: Path):
     K._E1_RCARRY_LIB = E1_RCARRY_LIB if split else dict.fromkeys(E1_RCARRY_LIB, "e1_rcarry")
 
 
-def probe_ab(ph, pw, rounds):
-    """P1 and P2 against their library calls (``--probes``): medians of
-    ``rounds`` rounds of kernel, library, library, kernel."""
-    use(_build.CSRC)
+def probe_ab(ph, pw, rounds, trees, labels):
+    """The probes P1-P3 of every tree (``--probes``) on one (ph, pw) plane
+    at f32 and bf16 (br = 16, P3 with 40 constant planes), each tree's
+    output first held bit-equal to the plain version: medians of
+    ``rounds`` rounds of A, B1 .. Bn, library, library, Bn .. B1, A (P3
+    has no library call).  B1 is the parent."""
     for io in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(ph)
         cases = cs.probe_kernel_cases(ph, pw, gen, io)
-        for name in cs.STREAM_PROBES:
-            inputs, _ = cases[name]
+        for name, (inputs, _) in cases.items():
             kernel, plain = getattr(PB, name), getattr(PB, name + "_plain")
-            if not torch.equal(cs.bits(kernel(*inputs)), cs.bits(plain(*inputs))):
-                raise AssertionError(f"{name} ({io}): not bit-equal to its plain version")
+            ref = cs.bits(plain(*inputs))
+            for label, tree in trees.items():
+                use(tree)
+                if not torch.equal(cs.bits(kernel(*inputs)), ref):
+                    raise AssertionError(f"{name} ({io}, {label}): not bit-equal to its plain "
+                                         "version")
             lib_name, lib = cs.probe_library(name)
-            calls = {"kernel": lambda: kernel(*inputs), "library": lambda: lib(inputs[0])}
-            times = {label: [] for label in calls}
+            lib_calls = ["library", "library"] if lib else []
+            times = {label: [] for label in (*trees, *lib_calls)}
             for _ in range(rounds):
-                for label in ("kernel", "library", "library", "kernel"):
-                    times[label].append(cs.time_ms(calls[label]))
+                for label in ("A", *labels, *lib_calls, *labels[::-1], "A"):
+                    if label == "library":
+                        times[label].append(cs.time_ms(lambda: lib(inputs[0])))
+                    else:
+                        use(trees[label])
+                        times[label].append(cs.time_ms(lambda: kernel(*inputs)))
             med = {label: statistics.median(ts) for label, ts in times.items()}
+            x = inputs[0]
             print(json.dumps({"probe": cs.KERNEL_INFO[name][0], "name": name,
                               "dtype": str(io).removeprefix("torch."), "grid": [ph, pw],
-                              "br": inputs[1], "library": lib_name, "kernel_ms": med["kernel"],
-                              "library_ms": med["library"],
-                              "kernel_over_library": med["kernel"] / med["library"],
+                              "br": inputs[1], "design": PB.design(name, *x.shape,
+                                                                   x.element_size(),
+                                                                   inputs[1]),
+                              "library": lib_name, "kernel_ms": med["A"],
+                              "parent_ms": med[labels[0]],
+                              "library_ms": med.get("library"),
+                              "kernel_over_parent": med["A"] / med[labels[0]],
+                              "kernel_over_library": med["A"] / med["library"] if lib else None,
+                              "ms": med, "over_a": {k: m / med["A"] for k, m in med.items()},
                               "times": times}), flush=True)
+    use(trees["A"])
 
 
 # chip_smoke.PALLAS_MODES under names of their own, so that the default
@@ -117,7 +138,8 @@ def main():
     ap.add_argument("--planes", default="", help="stacks PxPc, comma separated")
     ap.add_argument("--kernels", default="", help="kernel names, comma separated")
     ap.add_argument("--probes", type=int, default=0,
-                    help="rounds of P1 and P2 against their library calls (0: none)")
+                    help="rounds of P1-P3 of every tree, P1 and P2 beside their library "
+                         "calls (0: none)")
     args = ap.parse_args()
     stacks = [tuple(int(n) for n in st.split("x")) for st in args.planes.split(",") if st]
     keep = set(args.kernels.split(",")) - {""}
@@ -127,7 +149,17 @@ def main():
     others = [p.resolve() for p in args.other_csrc]
     labels = ["B"] if len(others) == 1 else [f"B{i + 1}" for i in range(len(others))]
     trees = {"A": _build.CSRC, **dict(zip(labels, others))}
-    logs = _build.build_jobs([(n, tree) for tree in trees.values() for n in sources(tree)])
+    ph, pw = 6144, 8192
+    # (modes, cases, the kernels timed on a stack or in the K13 mode; None: all)
+    families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
+                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS + cs.FULL_WIDTH_H),
+                (cs.PALLAS_K13_MODES, cs.split_kernel_cases, ("ifft_w",)),
+                (PALLAS_AB_MODES, cs.pallas_kernel_cases, None))
+    runs = [(m, st, fam) for m in args.modes.split(",") for st in stacks or [None]
+            for fam in families if m in fam[0]]
+    # with no mode that names a kernel family, only the probes' library
+    logs = _build.build_jobs([(n, tree) for tree in trees.values() for n in sources(tree)
+                              if runs or n == "probe_bw"])
     for label, tree in trees.items():
         built = {n: r for (n, c), r in sorted(logs.items()) if c == tree}
         print(json.dumps({"tree": label, "csrc": str(tree), "seconds_by_library": {
@@ -135,15 +167,7 @@ def main():
             n: [ln.strip() for ln in r["log"].splitlines()
                 if any(w in ln for w in ("entry function", "registers", "spill"))]
             for n, r in built.items()}}), flush=True)
-    ph, pw = 6144, 8192
-    # (modes, cases, the kernels timed on a stack or in the K13 mode; None: all)
-    families = ((cs.MODES, cs.kernel_cases, cs.PLANE_KERNELS),
-                (cs.SPLIT_MODES, cs.split_kernel_cases, cs.SPLIT_KERNELS + cs.FULL_WIDTH_H),
-                (cs.PALLAS_K13_MODES, cs.split_kernel_cases, ("ifft_w",)),
-                (PALLAS_AB_MODES, cs.pallas_kernel_cases, None))
-    for mode, planes, (modes, case_fn, names) in [
-            (m, st, fam) for m in args.modes.split(",") for st in stacks or [None]
-            for fam in families if m in fam[0]]:
+    for mode, planes, (modes, case_fn, names) in runs:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(ph)
         cases = case_fn(ph, pw, gen, *modes[mode], planes=planes)
@@ -172,7 +196,7 @@ def main():
                               "over_a": {label: m / med["A"] for label, m in med.items()},
                               "times": times}), flush=True)
     if args.probes:
-        probe_ab(ph, pw, args.probes)
+        probe_ab(ph, pw, args.probes, trees, labels)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)

@@ -45,7 +45,8 @@ and at 256 x 79, an odd lane width, the
 solves against the exact one, launch counts, rates), runs the bandwidth
 probe P1-P3 (phase ``bandwidth``: every reading of the JAX script at
 6144 x 8192 bit-equal to its plain version, then timed beside the library
-copies; the best P1 reading is the card's measured streaming rate, and
+copies; the best reading of P1, P2 or their library calls is the card's
+measured streaming rate, and
 every kernel row gets a bound at that rate beside the data sheet's),
 runs every kernel and the v3, full-width fused and pallas solvers at the
 padded grids of GRIDS, where the split designs take their general form
@@ -73,6 +74,7 @@ printing any result.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -252,6 +254,10 @@ F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 # the bandwidth probe's readings that stream a plane once in and once out,
 # with no other reads: P1, P2 and their library calls
 STREAM_PROBES = ("pure_copy_plane", "copy_plane")
+# planes on which the probes are held bit-equal besides 12 MP: P1's and
+# P2's last chunk ragged after many whole ones (1000 x 8200), a plane
+# smaller than one chunk (3 x 2056), one 16-byte word at 2 bytes (1 x 8)
+PROBE_EDGES = ((1000, 8200), (3, 2056), (1, 8))
 MS_METHOD = ("median of 7 single calls after a warm-up, CUDA events, each call enqueued "
              "while the card spins so that the host's launch time is not counted")
 SPIN_CYCLES = 2_000_000      # about 1 ms of the card's clock, for time_ms
@@ -626,12 +632,17 @@ def reference_call(name, args):
     return lambda: torch.fft.fft(x, dim=-3)
 
 
-def design(name, ph, pw):
+def design(name, ph, pw, itemsize=2):
     """{"design": ...} of a kernel with two designs chosen by shape (K1-K3,
     K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 and
-    K15-K18 by the n2 of H = ph; K4 and K14 by its n1), else {}; ``name``
-    may carry a ":form"."""
+    K15-K18 by the n2 of H = ph; K4 and K14 by its n1), and of the probes
+    P1-P3 on a (ph, pw) plane of ``itemsize``-byte elements at br = 16
+    (``probe_bw.design``: P1's and P2's bulk chunks with the chunk, an
+    SM's stages and the grid's blocks), else {}; ``name`` may carry a
+    ":form"."""
     name = name.split(":")[0]
+    if name in PB.launch_counts():
+        return PB.design(name, ph, pw, itemsize, PB.BRS[0])
     if name in M_NAMES:
         return {"design": K.rfft_w_design(pw // 2)}
     if name in W_SPLIT_NAMES:
@@ -673,7 +684,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
         shares = [e[2] for e in errs if e[2] is not None]
         row = {"kernel": name, "mode": mode, "grid": [ph, pw],
                "planes": list(planes) if planes else None,
-               **design(fn, ph, pw),
+               **design(fn, ph, pw, io.itemsize),
                "dtypes": sorted({str(t.dtype) for t in tensors((args, out))}),
                "max_abs_err": max(e[0] for e in val),
                "max_rel_err": max(e[1] for e in val),
@@ -1316,27 +1327,46 @@ def bandwidth_phase(smi):
     bit-equal to its plain version's, then its rate by ``probe_bw.timed``
     with the launch counts set to 0 just before and read just after; beside
     it the rates of its plain version and of the library call (P1
-    ``x.clone()``, P2 ``torch.mul(x, 1.0001)``, P3 none).  Rates count two
-    plane-bytes a call, as the JAX script does; a rate above
-    MAX_BYTES_PER_S raises.  ``measured_bytes_per_s``, the card's streaming
-    ceiling, is the largest reading of a kernel or library call of
-    STREAM_PROBES; the line names the reading.  Returns
+    ``x.clone()``, P2 ``torch.mul(x, 1.0001)``, P3 none).  Each reading
+    names its probe's design (``probe_bw.design``: P1's and P2's bulk
+    chunks with the chunk C, an SM's stages S and the grid's blocks G,
+    P3's row blocks).  Before them every probe at every type on PROBE_EDGES, planes
+    whose last chunk is ragged, bit-equal to its plain version.  Rates count two plane-bytes a call, as the JAX script does; a
+    rate above MAX_BYTES_PER_S raises.  ``measured_bytes_per_s``, the
+    card's streaming ceiling, is the largest reading of a kernel or library
+    call of STREAM_PROBES; the line names the reading.  Returns
     (measured_bytes_per_s, launch counts of all timed runs, of the f32
     ones)."""
     t0 = time.perf_counter()
     configs = [*PB.sweep("pure"), *PB.sweep("mul"), *PB.sweep("consts"),
                ("copy_plane_consts", F32, 16, PB.N_CONSTS[-1])]
-    readings = []
+    readings, edges = [], []
     counts, counts_f32 = zero_counts(), zero_counts()
-    for seed, (name, dtype, br, n) in enumerate(configs):
-        x = PB.plane(dtype, "cuda", seed)
-        consts = PB.const_planes(n, "cuda") if n is not None else None
+
+    def same(name, x, br, consts, what):
         out = PB.step(name, br, consts)(x)
         ref = PB.step(name, br, consts, PB.PLAIN)(x)
         if not (out.dtype == ref.dtype and torch.equal(bits(out), bits(ref))):
-            raise AssertionError(f"{name} {dtype} br={br} n={n}: not bit-equal to its plain "
-                                 "version")
-        del out, ref
+            raise AssertionError(f"{name} {what}: not bit-equal to its plain version")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(len(PROBE_EDGES))
+    for (rows, w), dtype in itertools.product(PROBE_EDGES, PB.COPY_DTYPES):
+        x = torch.randn(rows, w, generator=gen, device="cuda") * 100
+        x = x.to(dtype)
+        for name in STREAM_PROBES + ("copy_plane_consts",):
+            if name != "pure_copy_plane" and dtype not in PB.FLOAT_DTYPES:
+                continue
+            consts = PB.const_planes(PB.N_CONSTS[0], "cuda") if name == "copy_plane_consts" \
+                else None
+            same(name, x, 1, consts, f"{dtype} at {rows}x{w}")
+            edges.append({"probe": KERNEL_INFO[name][0], "dtype": str(dtype).removeprefix(
+                "torch."), "plane": [rows, w],
+                **PB.design(name, rows, w, x.element_size(), 1)})
+    for seed, (name, dtype, br, n) in enumerate(configs):
+        x = PB.plane(dtype, "cuda", seed)
+        consts = PB.const_planes(n, "cuda") if n is not None else None
+        same(name, x, br, consts, f"{dtype} br={br} n={n}")
         gb = PB.plane_gbytes(x)
         r, c = counted(lambda: PB.timed(PB.step(name, br, consts), x, gb),
                        lambda r: zero_counts(**{name: r["calls"]}), f"{name} {dtype} br={br}")
@@ -1352,6 +1382,7 @@ def bandwidth_phase(smi):
             counts_f32[k] += c[k] if dtype == F32 else 0
         readings.append({"probe": KERNEL_INFO[name][0], "name": name,
                          "dtype": str(dtype).removeprefix("torch."), "br": br, "n_consts": n,
+                         **PB.design(name, *x.shape, x.element_size(), br),
                          "ms": r["ms"], "gb_per_s": r["gb_per_s"], "plain_ms": plain["ms"],
                          "plain_gb_per_s": plain["gb_per_s"], "library": lib_name,
                          "library_ms": lib_r["ms"] if lib_r else None,
@@ -1366,7 +1397,7 @@ def bandwidth_phase(smi):
     measured = ceiling * 1e9
     emit({"phase": "bandwidth", "grid": list(PB.PLANE),
           "method": "probe_bw.timed: (52 calls - 2 calls) chained, best of 3 pairs, "
-                    "2 plane-bytes a call", "readings": readings,
+                    "2 plane-bytes a call", "readings": readings, "edges_bit_equal": edges,
           "measured_bytes_per_s": measured, "measured_from": ceiling_from,
           "best_p1_bytes_per_s": best_p1 * 1e9, "best_p1_share_of_measured": best_p1 / ceiling,
           "data_sheet_bytes_per_s": HBM_BYTES_PER_S,

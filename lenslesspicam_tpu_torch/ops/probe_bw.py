@@ -14,8 +14,15 @@ device memory on this card.
 As in ``kernels``: a wrapper given a CPU tensor runs its plain version
 (``*_plain``); given a CUDA tensor it launches its kernel on the current
 stream or raises, and counts the launch in its ``launches`` attribute.
-``br`` is the number of rows one thread block streams (the Pallas row
-block; the grid is rows / br).
+``br`` is the Pallas row block (rows % br == 0, else ValueError).  P3
+streams one row block a thread block (grid rows / br).  P1 and P2 are a
+bulk-copy stream through shared memory (csrc/probe_bw.cu): the plane's
+bytes in chunks of ``CHUNK_BYTES``, one chunk a thread block of
+``STREAM_THREADS`` threads (grid = the chunks, dealt to the SMs by the
+hardware), each brought in and written back by Hopper's bulk copies;
+``br`` sets no grid there.  :func:`stream_plan` and :func:`chunks` mirror
+the kernel's constants and chunks, and :func:`design` names each probe's
+design on a plane.
 
 ``main`` runs the JAX script's three modes on the 12 MP padded grid
 (6144 x 8192; :func:`sweep`): ``mul`` (the default) P2 at f32, bf16 and
@@ -49,6 +56,41 @@ _CODE = {_F32: 0, _BF16: 1, _F16: 3, _I32: 4}     # type codes of the C entries
 COPY_DTYPES = (_F32, _BF16, _F16, _I32)           # P1
 FLOAT_DTYPES = (_F32, _BF16, _F16)                # P2, P3
 
+# P1's and P2's chunks, as csrc/probe_bw.cu sets them
+CHUNK_BYTES = 16384         # a chunk, a block's stage
+STREAM_THREADS = 512        # threads a block
+BAR_BYTES = 128             # the block's mbarrier, before its stage
+SM_THREADS = 2048           # threads an H100 SM holds
+P3_THREADS = 512
+
+
+def stream_plan(nbytes: int) -> dict:
+    """P1's and P2's launch on a plane of ``nbytes`` bytes (whole 16-byte
+    words): the chunk, the number of chunks, the grid (one block a chunk)
+    and the stages of an SM, its resident blocks (as many as its threads
+    hold; their shared memory, BAR_BYTES + CHUNK_BYTES each, fits)."""
+    n_chunks = -(-nbytes // CHUNK_BYTES)
+    return {"chunk": CHUNK_BYTES, "n_chunks": n_chunks, "grid": n_chunks,
+            "stages": SM_THREADS // STREAM_THREADS}
+
+
+def chunks(nbytes: int) -> list:
+    """The chunks of a plane of ``nbytes`` bytes that blocks 0, 1, ...
+    stream: [(byte offset, bytes)], the last one ragged."""
+    return [(off, min(CHUNK_BYTES, nbytes - off)) for off in range(0, nbytes, CHUNK_BYTES)]
+
+
+def design(name, rows, w, itemsize, br) -> dict:
+    """How the probe ``name`` streams a (rows, w) plane of ``itemsize``-byte
+    elements in row blocks of ``br``: P1 and P2 in bulk chunks
+    (:func:`stream_plan`, whatever ``br``), P3 one row block a thread
+    block; with the grid's thread blocks and the threads a block."""
+    if name == "copy_plane_consts":
+        return {"design": "row blocks", "blocks": rows // br, "threads": P3_THREADS}
+    plan = stream_plan(rows * w * itemsize)
+    return {"design": "bulk chunks", "chunk": plan["chunk"], "stages": plan["stages"],
+            "blocks": plan["grid"], "threads": STREAM_THREADS}
+
 
 def _plane_rows(name, x, br, dtypes):
     """(rows, w) of the 2-D plane ``x`` streamed in blocks of ``br`` rows;
@@ -77,7 +119,8 @@ def pure_copy_plane_plain(x, br):
 
 
 def pure_copy_plane(x, br):
-    """P1: o = x, in blocks of ``br`` rows; f32, bf16, f16 or i32."""
+    """P1: o = x in bulk chunks; f32, bf16, f16 or i32 (``br`` checked,
+    as for every probe)."""
     name = "pure_copy_plane"
     rows, w = _plane_rows(name, x, br, COPY_DTYPES)
     if not _card(name, x, COPY_DTYPES):
@@ -94,8 +137,8 @@ def copy_plane_plain(x, br):
 
 def copy_plane(x, br):
     """P2: o = (f32(x) * 1.0001) stored at x's dtype (one f32 multiply,
-    one round to nearest even), in blocks of ``br`` rows; f32, bf16 or
-    f16."""
+    one round to nearest even), in bulk chunks; f32, bf16 or f16 (``br``
+    checked)."""
     name = "copy_plane"
     rows, w = _plane_rows(name, x, br, FLOAT_DTYPES)
     if not _card(name, x, FLOAT_DTYPES):
