@@ -44,9 +44,10 @@ and at 256 x 79, an odd lane width, the
 ``filtered_synthesis_pallas2`` at 12 MP against torch.fft, the f32 and bf16
 solves against the exact one, launch counts, rates), runs the bandwidth
 probe P1-P3 (phase ``bandwidth``: every reading of the JAX script at
-6144 x 8192 bit-equal to its plain version, then timed beside the library
-copies; the best reading of P1, P2 or their library calls is the card's
-measured streaming rate, and
+6144 x 8192 bit-equal to its plain version, NaN to NaN, P3 also with NaN,
+inf and overflowing constants on planes holding +-0, +-inf and NaN, then
+timed beside the library copies; the best reading of P1, P2 or their
+library calls is the card's measured streaming rate, and
 every kernel row gets a bound at that rate beside the data sheet's),
 runs every kernel and the v3, full-width fused and pallas solvers at the
 padded grids of GRIDS, where the split designs take their general form
@@ -258,6 +259,18 @@ STREAM_PROBES = ("pure_copy_plane", "copy_plane")
 # P2's last chunk ragged after many whole ones (1000 x 8200), a plane
 # smaller than one chunk (3 x 2056), one 16-byte word at 2 bytes (1 x 8)
 PROBE_EDGES = ((1000, 8200), (3, 2056), (1, 8))
+# P3's constant stacks besides the JAX script's ones, by c_k[0, 0] for k =
+# 0 .. n - 1 (every other element NaN: P3 reads c_k[0, 0] alone): none (a
+# bump of +0), negative ones (-0), a NaN, an inf, and a sum that
+# overflows left to right (3e38 + 3e38 = inf, then NaN) while another
+# order stays finite.  The last four make every output NaN.
+P3_EDGE_CONSTS = {"none": [], "negative": [-1.5, -0.25, -3.0],
+                  "nan": [1.0, float("nan"), 2.0], "inf": [1.0, float("inf")],
+                  "overflow": [3e38, 3e38, -3e38]}
+# values set into the probes' float planes on PROBE_EDGES and into P3's
+# 12 MP edge planes: the first elements and every X_SPECIALS_STRIDE-th
+X_SPECIALS = (-0.0, 0.0, math.inf, -math.inf, math.nan)
+X_SPECIALS_STRIDE = 4099
 MS_METHOD = ("median of 7 single calls after a warm-up, CUDA events, each call enqueued "
              "while the card spins so that the host's launch time is not counted")
 SPIN_CYCLES = 2_000_000      # about 1 ms of the card's clock, for time_ms
@@ -321,7 +334,8 @@ LIBRARY_NONE = {
     "h_passB_combine": "a stage-2 contraction fused with a spectrum combine",
     "h_passB_dual": "two inverse stage-2 contractions, one of them filtered",
     "h_passB_combine2": "two stage-2 contractions of two spectra and their combine",
-    "copy_plane_consts": "a copy that also reads n constant planes per block",
+    "copy_plane_consts": "a copy plus 0 times a sum of one element of each of n constant "
+                         "planes; no one call",
 }
 
 
@@ -637,8 +651,8 @@ def design(name, ph, pw, itemsize=2):
     K6, K8 and K9 by M = pw / 2, K10-K13 by W = pw, one rule each; K5 and
     K15-K18 by the n2 of H = ph; K4 and K14 by its n1), and of the probes
     P1-P3 on a (ph, pw) plane of ``itemsize``-byte elements at br = 16
-    (``probe_bw.design``: P1's and P2's bulk chunks with the chunk, an
-    SM's stages and the grid's blocks), else {}; ``name`` may carry a
+    (``probe_bw.design``: their bulk chunks with the chunk, an SM's
+    stages and the grid's blocks), else {}; ``name`` may carry a
     ":form"."""
     name = name.split(":")[0]
     if name in PB.launch_counts():
@@ -1320,18 +1334,55 @@ def probe_library(name):
     return None, None
 
 
+def p3_consts(c00, device):
+    """A stack of len(c00) constant (128, 128) f32 planes of P3 whose
+    [0, 0] elements are ``c00`` and whose other elements are NaN."""
+    c = torch.full((len(c00),) + PB.CONST_PLANE, math.nan, device=device)
+    c[:, 0, 0] = torch.tensor(c00, dtype=torch.float32, device=device)
+    return c
+
+
+def with_specials(x):
+    """``x`` (a float plane) with X_SPECIALS set into its first elements and
+    every X_SPECIALS_STRIDE-th one, in turn."""
+    flat = x.view(-1)
+    n = len(X_SPECIALS)
+    vals = torch.tensor(X_SPECIALS, device=x.device).to(x.dtype)
+    flat[:n] = vals[:flat.numel()]
+    idx = torch.arange(0, flat.numel(), X_SPECIALS_STRIDE, device=x.device)
+    flat[idx] = vals[torch.arange(len(idx), device=x.device) % n]
+    return x
+
+
+def same_bits(out, ref):
+    """The number of NaNs of ``ref`` where ``out`` holds its dtype, its
+    NaNs at the same places and the same bits elsewhere; None where it
+    does not.  NaN bits may differ (the kernels' __float2bfloat16_rn and
+    torch's casts encode a NaN differently)."""
+    nan = torch.isnan(ref)
+    if out.dtype != ref.dtype or not torch.equal(torch.isnan(out), nan) or \
+            not torch.equal(bits(out)[~nan], bits(ref)[~nan]):
+        return None
+    return int(nan.sum())
+
+
 def bandwidth_phase(smi):
     """The bandwidth probe P1-P3 at 6144 x 8192 in every reading of the JAX
     script's three modes (``probe_bw.sweep``), and P3 at f32 (br = 16,
     n = 40) for the kernels line's f32 column: each kernel's output
-    bit-equal to its plain version's, then its rate by ``probe_bw.timed``
+    bit-equal to its plain version's (NaN to NaN, ``same_bits``), then its
+    rate by ``probe_bw.timed``
     with the launch counts set to 0 just before and read just after; beside
     it the rates of its plain version and of the library call (P1
     ``x.clone()``, P2 ``torch.mul(x, 1.0001)``, P3 none).  Each reading
-    names its probe's design (``probe_bw.design``: P1's and P2's bulk
-    chunks with the chunk C, an SM's stages S and the grid's blocks G,
-    P3's row blocks).  Before them every probe at every type on PROBE_EDGES, planes
-    whose last chunk is ragged, bit-equal to its plain version.  Rates count two plane-bytes a call, as the JAX script does; a
+    names its probe's design (``probe_bw.design``: the bulk chunks with
+    the chunk C, an SM's stages S and the grid's blocks G).  Before them
+    every probe at every type on PROBE_EDGES, planes whose last chunk is
+    ragged, with X_SPECIALS in the float ones, bit-equal to its plain
+    version, P3 with the JAX script's ones and with each stack of
+    P3_EDGE_CONSTS, and P3 at 12 MP on planes with X_SPECIALS with each
+    stack of P3_EDGE_CONSTS.  Rates count two plane-bytes a call, as the
+    JAX script does; a
     rate above MAX_BYTES_PER_S raises.  ``measured_bytes_per_s``, the
     card's streaming ceiling, is the largest reading of a kernel or library
     call of STREAM_PROBES; the line names the reading.  Returns
@@ -1344,25 +1395,38 @@ def bandwidth_phase(smi):
     counts, counts_f32 = zero_counts(), zero_counts()
 
     def same(name, x, br, consts, what):
-        out = PB.step(name, br, consts)(x)
-        ref = PB.step(name, br, consts, PB.PLAIN)(x)
-        if not (out.dtype == ref.dtype and torch.equal(bits(out), bits(ref))):
+        n_nan = same_bits(PB.step(name, br, consts)(x), PB.step(name, br, consts, PB.PLAIN)(x))
+        if n_nan is None:
             raise AssertionError(f"{name} {what}: not bit-equal to its plain version")
+        return n_nan
 
+    def edge(name, x, br, consts, case):
+        rows, w = x.shape
+        what = f"{x.dtype} at {rows}x{w}" + (f", constants {case}" if case else "")
+        n_nan = same(name, x, br, consts, what)
+        edges.append({"probe": KERNEL_INFO[name][0], "dtype": str(x.dtype).removeprefix(
+            "torch."), "plane": [rows, w], "consts": case, "nan_out": n_nan,
+            **PB.design(name, rows, w, x.element_size(), br)})
+
+    p3_edges = {"ones": PB.const_planes(PB.N_CONSTS[0], "cuda"),
+                **{case: p3_consts(c00, "cuda") for case, c00 in P3_EDGE_CONSTS.items()}}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(len(PROBE_EDGES))
     for (rows, w), dtype in itertools.product(PROBE_EDGES, PB.COPY_DTYPES):
-        x = torch.randn(rows, w, generator=gen, device="cuda") * 100
-        x = x.to(dtype)
-        for name in STREAM_PROBES + ("copy_plane_consts",):
-            if name != "pure_copy_plane" and dtype not in PB.FLOAT_DTYPES:
-                continue
-            consts = PB.const_planes(PB.N_CONSTS[0], "cuda") if name == "copy_plane_consts" \
-                else None
-            same(name, x, 1, consts, f"{dtype} at {rows}x{w}")
-            edges.append({"probe": KERNEL_INFO[name][0], "dtype": str(dtype).removeprefix(
-                "torch."), "plane": [rows, w],
-                **PB.design(name, rows, w, x.element_size(), 1)})
+        x = (torch.randn(rows, w, generator=gen, device="cuda") * 100).to(dtype)
+        if dtype not in PB.FLOAT_DTYPES:      # i32: P1 alone
+            edge("pure_copy_plane", x, 1, None, None)
+            continue
+        x = with_specials(x)
+        for name in STREAM_PROBES:
+            edge(name, x, 1, None, None)
+        for case, consts in p3_edges.items():
+            edge("copy_plane_consts", x, 1, consts, case)
+    for seed, dtype in enumerate(PB.FLOAT_DTYPES):
+        x = with_specials(PB.plane(dtype, "cuda", seed))
+        for case, c00 in P3_EDGE_CONSTS.items():
+            edge("copy_plane_consts", x, PB.BRS[0], p3_edges[case], case)
+        del x
     for seed, (name, dtype, br, n) in enumerate(configs):
         x = PB.plane(dtype, "cuda", seed)
         consts = PB.const_planes(n, "cuda") if n is not None else None

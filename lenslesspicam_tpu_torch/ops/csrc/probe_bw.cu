@@ -6,43 +6,42 @@
 //   P2 `copy_plane` (kernel `_copy_kernel`): o = T(f32(x) * 1.0001f), one
 //       f32 multiply and one round to nearest even;
 //   P3 `copy_plane_consts` (kernel `_copy_kernel_consts`): o = T(f32(x) +
-//       0 * sum_k c_k[0, 0]), each block first bringing all n constant
-//       (128, 128) f32 planes on chip, as the Pallas BlockSpec brings each
-//       whole block into VMEM and as the port's DFT kernels read their
-//       constant tables per block.
+//       0 * sum_k c_k[0, 0]), reading one element of each of the n constant
+//       (128, 128) f32 planes.
 //
 // Bound on the H100: bytes.  At 6144 x 8192 every plane (100.7 MB at 2
 // bytes, 201.3 MB at 4) is larger than the 50 MB L2, so a loop that chains
 // output into input streams from HBM.
 //
-// P1 and P2: a bulk-copy stream through shared memory.  The plane is one
-// flat run of rows * w * sizeof(T) bytes (whole 16-byte words), cut into
-// chunks of CHUNK bytes, the last one ragged.  Block b streams chunk b
+// A bulk-copy stream through shared memory, the three alike.  The plane
+// is one flat run of rows * w * sizeof(T) bytes (whole 16-byte words), cut
+// into chunks of CHUNK bytes, the last one ragged.  Block b streams chunk b
 // (grid = the chunks), so the hardware deals the chunks to the SMs as
 // blocks finish, and the order in which the plane is walked depends on
 // its shape alone.  The Pallas row block `br` is checked but sets no grid
 // (a VMEM block size is a TPU artefact).  One thread of the block brings
 // its chunk into shared memory by `cp.async.bulk`, which lands on an
 // mbarrier, and writes it back by a bulk store; P1's bytes never pass
-// through registers.  In P2 the block's threads first widen each 16-byte
-// word of the arrived chunk to f32, multiply, round it back in place,
-// fence it for the copy engine and meet at a barrier.  Both launch
-// STREAM_THREADS threads a block (P1's others leave at once), which holds
-// an SM to four resident blocks: its stages, 64 KB of loads in flight.
-// On the H100 that ran level with x.clone() and torch.mul, where a
-// persistent grid that dealt the chunks to a ring of stages in each block
-// ran 5 % behind them (its slowest SM sets the end), and one-thread
-// blocks (13 resident, 208 KB in flight) 1 % behind; PERF.md has the
-// variants' times.
+// through registers.  In P2 and P3 the block's threads first widen each
+// 16-byte word of the arrived chunk to f32, multiply (P2) or add the bump
+// (P3), round it back in place, fence it for the copy engine and meet at
+// a barrier.  All launch STREAM_THREADS threads a block (P1's others leave
+// at once), which holds an SM to four resident blocks: its stages, 64 KB
+// of loads in flight.  On the H100 that ran level with x.clone() and
+// torch.mul, where a persistent grid that dealt the chunks to a ring of
+// stages in each block ran 5 % behind them (its slowest SM sets the end),
+// and one-thread blocks (13 resident, 208 KB in flight) 1 % behind;
+// PERF.md has the variants' times.
 //
-// P3: row blocks.  Block b streams rows [b br, (b + 1) br), grid = rows /
-// br, as the Pallas grid steps do; each of its 512 threads keeps eight
-// 16-byte loads in flight before it stores them.  Its constant planes
-// (64 KB each) stay in L2 across blocks: what it adds is the per-block
-// cost of bringing n of them through shared memory.  Each goes through one
-// 64 KB shared buffer and c_k[0, 0] is read back after a barrier; stores to
-// shared memory are seen by the other threads, so the compiler keeps every
-// load.
+// P3's constants.  The Pallas kernel's constant index map brings each
+// constant plane on chip once per core; the function reads c_k[0, 0]
+// alone.  So while its chunk is in flight each block loads the n scalars
+// c_k[0, 0] (4 bytes each, 64 KB apart: after the first block they come
+// from the L2), STREAM_THREADS at a time, one a thread, through shared
+// memory, and every thread sums them in f32 from k = 0, the plain
+// version's order: a NaN or an inf among them, or a sum that overflows,
+// makes every output NaN, and with n = 0 the bump is +0 (a -0 in x comes
+// out +0, as in the plain version).  The kernel moves x, o and 4 n bytes.
 #include <cuda_fp16.h>
 
 #include "bulk_copy.cuh"
@@ -82,17 +81,27 @@ __device__ __forceinline__ void widen(const uint4& u, float (&x)[16 / sizeof(T)]
 
 enum Op { COPY, SCALE, CONSTS };
 
-// P1's and P2's chunks.
+// The chunks of P1-P3.
 constexpr int CHUNK = 16384;            // bytes a chunk, a block's stage
 constexpr int STREAM_THREADS = 512;     // threads a block
 constexpr int BAR_BYTES = 128;          // the mbarrier, before the stage
-constexpr int WORDS = CHUNK / 16 / STREAM_THREADS;   // P2's 16-byte words a thread
+constexpr int WORDS = CHUNK / 16 / STREAM_THREADS;   // 16-byte words a thread
+constexpr int CONST_FLOATS = 128 * 128;  // one constant plane of P3
 static_assert(CHUNK % (16 * STREAM_THREADS) == 0, "a stage of whole words a thread");
 
-// o = op(x) over chunk blockIdx.x of the `bytes` bytes of the plane.
+// Shared memory a block: the barrier, the stage and, for P3, a round of
+// STREAM_THREADS constant scalars after the stage.
+template <Op OP>
+constexpr size_t smem_bytes() {
+  return BAR_BYTES + (size_t)CHUNK + (OP == CONSTS ? sizeof(float) * STREAM_THREADS : 0);
+}
+
+// o = op(x) over chunk blockIdx.x of the `bytes` bytes of the plane; P3
+// adds 0 * sum_k consts[k * CONST_FLOATS], k < n_consts.
 template <typename T, Op OP>
 __global__ void __launch_bounds__(STREAM_THREADS)
-    chunk_kernel(const char* __restrict__ x, char* __restrict__ o, long long bytes) {
+    chunk_kernel(const char* __restrict__ x, char* __restrict__ o, long long bytes,
+                 const float* __restrict__ consts, int n_consts) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   unsigned char* stage = smem + BAR_BYTES;
@@ -104,9 +113,26 @@ __global__ void __launch_bounds__(STREAM_THREADS)
     mbar_fence_init();
     bulk_load(stage, x + at, size, full);
   }
+  float bump = 0.f;
+  if constexpr (OP == CONSTS) {
+    // c_k[0, 0] while the chunk is in flight, a round of STREAM_THREADS
+    // through shared memory, summed in order by every thread
+    float* cs = reinterpret_cast<float*>(stage + CHUNK);
+    float sum = 0.f;
+    for (int k0 = 0;; k0 += STREAM_THREADS) {
+      const int k = k0 + (int)threadIdx.x;
+      if (k < n_consts) cs[threadIdx.x] = __ldg(consts + (size_t)k * CONST_FLOATS);
+      __syncthreads();     // the round is in; the first: the barrier is initialised
+      const int m = min(n_consts - k0, STREAM_THREADS);
+      for (int j = 0; j < m; ++j) sum += cs[j];
+      if (k0 + STREAM_THREADS >= n_consts) break;
+      __syncthreads();     // the round is read before the next overwrites it
+    }
+    bump = sum * 0.f;
+  }
   if constexpr (OP == SCALE) __syncthreads();     // the barrier is initialised
   mbar_wait(full, 0);
-  if constexpr (OP == SCALE) {
+  if constexpr (OP != COPY) {
     constexpr int V = 16 / sizeof(T);
     uint4* w = reinterpret_cast<uint4*>(stage);
     const int words = (int)(size / 16);
@@ -123,7 +149,7 @@ __global__ void __launch_bounds__(STREAM_THREADS)
       float v[V];
       widen<T>(u[k], v);
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] *= 1.0001f;
+      for (int e = 0; e < V; ++e) v[e] = OP == SCALE ? v[e] * 1.0001f : v[e] + bump;
       stv<V>(reinterpret_cast<T*>(w + i), v);
     }
     fence_async_shared();
@@ -135,64 +161,16 @@ __global__ void __launch_bounds__(STREAM_THREADS)
   }
 }
 
-// P3's row blocks.
-constexpr int THREADS = 512;
-constexpr int DEPTH = 8;                  // 16-byte loads in flight per thread
-constexpr int CONST_WORDS = 128 * 128 / 4;  // one constant plane in float4 words
-
-// o = x + 0 * sum_k c_k[0, 0] over the block's `words` 16-byte words of the
-// plane.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) consts_kernel(const uint4* __restrict__ x,
-                                                         uint4* __restrict__ o, int words,
-                                                         const float4* __restrict__ consts,
-                                                         int n_consts) {
-  constexpr int V = 16 / sizeof(T);
-  extern __shared__ float4 cs[];
-  const size_t base = (size_t)blockIdx.x * words;
-  float sum = 0.f;
-  for (int k = 0; k < n_consts; ++k) {
-    const float4* c = consts + (size_t)k * CONST_WORDS;
-    for (int i = threadIdx.x; i < CONST_WORDS; i += blockDim.x) cs[i] = __ldg(c + i);
-    __syncthreads();
-    sum += cs[0].x;
-    __syncthreads();
-  }
-  const float bump = sum * 0.f;
-  for (int i = threadIdx.x; i < words; i += DEPTH * blockDim.x) {
-    uint4 u[DEPTH];
-#pragma unroll
-    for (int j = 0; j < DEPTH; ++j)
-      if (i + j * (int)blockDim.x < words) u[j] = __ldg(x + base + i + j * blockDim.x);
-#pragma unroll
-    for (int j = 0; j < DEPTH; ++j) {
-      const int w = i + j * (int)blockDim.x;
-      if (w >= words) continue;
-      float v[V];
-      widen<T>(u[j], v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) v[k] = v[k] + bump;
-      stv<V>(reinterpret_cast<T*>(o + base + w), v);
-    }
-  }
-}
-
 template <typename T, Op OP>
 static int run(const void* x, void* o, int rows, int w, int br, const float* consts,
                int n_consts, void* stream) {
   if (br <= 0 || rows % br || ((size_t)w * sizeof(T)) % 16) return (int)cudaErrorInvalidValue;
-  if constexpr (OP == CONSTS) {
-    const int words = (int)((size_t)br * w * sizeof(T) / 16);
-    return launch(consts_kernel<T>, dim3(rows / br), dim3(THREADS),
-                  CONST_WORDS * sizeof(float4), stream, (const uint4*)x, (uint4*)o, words,
-                  (const float4*)consts, n_consts);
-  } else {
-    const long long bytes = (long long)rows * w * (long long)sizeof(T);
-    const long long n_chunks = (bytes + CHUNK - 1) / CHUNK;
-    if (n_chunks < 1 || n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    return launch(chunk_kernel<T, OP>, dim3((unsigned)n_chunks), dim3(STREAM_THREADS),
-                  BAR_BYTES + (size_t)CHUNK, stream, (const char*)x, (char*)o, bytes);
-  }
+  if (n_consts < 0) return (int)cudaErrorInvalidValue;
+  const long long bytes = (long long)rows * w * (long long)sizeof(T);
+  const long long n_chunks = (bytes + CHUNK - 1) / CHUNK;
+  if (n_chunks < 1 || n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  return launch(chunk_kernel<T, OP>, dim3((unsigned)n_chunks), dim3(STREAM_THREADS),
+                smem_bytes<OP>(), stream, (const char*)x, (char*)o, bytes, consts, n_consts);
 }
 
 // Type codes of the probe's entries (the storage codes of storage.cuh,
@@ -214,7 +192,7 @@ static int dispatch(const void* x, void* o, int rows, int w, int br, const float
 }
 
 // x, o: contiguous 16-byte aligned (rows, w) planes of the type `code`;
-// br: the Pallas row block (rows % br == 0; P3's rows per block);
+// br: the Pallas row block (rows % br == 0, checked; it sets no grid);
 // consts: n (128, 128) f32 planes.
 
 // P1 (f32, bf16, f16, i32).

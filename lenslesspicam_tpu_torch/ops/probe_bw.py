@@ -1,7 +1,7 @@
 """The port's bandwidth probe (port of scripts/dev/_probe_bw.py): three
-streaming kernels over a plane in row blocks, timed by the difference
-method, to measure the rate at which the port's CUDA kernels can stream
-device memory on this card.
+streaming kernels over a plane, timed by the difference method, to
+measure the rate at which the port's CUDA kernels can stream device
+memory on this card.
 
     python3 -m lenslesspicam_tpu_torch.ops.probe_bw [mul|pure|consts]
 
@@ -14,15 +14,15 @@ device memory on this card.
 As in ``kernels``: a wrapper given a CPU tensor runs its plain version
 (``*_plain``); given a CUDA tensor it launches its kernel on the current
 stream or raises, and counts the launch in its ``launches`` attribute.
-``br`` is the Pallas row block (rows % br == 0, else ValueError).  P3
-streams one row block a thread block (grid rows / br).  P1 and P2 are a
-bulk-copy stream through shared memory (csrc/probe_bw.cu): the plane's
-bytes in chunks of ``CHUNK_BYTES``, one chunk a thread block of
-``STREAM_THREADS`` threads (grid = the chunks, dealt to the SMs by the
+``br`` is the Pallas row block (rows % br == 0, else ValueError).  The
+three are a bulk-copy stream through shared memory (csrc/probe_bw.cu):
+the plane's bytes in chunks of ``CHUNK_BYTES``, one chunk a thread block
+of ``STREAM_THREADS`` threads (grid = the chunks, dealt to the SMs by the
 hardware), each brought in and written back by Hopper's bulk copies;
-``br`` sets no grid there.  :func:`stream_plan` and :func:`chunks` mirror
-the kernel's constants and chunks, and :func:`design` names each probe's
-design on a plane.
+``br`` sets no grid.  P3's blocks read the one element c_k[0, 0] of each
+constant plane that its function uses, while their chunk is in flight.
+:func:`stream_plan` and :func:`chunks` mirror the kernel's constants and
+chunks, and :func:`design` names each probe's design on a plane.
 
 ``main`` runs the JAX script's three modes on the 12 MP padded grid
 (6144 x 8192; :func:`sweep`): ``mul`` (the default) P2 at f32, bf16 and
@@ -56,19 +56,19 @@ _CODE = {_F32: 0, _BF16: 1, _F16: 3, _I32: 4}     # type codes of the C entries
 COPY_DTYPES = (_F32, _BF16, _F16, _I32)           # P1
 FLOAT_DTYPES = (_F32, _BF16, _F16)                # P2, P3
 
-# P1's and P2's chunks, as csrc/probe_bw.cu sets them
+# the probes' chunks, as csrc/probe_bw.cu sets them
 CHUNK_BYTES = 16384         # a chunk, a block's stage
 STREAM_THREADS = 512        # threads a block
 BAR_BYTES = 128             # the block's mbarrier, before its stage
 SM_THREADS = 2048           # threads an H100 SM holds
-P3_THREADS = 512
 
 
 def stream_plan(nbytes: int) -> dict:
-    """P1's and P2's launch on a plane of ``nbytes`` bytes (whole 16-byte
+    """The probes' launch on a plane of ``nbytes`` bytes (whole 16-byte
     words): the chunk, the number of chunks, the grid (one block a chunk)
     and the stages of an SM, its resident blocks (as many as its threads
-    hold; their shared memory, BAR_BYTES + CHUNK_BYTES each, fits)."""
+    hold; their shared memory, BAR_BYTES + CHUNK_BYTES each and P3's
+    4 STREAM_THREADS bytes of scalars, fits)."""
     n_chunks = -(-nbytes // CHUNK_BYTES)
     return {"chunk": CHUNK_BYTES, "n_chunks": n_chunks, "grid": n_chunks,
             "stages": SM_THREADS // STREAM_THREADS}
@@ -82,14 +82,14 @@ def chunks(nbytes: int) -> list:
 
 def design(name, rows, w, itemsize, br) -> dict:
     """How the probe ``name`` streams a (rows, w) plane of ``itemsize``-byte
-    elements in row blocks of ``br``: P1 and P2 in bulk chunks
-    (:func:`stream_plan`, whatever ``br``), P3 one row block a thread
-    block; with the grid's thread blocks and the threads a block."""
-    if name == "copy_plane_consts":
-        return {"design": "row blocks", "blocks": rows // br, "threads": P3_THREADS}
+    elements (``br`` checked by the wrappers, not used): in bulk chunks
+    (:func:`stream_plan`), with the chunk, an SM's stages, the grid's
+    thread blocks and the threads a block; P3's blocks also read one
+    scalar of each constant plane ("scalars": "c_k[0, 0]")."""
     plan = stream_plan(rows * w * itemsize)
     return {"design": "bulk chunks", "chunk": plan["chunk"], "stages": plan["stages"],
-            "blocks": plan["grid"], "threads": STREAM_THREADS}
+            "blocks": plan["grid"], "threads": STREAM_THREADS,
+            **({"scalars": "c_k[0, 0]"} if name == "copy_plane_consts" else {})}
 
 
 def _plane_rows(name, x, br, dtypes):
@@ -155,10 +155,12 @@ def copy_plane_consts_plain(x, br, consts):
 
 
 def copy_plane_consts(x, br, consts):
-    """P3: o = f32(x) + 0 * sum_k c_k[0, 0] stored at x's dtype, in blocks
-    of ``br`` rows, every block bringing all n constant planes ``consts``
-    (an (n, 128, 128) f32 stack) on chip first; x is f32, bf16 or f16.
-    For finite constants o is x, up to the sign of a zero."""
+    """P3: o = f32(x) + 0 * sum_k c_k[0, 0] stored at x's dtype, the sum
+    in f32 from k = 0 over the n constant planes ``consts`` (an (n, 128,
+    128) f32 stack), in bulk chunks, each block reading the n scalars
+    c_k[0, 0] (``br`` checked); x is f32, bf16 or f16.  For finite
+    constants whose sum does not overflow, o is x up to the sign of a
+    zero; else every element is NaN."""
     name = "copy_plane_consts"
     rows, w = _plane_rows(name, x, br, FLOAT_DTYPES)
     _check(name, [consts], dtypes=(_F32,))

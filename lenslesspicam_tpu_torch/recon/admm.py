@@ -144,6 +144,22 @@ def run(conv: FFTConvolver, data, params: ADMMParams = ADMMParams(),
     return run_state(conv, data, params, n_iter, initial_est=initial_est)[0]
 
 
+def run_state_jit(conv, data, params, n_iter, state):
+    """The JAX package's compiled entry of :func:`run_state` under its
+    name and signature.  The port has no trace step: this runs
+    :func:`run_state` where its inputs are, and exists so that code written
+    for the JAX package runs.  ``n_iter`` is an int or a 0-d tensor."""
+    return run_state(conv, data, params, n_iter, state)
+
+
+def run_jit(conv, data, params=ADMMParams(), n_iter=100, initial_est=None):
+    """The JAX package's compiled entry of :func:`run` under its name,
+    signature and defaults.  The port has no trace step: this runs
+    :func:`run` where its inputs are, and exists so that code written for
+    the JAX package runs.  ``n_iter`` is an int or a 0-d tensor."""
+    return run(conv, data, params, n_iter, initial_est)
+
+
 def run_pnp(conv: FFTConvolver, data, denoiser, params: ADMMParams = ADMMParams(),
             n_iter: int = 100, noise_level: float = 10.0, use_dual: bool = False,
             initial_est=None):

@@ -284,12 +284,22 @@ def run_rsplit(pre: RSplitPrecomp, params: ADMMParams = ADMMParams(),
                n_iter: int = 100, return_sat: bool = False, io: str = "f32",
                carry_tv: str = "f32", carry_v: str = "f32", sat_every: int = 8,
                placement: str = "v3"):
-    """Entry of the half-spectrum fused solver (the JAX package's
-    ``run_rsplit_jit``); the storage modes and placements as in
-    :func:`run_split_rfused`."""
+    """Entry of the half-spectrum fused solver, with the storage modes and
+    placements of :func:`run_split_rfused` (:func:`run_rsplit_jit` is the
+    JAX package's entry, at its defaults)."""
     return run_split_rfused(pre, params, n_iter, return_sat=return_sat,
                             io=io, carry_tv=carry_tv, carry_v=carry_v,
                             sat_every=sat_every, placement=placement)
+
+
+def run_rsplit_jit(pre: RSplitPrecomp, params: ADMMParams = ADMMParams(),
+                   n_iter=100, return_sat=False):
+    """The JAX package's compiled entry of the half-spectrum fused solver
+    under its name, signature and defaults (f32 storage, placement v3).
+    The port has no trace step: this runs :func:`run_rsplit` where its
+    inputs are, and exists so that code written for the JAX package runs.
+    ``n_iter`` is an int or a 0-d tensor."""
+    return run_rsplit(pre, params, n_iter, return_sat=return_sat)
 
 
 def _as_5d(data):
@@ -639,6 +649,16 @@ def run_split(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
                          "backend; storage modes are for backend='fused' or 'pallas'")
     _check_planes(pre)
     return _run_split_torch(pre, params, n_iter)
+
+
+def run_split_jit(pre: SplitPrecomp, params: ADMMParams = ADMMParams(),
+                  n_iter=100, backend: str = "jax"):
+    """The JAX package's compiled entry of :func:`run_split` under its
+    name, signature and defaults (f32 storage).  The port has no trace
+    step: this runs :func:`run_split` where its inputs are, and exists so
+    that code written for the JAX package runs.  ``n_iter`` is an int or a
+    0-d tensor."""
+    return run_split(pre, params, n_iter, backend=backend)
 
 
 def precompute_split_general(psf, data, params: ADMMParams = ADMMParams(), device=None):

@@ -91,6 +91,48 @@ def test_p3_plain_is_the_pallas_body(jaxbw, dtype, n):
     assert torch.equal(out, t)
 
 
+# c_k[0, 0] of the edge constant stacks (the other elements NaN: the
+# function reads c_k[0, 0] alone): a bump of -0, NaN from a NaN, from an
+# inf, and from a left-to-right sum that overflows (3e38 + 3e38 = inf) where
+# another order stays finite; and none, a bump of +0
+EDGE_CONSTS = {"negative": [-1.5, -0.25, -3.0], "nan": [1.0, np.nan, 2.0],
+               "inf": [1.0, np.inf], "overflow": [3e38, 3e38, -3e38], "none": []}
+X_SPECIALS = [-0.0, 0.0, np.inf, -np.inf, np.nan]
+
+
+@pytest.mark.parametrize("case", list(EDGE_CONSTS))
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+def test_p3_plain_is_the_pallas_body_at_the_edges(jaxbw, dtype, case):
+    """The Pallas body and the plain version on the edge constants, x with
+    +-0, +-inf and NaN: bit for bit but NaN to NaN.  A negative sum keeps a
+    -0 of x; with no constant the bump is +0 and a -0 comes out +0; a NaN,
+    an inf or an overflowing sum makes every output NaN."""
+    rng = np.random.RandomState(6)
+    x = (rng.randn(*SHAPE) * 100).astype(np.float32)
+    x.flat[:5] = X_SPECIALS
+    x.flat[7::61] = np.resize(X_SPECIALS, x.flat[7::61].shape)
+    tdt, ndt = DT[dtype]
+    t = torch.from_numpy(x).to(tdt)
+    a = x.astype(ndt)
+    consts = np.full((len(EDGE_CONSTS[case]), 128, 128), np.nan, np.float32)
+    consts[:, 0, 0] = EDGE_CONSTS[case]
+    with np.errstate(over="ignore", invalid="ignore"):
+        ref = np.empty_like(a)
+        jaxbw._copy_kernel_consts(a, *consts, ref)
+    out = PB.copy_plane_consts(t, PB.BRS[0], torch.from_numpy(consts))
+    assert out.dtype == t.dtype
+    nan = np.isnan(ref.astype(np.float32))
+    assert np.array_equal(torch.isnan(out).numpy(), nan)
+    rbits = ref.view(np.int16 if ref.itemsize == 2 else np.int32)
+    assert np.array_equal(_bits(out)[~nan], rbits[~nan])
+    if case in ("negative", "none"):
+        neg0 = (x == 0) & np.signbit(x)
+        assert neg0.any() and np.signbit(out.float().numpy()[neg0]).all() == (case == "negative")
+        assert nan.sum() == np.isnan(x).sum()
+    else:
+        assert nan.all()
+
+
 def test_sweep_is_the_scripts_sweep():
     """mul: P2 at f32, bf16, f16; pure: P1 at those and i32; consts: P3 at
     bf16 with 4 and 40 constant planes; each at br = 16 and 32

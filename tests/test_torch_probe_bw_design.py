@@ -1,13 +1,14 @@
-"""The design of the bandwidth probe's P1 and P2 (``csrc/probe_bw.cu``):
-a bulk-copy stream through shared memory, one chunk of the plane a thread
+"""The design of the bandwidth probe's P1-P3 (``csrc/probe_bw.cu``): a
+bulk-copy stream through shared memory, one chunk of the plane a thread
 block, modelled on the CPU.
 
 The host helpers of ``ops/probe_bw.py`` mirror the kernel's constants,
 which are parsed from the source here, and its chunks: every byte of the
 plane is streamed once, in 16-byte-aligned chunks, one a block.  A numpy
-model of P2's pass through each stage (widen, multiply, round back in
-place) is held bit for bit to ``copy_plane_plain`` and to the JAX
-script's ``copy_plane`` run in interpret mode (the script is loaded from
+model of P2's and P3's pass through each stage (widen, multiply or add
+the bump, round back in place) is held bit for bit to the plain versions
+and to the JAX script's ``copy_plane`` and ``copy_plane_consts`` run in
+interpret mode (the script is loaded from
 its file and stays unchanged; its ``pl`` is swapped for one whose
 ``pallas_call`` interprets), P1's to the copy.  The C entries' signatures
 must match the wrappers' ``_launch`` type strings, ``chip_smoke.py`` must
@@ -64,27 +65,33 @@ def jaxbw():
 
 
 def test_constants_mirror_the_kernel():
-    """CHUNK, the threads a block, the barrier's bytes and P3's threads
-    are the kernel's; a chunk is a multiple of 16 in 16-32 KB and P2's
-    threads take whole words of it; an SM holds SM_THREADS /
-    STREAM_THREADS blocks, their shared memory too."""
+    """CHUNK, the threads a block, the barrier's bytes and P3's constant
+    plane are the kernel's; a chunk is a multiple of 16 in 16-32 KB and
+    P2's and P3's threads take whole words of it; an SM holds SM_THREADS /
+    STREAM_THREADS blocks, their shared memory too (P3's with a round of
+    STREAM_THREADS f32 scalars)."""
     c = _constants()
-    assert (c["CHUNK"], c["STREAM_THREADS"], c["BAR_BYTES"], c["THREADS"]) == (
-        PB.CHUNK_BYTES, PB.STREAM_THREADS, PB.BAR_BYTES, PB.P3_THREADS)
+    assert (c["CHUNK"], c["STREAM_THREADS"], c["BAR_BYTES"], c["CONST_FLOATS"]) == (
+        PB.CHUNK_BYTES, PB.STREAM_THREADS, PB.BAR_BYTES, np.prod(PB.CONST_PLANE))
+    assert "THREADS" not in c and not hasattr(PB, "P3_THREADS")
     assert PB.CHUNK_BYTES % 16 == 0 and 16 * 1024 <= PB.CHUNK_BYTES <= 32 * 1024
     assert c["WORDS"] * 16 * PB.STREAM_THREADS == PB.CHUNK_BYTES
     stages = PB.stream_plan(1)["stages"]
     assert stages == PB.SM_THREADS // PB.STREAM_THREADS == 4
-    assert stages * (PB.BAR_BYTES + PB.CHUNK_BYTES + 1024) <= 228 * 1024
-    assert "BAR_BYTES + (size_t)CHUNK, stream" in SRC
+    assert stages * (PB.BAR_BYTES + PB.CHUNK_BYTES + 4 * PB.STREAM_THREADS + 1024) <= 228 * 1024
+    assert "return BAR_BYTES + (size_t)CHUNK + (OP == CONSTS ? sizeof(float) * STREAM_THREADS " \
+        ": 0);" in SRC
+    assert "smem_bytes<OP>(), stream" in SRC
 
 
 def test_kernel_streams_the_models_chunks():
     """The kernel's own expressions: block b's chunk at b CHUNK, cut at the
-    plane's end, one barrier phase, P1 with one working thread, P2's
-    threads scaling the stage before a fence and a barrier, the store's
-    read of the stage waited on before the block leaves, and a grid of one
-    block a chunk; ``br`` is still checked."""
+    plane's end, one barrier phase, P1 with one working thread, P2's and
+    P3's threads updating the stage before a fence and a barrier, the
+    store's read of the stage waited on before the block leaves, and a
+    grid of one block a chunk; ``br`` is still checked.  P3's scalars
+    c_k[0, 0] are loaded after the bulk load is issued and before it is
+    waited on, summed from k = 0, and 0 times the sum is added."""
     k = _body("chunk_kernel(const char* __restrict__ x")
     assert "const long long at = (long long)blockIdx.x * CHUNK;" in k
     assert "min((long long)CHUNK, bytes - at)" in k
@@ -92,6 +99,10 @@ def test_kernel_streams_the_models_chunks():
     assert "bulk_load(stage, x + at, size, full);" in k and "mbar_wait(full, 0);" in k
     assert "fence_async_shared();\n    __syncthreads();" in k
     assert re.search(r"bulk_store\(o \+ at, stage, size\);\s*bulk_wait_read\(\);", k)
+    assert k.index("bulk_load(stage, x + at, size, full);") < k.index(
+        "__ldg(consts + (size_t)k * CONST_FLOATS)") < k.index("mbar_wait(full, 0);")
+    assert "float sum = 0.f;" in k and "for (int j = 0; j < m; ++j) sum += cs[j];" in k
+    assert "bump = sum * 0.f;" in k and "v[e] * 1.0001f : v[e] + bump" in k
     run = _body("static int run(const void* x")
     assert "const long long n_chunks = (bytes + CHUNK - 1) / CHUNK;" in run
     assert "dim3((unsigned)n_chunks), dim3(STREAM_THREADS)" in run
@@ -135,28 +146,75 @@ def test_chunks_cover_every_byte_once(case):
     assert (got[-1][1] == PB.CHUNK_BYTES) == (nbytes % PB.CHUNK_BYTES == 0)
 
 
+def _bump_model(c00):
+    """P3's bump as the kernel's loop takes it: rounds of STREAM_THREADS
+    scalars, one a thread, into shared memory, each round summed in order
+    by every thread after a barrier, a second barrier before the next
+    round; returns (0 * the sum in f32, the barriers, the loads)."""
+    cs = np.full(PB.STREAM_THREADS, np.nan, np.float32)
+    total, barriers, loads, k0 = np.float32(0), 0, 0, 0
+    n = len(c00)
+    while True:
+        for t in range(PB.STREAM_THREADS):
+            if k0 + t < n:
+                cs[t] = c00[k0 + t]
+                loads += 1
+        barriers += 1
+        for j in range(min(n - k0, PB.STREAM_THREADS)):
+            total = np.float32(total + cs[j])
+        if k0 + PB.STREAM_THREADS >= n:
+            break
+        barriers += 1
+        k0 += PB.STREAM_THREADS
+    return np.float32(total * np.float32(0)), barriers, loads
+
+
+@pytest.mark.parametrize("n", [0, 1, 40, 512, 513, 1100])
+def test_bump_loop_reads_each_scalar_once_in_order(n):
+    """Each c_k[0, 0] loaded once, summed from k = 0 as the plain version
+    sums; one barrier up to STREAM_THREADS constants (the one that also
+    publishes the mbarrier), two more a further round."""
+    rng = np.random.RandomState(n)
+    c00 = (rng.randn(n) * np.exp2(rng.randint(-20, 20, n))).astype(np.float32)
+    if n:
+        c00[-1] = -abs(c00[:-1].sum(dtype=np.float32)) - 1     # a negative sum: a bump of -0
+    bump, barriers, loads = _bump_model(c00)
+    consts = torch.zeros(n, 128, 128)
+    consts[:, 0, 0] = torch.from_numpy(c00)
+    x = torch.tensor([[-0.0, 1.5, -2.0, 0.0]])
+    want = PB.copy_plane_consts_plain(x, 1, consts)
+    assert np.array_equal((x.numpy() + bump).view(np.int32), want.numpy().view(np.int32))
+    assert loads == n and barriers == 1 + 2 * ((max(n, 1) - 1) // PB.STREAM_THREADS)
+    assert np.signbit(bump) == (n > 0)
+
+
 def _bf16_round(f):
     """f32 -> bf16 bits, round to nearest even (finite values)."""
     u = f.view(np.uint32).astype(np.uint64)
     return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
 
 
-def _stream_model(name, buf, dtype):
-    """P1 or P2 on the bytes ``buf`` of a plane: each chunk brought into a
-    stage, P2's 16-byte words widened to f32, multiplied by f32(1.0001)
-    and rounded back to ``dtype`` in the stage, the stage stored at its
-    chunk's offset."""
+def _stream_model(name, buf, dtype, c00=()):
+    """P1, P2 or P3 on the bytes ``buf`` of a plane: each chunk brought into
+    a stage, P2's and P3's 16-byte words widened to f32, multiplied by
+    f32(1.0001) (P2) or added the bump of the scalars ``c00`` (P3,
+    :func:`_bump_model`) and rounded back to ``dtype`` in the stage, the
+    stage stored at its chunk's offset."""
+    bump = _bump_model(c00)[0]
+
+    def op(f):
+        return f * np.float32(PB.SCALE) if name == "copy_plane" else f + bump
+
     out = np.full_like(buf, 0xA5)
     for off, size in PB.chunks(buf.size):
         stage = buf[off:off + size].copy()
-        if name == "copy_plane":
+        if name != "pure_copy_plane":
             words = stage.reshape(-1, 16)
             if dtype == torch.bfloat16:
-                f = (words.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
-                words[:] = _bf16_round(f * np.float32(PB.SCALE)).view(np.uint8).reshape(
-                    words.shape)
+                f = op((words.view(np.uint16).astype(np.uint32) << 16).view(np.float32))
+                words[:] = _bf16_round(f).view(np.uint8).reshape(words.shape)
             else:
-                f = words.view(NP[dtype]).astype(np.float32) * np.float32(PB.SCALE)
+                f = op(words.view(NP[dtype]).astype(np.float32))
                 words[:] = f.astype(NP[dtype]).view(np.uint8).reshape(words.shape)
         out[off:off + size] = stage
     return out
@@ -174,22 +232,27 @@ def _plane(dtype, shape, seed):
 
 
 @pytest.mark.parametrize("name,dtype", [("copy_plane", d) for d in PB.FLOAT_DTYPES]
-                         + [("pure_copy_plane", d) for d in PB.COPY_DTYPES])
+                         + [("pure_copy_plane", d) for d in PB.COPY_DTYPES]
+                         + [("copy_plane_consts", d) for d in PB.FLOAT_DTYPES])
 def test_stage_model_is_the_plain_and_the_pallas_kernel(jaxbw, name, dtype):
     """At 40 x 520 (six chunks at 4 bytes, three at 2, the last one ragged)
     the stream equals the plain version and the JAX script's kernel in
-    interpret mode (row blocks of 8), bit for bit."""
+    interpret mode (row blocks of 8; P3 with its 4 constant planes of
+    ones), bit for bit."""
     br = 8
     t, buf = _plane(dtype, (40, 520), 5)
     assert len(PB.chunks(buf.size)) == (6 if t.element_size() == 4 else 3)
-    plain = getattr(PB, name + "_plain")(t, br)
+    consts = PB.const_planes(PB.N_CONSTS[0], "cpu")
+    extra = (consts,) if name == "copy_plane_consts" else ()
+    plain = getattr(PB, name + "_plain")(t, br, *extra)
     want = plain.view(torch.uint8).numpy().reshape(-1)
     jx = jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) if dtype == torch.bfloat16 else \
         jnp.asarray(t.numpy())
-    jout = np.asarray(getattr(jaxbw, name)(jx, br))
+    jout = np.asarray(getattr(jaxbw, name)(jx, br, *(len(c) for c in extra)))
     jbits = jout.view(np.uint16) if dtype == torch.bfloat16 else jout
     assert np.array_equal(np.ascontiguousarray(jbits).view(np.uint8).reshape(-1), want)
-    assert np.array_equal(_stream_model(name, buf, dtype), want)
+    c00 = consts[:, 0, 0].numpy() if extra else ()
+    assert np.array_equal(_stream_model(name, buf, dtype, c00), want)
     if name == "copy_plane" and dtype != torch.float32:
         assert np.array_equal(want, buf)        # 1e-4 is below half an ulp
 
@@ -237,9 +300,10 @@ def test_card_path_launches_each_entry(monkeypatch):
 
 def test_smoke_names_each_probe_design():
     """chip_smoke.py names each probe's design, on its bandwidth line and
-    in its kernels line: P1 and P2 in bulk chunks with C, S and G whatever
-    br, P3 row blocks; its edge planes have a ragged last chunk at every
-    type, one after many whole chunks."""
+    in its kernels line: P1-P3 in bulk chunks with C, S and G whatever br,
+    P3's blocks also reading one scalar of each constant plane; its edge
+    planes have a ragged last chunk at every type, one after many whole
+    chunks."""
     import chip_smoke as cs
     for itemsize in (2, 4):
         want = {"design": "bulk chunks", "chunk": PB.CHUNK_BYTES, "stages": 4,
@@ -248,7 +312,8 @@ def test_smoke_names_each_probe_design():
             assert cs.design(name, 6144, 8192, itemsize) == want
             assert PB.design(name, 6144, 8192, itemsize, PB.BRS[1]) == want
         assert cs.design("copy_plane_consts", 6144, 8192, itemsize) == {
-            "design": "row blocks", "blocks": 6144 // PB.BRS[0], "threads": PB.P3_THREADS}
+            **want, "scalars": "c_k[0, 0]"}
+        assert "copy_plane_consts" not in cs.STREAM_PROBES
     assert cs.design("pure_copy_plane", 1, 8, 2)["blocks"] == 1
     src = inspect.getsource(cs.bandwidth_phase)
     assert src.count("PB.design(") == 2 and "PROBE_EDGES" in src
