@@ -90,7 +90,7 @@ def probe_ab(ph, pw, rounds, trees, labels):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(ph)
         cases = cs.probe_kernel_cases(ph, pw, gen, io)
-        for name, (inputs, _) in cases.items():
+        for name, (inputs, *_) in cases.items():
             kernel, plain = getattr(PB, name), getattr(PB, name + "_plain")
             ref = cs.bits(plain(*inputs))
             for label, tree in trees.items():

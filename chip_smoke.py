@@ -578,15 +578,20 @@ def pallas_kernel_cases(ph, pw, gen, io, *_, planes=None):
 
 
 def probe_kernel_cases(ph, pw, gen, io, *_, planes=None):
-    """The bandwidth probe's inputs: a seeded (ph, pw) plane at ``io``
-    streamed in blocks of 16 rows, P3 with 40 constant planes.  Operations:
-    P2 one multiply per element, P3 one add per element and one per
-    constant plane, P1 none."""
-    x = torch.rand(ph, pw, generator=gen, device="cuda").to(io)
+    """The bandwidth probe's inputs, on the device of ``gen``: a seeded
+    (ph, pw) plane at ``io`` streamed in blocks of 16 rows, P3 with 40
+    constant planes.  Operations: P2 one multiply per element, P3 one add
+    per element and one per constant plane, P1 none.  Bytes: the plane
+    read and written once, and for P3 the one f32 element c_k[0, 0] of
+    each constant plane that its function reads (not the whole planes its
+    inputs hold)."""
+    x = torch.rand(ph, pw, generator=gen, device=gen.device).to(io)
     br, n = PB.BRS[0], PB.N_CONSTS[-1]
-    return {"pure_copy_plane": ((x, br), 0),
-            "copy_plane": ((x, br), x.numel()),
-            "copy_plane_consts": ((x, br, PB.const_planes(n, "cuda")), x.numel() + n)}
+    plane = 2 * nbytes(x)
+    return {"pure_copy_plane": ((x, br), 0, plane),
+            "copy_plane": ((x, br), x.numel(), plane),
+            "copy_plane_consts": ((x, br, PB.const_planes(n, gen.device)), x.numel() + n,
+                                  plane + 4 * n)}
 
 
 def library_call(name, args):
@@ -677,12 +682,15 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
     of ``cases`` (:func:`kernel_cases`, :func:`split_kernel_cases`,
     :func:`pallas_kernel_cases` or :func:`probe_kernel_cases`); with
     ``timed`` also its time, the plain version's, the library call's (each
-    by MS_METHOD) and the bound.  One JSON line per kernel; returns the
-    rows by kernel."""
+    by MS_METHOD) and the bound.  A case is (inputs, operations) or
+    (inputs, operations, bytes moved) where the function reads less than
+    its inputs hold; else the bytes are the inputs' and outputs'.  One
+    JSON line per kernel; returns the rows by kernel."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(ph)
     rows = {}
-    for name, (args, flops) in cases(ph, pw, gen, io, tv, v, k2_out, planes=planes).items():
+    for name, (args, flops, *moved) in cases(ph, pw, gen, io, tv, v, k2_out,
+                                             planes=planes).items():
         if names is not None and name not in names:
             continue
         fn = name.split(":")[0]     # "name:form": another form of the wrapper name
@@ -705,7 +713,7 @@ def check_kernels(ph, pw, timed, io, tv, v, k2_out, mode, names=None, planes=Non
                "max_lsb_err": max(lsb) if lsb else None,
                "max_flip_share": max(shares) if shares else None}
         if timed:
-            byt = nbytes(*tensors(args), *tensors(out))
+            byt = moved[0] if moved else nbytes(*tensors(args), *tensors(out))
             t_bytes = byt / HBM_BYTES_PER_S * 1e3
             t_ops = flops / F32_FLOP_PER_S * 1e3
             lib = library_call(name, args)

@@ -152,12 +152,11 @@ def run_state_jit(conv, data, params, n_iter, state):
     return run_state(conv, data, params, n_iter, state)
 
 
-def run_jit(conv, data, params=ADMMParams(), n_iter=100, initial_est=None):
-    """The JAX package's compiled entry of :func:`run` under its name,
-    signature and defaults.  The port has no trace step: this runs
-    :func:`run` where its inputs are, and exists so that code written for
-    the JAX package runs.  ``n_iter`` is an int or a 0-d tensor."""
-    return run(conv, data, params, n_iter, initial_est)
+# the JAX package's compiled entry of ``run``, whose signature and defaults
+# ``run`` already has: the port has no trace step, and the name exists so
+# that code written for the JAX package runs (``n_iter`` an int or a 0-d
+# tensor)
+run_jit = run
 
 
 def run_pnp(conv: FFTConvolver, data, denoiser, params: ADMMParams = ADMMParams(),

@@ -324,6 +324,26 @@ def test_smoke_names_each_probe_design():
     assert max(rows * w for rows, w in cs.PROBE_EDGES) * 2 > 100 * PB.CHUNK_BYTES
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_bytes_count_what_each_function_reads(dtype):
+    """The bound's bytes of each probe case: the plane read and written
+    once, and for P3 the one f32 element c_k[0, 0] of each of its n
+    constant planes, not the whole planes its inputs hold."""
+    import chip_smoke as cs
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cases = cs.probe_kernel_cases(32, 256, gen, dtype)
+    plane = 2 * 32 * 256 * dtype.itemsize
+    assert {name: case[2] for name, case in cases.items()} == {
+        "pure_copy_plane": plane, "copy_plane": plane,
+        "copy_plane_consts": plane + 4 * PB.N_CONSTS[-1]}
+    (x, br, consts), flops, moved = cases["copy_plane_consts"]
+    assert consts.shape == (PB.N_CONSTS[-1], *PB.CONST_PLANE) and x.dtype == dtype
+    assert flops == x.numel() + len(consts) and moved < plane + consts.numel() * 4
+    src = inspect.getsource(cs.check_kernels)
+    assert "byt = moved[0] if moved else nbytes(*tensors(args), *tensors(out))" in src
+
+
 def test_ab_probes_interleave_every_tree(monkeypatch):
     """``ab_kernels.py --probes`` times P1-P3 of every tree in the order A,
     B1 .. Bn, library, library, Bn .. B1, A (P3 without the library),
@@ -345,8 +365,11 @@ def test_ab_probes_interleave_every_tree(monkeypatch):
 
     def cases(ph, pw, gen, io):
         x = torch.rand(ph, pw, generator=gen).to(io)
-        return {"pure_copy_plane": ((x, 16), 0), "copy_plane": ((x, 16), x.numel()),
-                "copy_plane_consts": ((x, 16, PB.const_planes(4, "cpu")), x.numel() + 4)}
+        plane = 2 * x.numel() * x.element_size()
+        return {"pure_copy_plane": ((x, 16), 0, plane),
+                "copy_plane": ((x, 16), x.numel(), plane),
+                "copy_plane_consts": ((x, 16, PB.const_planes(4, "cpu")), x.numel() + 4,
+                                      plane + 16)}
 
     def library(name):
         lib_name, lib = cs.PROBE_LIBRARY(name)
