@@ -64,7 +64,20 @@ the zoo's ``Unet4M+U5+Unet4M`` and ``U20`` built by ``build_model`` on
 seeded weights carried from a JAX-layout tree, a batch of 4 DiffuserCam
 measurements, images/s, peak memory, the card against the CPU; every
 other learned family on the card against the CPU at 64 x 112 x 3; no
-kernel of the port launched), checks that each counted run went
+kernel of the port launched), serves from files (phase ``files``: the 12 MP
+PSF and measurement written as the RPi HQ sensor's raw 12-bit mosaics in
+.npy files, read by ``data.io.load_data`` through the numpy demosaic and
+ISP chain, solved in the headline mode with a gray headline solve's launch
+counts and held to the exact solver on the same loaded arrays, the result
+saved as a PNG and decoded back to its pixels, host seconds of each step;
+phase ``zoo_load``: the ``learned`` phase's Unet4M+U5+Unet4M written as a
+reference checkpoint folder, Hydra config and DataParallel keys, read by
+``zoo.model_dict.load_model`` onto the card, ``torch.equal`` to the
+in-memory model, the card against the CPU, images/s and peak memory,
+``benchmark`` over a ``MeasuredDataset`` folder saving a reconstruction,
+a learned-PSF override, ``angular_spectrum`` and ``fresnel_conv`` at 12
+MP / 4 and ``FarFieldSimulator`` on a batch of 4, each against the CPU),
+checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -78,6 +91,7 @@ import copy
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2014,6 +2028,425 @@ def learned_phase(device="cuda"):
     return rec
 
 
+# --- serving from files (phases files and zoo_load) ------------------------------------
+
+# the RPi HQ sensor's raw mosaics: 12-bit values over its black level;
+# white-balance gains of the reference's captures (its configs' red_gain
+# 1.9, blue_gain 1.2)
+RAW_BITS, RED_GAIN, BLUE_GAIN = 12, 1.9, 1.2
+# OmegaConf's dump of a reference training run of Unet4M+U5+Unet4M on
+# DiffuserCam MirFlickr (the Hydra config the checkpoint folder carries);
+# the unrolled schedules' start values and the processors' sizes are the
+# zoo's (_UNET_NC["4M"], 4 blocks a scale)
+ZOO_CONFIG = """\
+seed: 0
+files:
+  dataset: bezzam/DiffuserCam-Lensless-Mirflickr-Dataset-NORM
+  huggingface_dataset: true
+  huggingface_psf: psf.tiff
+  downsample: 2
+  downsample_lensed: 2
+  input_snr: null
+  psf_snr: null
+  single_channel_psf: true
+  flipud: true
+  flip_lensed: true
+  n_files: null
+  background_fp: null
+  image_res: null
+reconstruction:
+  method: unrolled_admm
+  skip_unrolled: false
+  init_processors: null
+  init_pre: true
+  init_post: true
+  unrolled_admm:
+    n_iter: 5
+    mu1: 0.0001
+    mu2: 0.0001
+    mu3: 0.0001
+    tau: 0.0002
+  pre_process:
+    network: UnetRes
+    depth: 4
+    nc:
+    - 32
+    - 64
+    - 116
+    - 128
+    delay: null
+    freeze: null
+    unfreeze: null
+    train_last_layer: false
+  post_process:
+    network: UnetRes
+    depth: 4
+    nc:
+    - 32
+    - 64
+    - 116
+    - 128
+    delay: null
+    freeze: null
+    unfreeze: null
+    train_last_layer: false
+  psf_network: false
+  psf_residual: true
+  compensation: null
+  compensation_residual: true
+  direct_background_subtraction: false
+  learned_background_subtraction: false
+  integrated_background_subtraction: false
+  unetres_input_background: false
+trainable_mask:
+  mask_type: {mask_type}
+  optimizer: Adam
+  lr: 1.0e-03
+  L1_strength: false
+  initial_value: psf
+training:
+  batch_size: 4
+  epoch: 25
+  eval_batch_size: 10
+  metric_for_best_model: null
+  save_every: null
+  crop_preloss: false
+optimizer:
+  type: Adam
+  lr: 1.0e-04
+  lr_step_epoch: true
+  final_lr: false
+  exp_decay: false
+  slow_start: false
+  cosine_decay_warmup: true
+loss: l2
+lpips: 1.0
+unrolled_output_factor: false
+pre_proc_aux: false
+"""
+TOL_PROPAGATION = 1e-5      # the card against the CPU at the same precision
+TOL_SIM = 1e-5              # FarFieldSimulator without noise, the card against the CPU
+PROPAGATION_GRID = (760, 1014)    # 12 MP at 1/4
+PROPAGATION = dict(wv=532e-9, pitch=(4 * 1.55e-6, 4 * 1.55e-6), dz=2e-3)
+
+
+def raw_mosaic(img, black=256.3):
+    """A gray (H, W) image in [0, 1] as the RPi HQ sensor's raw 12-bit
+    mosaic that ``data.image.bayer2rgb_cc`` with RED_GAIN and BLUE_GAIN
+    turns back into a gray image: the sites it reads as red, (odd, odd),
+    divided by RED_GAIN, its blue sites, (even, even), by BLUE_GAIN."""
+    v = np.asarray(img, np.float64) / max(float(np.max(img)), 1e-30)
+    v[1::2, 1::2] /= RED_GAIN
+    v[0::2, 0::2] /= BLUE_GAIN
+    return np.rint(black + v * (2 ** RAW_BITS - 1 - black)).astype(np.uint16)
+
+
+def decode_png(path):
+    """The pixels of an 8-bit gray / RGB / RGBA PNG whose rows all carry
+    filter type 0 (what ``data.io.encode_png`` writes), read with zlib."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head[:4]
+    ch = {0: 1, 2: 3, 6: 4}[color]
+    if depth != 8:
+        raise AssertionError(f"{path}: bit depth {depth}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape((h, w, ch) if ch > 1 else (h, w))
+
+
+def png_pixels(img):
+    """The 8-bit pixels ``data.io.save_image`` writes for ``img``."""
+    out = np.asarray(img, np.float32)
+    out = out - out.min()
+    if out.max() > 0:
+        out = out / out.max()
+    out = (np.clip(out, 0, 1) * 255).astype(np.uint8)
+    return out[..., 0] if out.shape[-1] == 1 else out
+
+
+def files_phase(psf2d, meas, scene_n, device="cuda"):
+    """The phase ``files`` at 12 MP, the RPi HQ sensor's raw format: the
+    f32 phase's PSF and measurement (its seeded scene convolved with that
+    PSF) written as raw 12-bit mosaics (:func:`raw_mosaic`) in uint16 .npy
+    files; ``data.io.load_data(bayer=True, gray=True)`` (the numpy
+    demosaic, the ISP chain, the PSF's background and L2 norm) gives
+    (1, 3040, 4056, 1); ``precompute_rsplit`` -> ``run_rsplit`` in the
+    headline mode (v3, n = 10) with a gray headline solve's launch counts,
+    within TOL_PSNR_DB of the exact solver on the same loaded arrays;
+    ``save_image`` of the result decoded back to its pixels.  Host seconds
+    of each step.  ``device="cpu"`` rehearses it (with the CUDA calls and
+    the launch counts patched out)."""
+    import tempfile
+
+    from lenslesspicam_tpu_torch.data.io import load_data, save_image
+
+    t_phase = time.perf_counter()
+    n = 10
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        np.save(f"{d}/psf.npy", raw_mosaic(psf2d))
+        np.save(f"{d}/data.npy", raw_mosaic(meas.cpu().numpy()))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        psf, data = load_data(f"{d}/psf.npy", f"{d}/data.npy", downsample=1, bayer=True,
+                              red_gain=RED_GAIN, blue_gain=BLUE_GAIN, gray=True)
+        t_load = time.perf_counter() - t0
+        if psf.shape != (1, *SENSOR, 1) or data.shape != (1, *SENSOR, 1):
+            raise AssertionError(f"load_data gave {psf.shape}, {data.shape}")
+        if not (np.isfinite(psf).all() and np.isfinite(data).all() and data.max() > 0):
+            raise AssertionError("load_data: not finite, or an empty measurement")
+        t0 = time.perf_counter()
+        data = data / data.max()
+        pre = admm_split.precompute_rsplit(psf[0, :, :, 0], data[0, :, :, 0], device=device)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (out, sat), counts = counted(
+            lambda: admm_split.run_rsplit(pre, n_iter=n, return_sat=True, **HEADLINE),
+            want_counts(n, sat_scans=2), "files")
+        t_solve = time.perf_counter() - t0
+        exact = admm.run(admm.make_convolver(psf, device=device),
+                         torch.from_numpy(data[None]).to(device), n_iter=n)[0, 0, :, :, 0]
+        if tuple(out.shape) != SENSOR or not bool(torch.isfinite(out).all()):
+            raise AssertionError("files: the solve is not finite at the sensor shape")
+        p_head, p_exact = psnr_db(out, scene_n), psnr_db(exact, scene_n)
+        if not (abs(p_head - p_exact) <= TOL_PSNR_DB and sat < 1.0):
+            raise AssertionError(f"files: headline {p_head:.3f} dB against exact "
+                                 f"{p_exact:.3f} dB, sat {sat:.3f}")
+        t0 = time.perf_counter()
+        host = out.cpu().numpy()
+        save_image(host, f"{d}/recon.png")
+        t_save = time.perf_counter() - t0
+        decoded = decode_png(f"{d}/recon.png")
+        if not np.array_equal(decoded, png_pixels(host[:, :, None])):
+            raise AssertionError("files: the saved PNG does not decode to the result's pixels")
+        png_bytes = os.path.getsize(f"{d}/recon.png")
+    rec = {"phase": "files", "grid": list(SENSOR), "format": "raw 12-bit mosaics, uint16 .npy",
+           "gains": [RED_GAIN, BLUE_GAIN], "mode": HEADLINE, "n_iter": n,
+           "psnr_headline_db": p_head, "psnr_exact_db": p_exact, "tol_db": TOL_PSNR_DB,
+           "sat": sat, "launches": counts, "png_bytes": png_bytes,
+           "png_decodes_to_pixels": True,
+           "host_seconds": {"write_npy": t_write, "load_data": t_load, "precompute": t_pre,
+                            "solve_n10": t_solve, "save_image": t_save},
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def zoo_checkpoint(folder, model, seed_decoy, mask_type="null", psf_best=None):
+    """``model``'s weights as the reference's checkpoint folder: the Hydra
+    config ZOO_CONFIG, ``recon_epochBEST`` with the unrolled schedules at the
+    top level and DataParallel's ``module.`` prefixes, a decoy
+    ``recon_epoch3`` of other seeded weights, and ``psf_epochBEST.npy``
+    where given."""
+    os.makedirs(f"{folder}/.hydra", exist_ok=True)
+    with open(f"{folder}/.hydra/config.yaml", "w") as f:
+        f.write(ZOO_CONFIG.replace("{mask_type}", mask_type))
+
+    def reference(sd):
+        return {"module." + (k[len("camera_inversion."):] if k.startswith("camera_inversion._")
+                             else k): v.detach().cpu() for k, v in sd.items()}
+
+    torch.save(reference(model.state_dict()), f"{folder}/recon_epochBEST")
+    decoy = learned_model(build_model(LEARNED_NAME, device="cpu"), seed_decoy)
+    torch.save(reference(decoy.state_dict()), f"{folder}/recon_epoch3")
+    if psf_best is not None:
+        np.save(f"{folder}/psf_epochBEST.npy", psf_best)
+
+
+def propagation_checks(device="cuda"):
+    """``angular_spectrum`` and ``fresnel_conv`` at PROPAGATION_GRID on a
+    seeded complex field: complex64 on the card against complex64 on the
+    CPU within TOL_PROPAGATION, and against complex128 on the CPU, where
+    the float32 phase kz dz (up to 2 pi dz / wv rad, rounded to one half
+    unit of float32 there in both) bounds the difference."""
+    from lenslesspicam_tpu_torch.ops import propagation
+
+    rng = np.random.RandomState(LEARNED_SEED)
+    u = (rng.rand(*PROPAGATION_GRID) * np.exp(2j * np.pi * rng.rand(*PROPAGATION_GRID)))
+    p = PROPAGATION
+    phase_max = 2 * math.pi * p["dz"] / p["wv"]
+    bound = 8 * phase_max * 2.0 ** -24
+    out = {}
+    for name in ("angular_spectrum", "fresnel_conv"):
+        fn = getattr(propagation, name)
+        card = on_device(fn(torch.from_numpy(u.astype(np.complex64)).to(device), p["wv"],
+                            p["pitch"], p["dz"]), name, device).cpu()
+        cpu = fn(u.astype(np.complex64), p["wv"], p["pitch"], p["dz"], device="cpu")
+        c128 = fn(u, p["wv"], p["pitch"], p["dz"], device="cpu")
+        if card.dtype != torch.complex64 or c128.dtype != torch.complex128:
+            raise AssertionError(f"{name}: dtypes {card.dtype}, {c128.dtype}")
+        err = nerr(card, cpu)
+        err128 = float((card.to(torch.complex128) - c128).abs().max() / c128.abs().max())
+        if not (err <= TOL_PROPAGATION and err128 <= bound):
+            raise AssertionError(f"{name}: card against CPU {err:.3e}, against complex128 "
+                                 f"{err128:.3e} (bound {bound:.3e})")
+        out[name] = {"card_vs_cpu_c64": err, "card_vs_cpu_c128": err128}
+    return {"grid": list(PROPAGATION_GRID), **p, "phase_max_rad": phase_max,
+            "tol_c64": TOL_PROPAGATION, "bound_c128": bound, **out}
+
+
+def simulator_check(psf, device="cuda"):
+    """``FarFieldSimulator.propagate_image`` on a batch of 4 objects at the
+    DiffuserCam grid with a random height and shift, the card against the
+    CPU on the same draws (the simulator's draw helpers fed one seeded
+    numpy draw each): without noise within TOL_SIM; with shot noise at 20
+    dB within the larger of TOL_SIM and 10x the CPU's own spread under a
+    1e-7 relative change of the PSF (the noise scales by sqrt(image), whose
+    slope is unbounded where the convolution leaves a pixel at 0)."""
+    from lenslesspicam_tpu_torch.data import simulation
+    from lenslesspicam_tpu_torch.ops import noise
+
+    rng = np.random.RandomState(LEARNED_SEED + 1)
+    objs = rng.rand(4, 200, 300, 3).astype(np.float32)
+    normal = rng.randn(4, *DIFFUSERCAM, 3).astype(np.float32)
+    shift_draws = [int(rng.randint(0, 20)), int(rng.randint(0, 20))]
+    nudged = (psf * (1 + 1e-7 * rng.randn(*psf.shape))).astype(np.float32)
+    saved = simulation._uniform, simulation._randint, noise._normal
+
+    def run(dev, snr_db, psf_):
+        shifts = list(shift_draws)
+        simulation._uniform = lambda g: 0.37
+        simulation._randint = lambda g, high: min(shifts.pop(0), high - 1)
+        noise._normal = lambda x, g: torch.from_numpy(normal).to(x.device)
+        sim = simulation.FarFieldSimulator(
+            object_height=(0.25, 0.35), scene2mask=0.4, mask2sensor=0.002, sensor="rpi_hq",
+            psf=psf_, snr_db=snr_db, random_shift=True, quantize=False, device=dev)
+        out = on_device(sim.propagate_image(objs, generator=torch.Generator(device=dev)),
+                        "simulator", dev)
+        if tuple(out.shape) != (4, *DIFFUSERCAM, 3):
+            raise AssertionError(f"FarFieldSimulator: shape {tuple(out.shape)}")
+        return out.cpu()
+
+    rec = {"batch": 4, "grid": [*DIFFUSERCAM, 3], "tol": TOL_SIM}
+    try:
+        for snr_db in (None, 20):
+            cpu = run("cpu", snr_db, psf)
+            err = nerr(run(device, snr_db, psf), cpu)
+            spread = nerr(run("cpu", snr_db, nudged), cpu)
+            tol = TOL_SIM if snr_db is None else max(TOL_SIM, 10 * spread)
+            if not err <= tol:
+                raise AssertionError(f"FarFieldSimulator (snr {snr_db}): card against CPU "
+                                     f"{err:.3e}, tolerance {tol:.3e}")
+            rec[f"snr_{snr_db}"] = {"card_vs_cpu": err, "cpu_spread_1e-7": spread, "tol": tol}
+    finally:
+        simulation._uniform, simulation._randint, noise._normal = saved
+    return rec
+
+
+def zoo_load_phase(learned, device="cuda"):
+    """The phase ``zoo_load``: the ``learned`` phase's seeded
+    Unet4M+U5+Unet4M written as a reference checkpoint folder
+    (:func:`zoo_checkpoint`) and read back by ``load_model`` onto the card;
+    its outputs ``torch.equal`` to the in-memory model's on a batch of
+    LEARNED_BATCH DiffuserCam measurements, the card against the CPU's
+    load at batch 1, images/s and peak memory beside the ``learned``
+    phase's, none of the port's kernels launched; ``benchmark`` over a
+    ``MeasuredDataset`` folder of 4 .npy pairs, saving sample 0; a second
+    load with a ``psf_epochBEST.npy`` override; the propagation and
+    simulator checks.  ``device="cpu"`` rehearses it (with the CUDA calls
+    patched out)."""
+    import tempfile
+
+    from lenslesspicam_tpu_torch.data.datasets import MeasuredDataset
+    from lenslesspicam_tpu_torch.zoo.model_dict import load_model
+
+    t0 = time.perf_counter()
+    psf, data, _ = learned_inputs(DIFFUSERCAM, LEARNED_BATCH)
+    psf_t, data_t = torch.from_numpy(psf).to(device), torch.from_numpy(data).to(device)
+    memory = learned_model(build_model(LEARNED_NAME, device=device))
+    with tempfile.TemporaryDirectory() as d:
+        zoo_checkpoint(f"{d}/ckpt", memory, LEARNED_SEED + 1000)
+        t1 = time.perf_counter()
+        model, config = load_model(f"{d}/ckpt", device=None if device == "cuda" else device)
+        t_load = time.perf_counter() - t1
+        if next(model.parameters()).device.type != device or model.training:
+            raise AssertionError("load_model: not on the card in eval mode")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            out, counts = counted(lambda: on_device(model(data_t, psf_t), "zoo_load", device),
+                                  zero_counts(), "zoo_load")
+            peak = torch.cuda.max_memory_allocated()
+            same = torch.equal(out, memory(data_t, psf_t))
+            calls = rate(lambda k: [model(data_t, psf_t) for _ in range(k)], base=1, full=6,
+                         pairs=3)
+            cpu_model = load_model(f"{d}/ckpt", device="cpu")[0]
+            err = nerr(out[:1].cpu(), cpu_model(data[:1], psf))
+        if not same:
+            raise AssertionError("zoo_load: the loaded model's output differs from the "
+                                 "in-memory model's")
+        if not err <= TOL_LEARNED:
+            raise AssertionError(f"zoo_load: card against CPU {err:.3e}")
+
+        # benchmark over a measured folder, the first reconstruction saved
+        rng = np.random.RandomState(LEARNED_SEED + 2)
+        for sub in ("diffuser", "lensed"):
+            os.makedirs(f"{d}/measured/{sub}")
+        for i in range(LEARNED_BATCH):
+            np.save(f"{d}/measured/diffuser/im{i}.npy", data[i, 0])
+            np.save(f"{d}/measured/lensed/im{i}.npy",
+                    rng.rand(*DIFFUSERCAM, 3).astype(np.float32))
+        os.makedirs(f"{d}/saved")
+        with torch.inference_mode():
+            metrics = benchmark(lambda x: model(x, psf_t),
+                                MeasuredDataset(f"{d}/measured").batches(LEARNED_BATCH),
+                                save_idx=[0], save_dir=f"{d}/saved", device=device)
+        saved = sorted(os.listdir(f"{d}/saved"))
+        if saved != ["recon_0.png"] or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"zoo_load benchmark: {saved}, {metrics}")
+        if decode_png(f"{d}/saved/recon_0.png").shape != (*DIFFUSERCAM, 3):
+            raise AssertionError("zoo_load benchmark: the saved PNG's shape")
+
+        # a learned-PSF checkpoint: psf_epochBEST.npy overrides the PSF
+        psf_best = (psf * (1.0 + 0.1 * rng.rand(*psf.shape))).astype(np.float32)
+        zoo_checkpoint(f"{d}/trained_psf", memory, LEARNED_SEED + 1000, "TrainablePSF",
+                       psf_best)
+        loaded = load_model(f"{d}/trained_psf", device=None if device == "cuda" else device)
+        if len(loaded) != 3 or not np.array_equal(loaded[2], psf_best):
+            raise AssertionError("zoo_load: the psf_epochBEST.npy override")
+        with torch.inference_mode():
+            out_psf = loaded[0](data_t, torch.from_numpy(loaded[2]).to(device))
+        if not bool(torch.isfinite(out_psf).all()):
+            raise AssertionError("zoo_load: the forward on the learned PSF is not finite")
+    del model, memory, cpu_model, loaded
+    rec = {"phase": "zoo_load", "model": LEARNED_NAME, "grid": [*DIFFUSERCAM, 3],
+           "batch": LEARNED_BATCH, "config_method": config["reconstruction"]["method"],
+           "checkpoint": "recon_epochBEST (module. prefixes, top-level _mu*_p), decoy recon_epoch3",
+           "load_seconds": t_load, "equal_to_in_memory": same, "card_vs_cpu_batch1": err,
+           "tol": TOL_LEARNED, "launches": counts,
+           "images_per_s": {"median": calls["median"] * LEARNED_BATCH,
+                            "iqr": calls["iqr"] * LEARNED_BATCH, "pairs": calls["pairs"],
+                            "rates": [r * LEARNED_BATCH for r in calls["rates"]]},
+           "learned_images_per_s": learned["serving"][LEARNED_NAME]["images_per_s"]["median"],
+           "peak_mem_bytes": peak, "forward_peak_bytes": peak - resident,
+           "learned_peak_mem_bytes": learned["serving"][LEARNED_NAME]["peak_mem_bytes"],
+           "benchmark": metrics, "saved": saved, "psf_override": "psf_epochBEST.npy",
+           "propagation": propagation_checks(device), "simulator": simulator_check(psf, device),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2242,6 +2675,8 @@ def main():
     seconds["classical"] = classical["seconds"]
     learned = learned_phase()
     seconds["learned"] = learned["seconds"]
+    seconds["files"] = files_phase(psf2d, meas, scene_n)["seconds"]
+    seconds["zoo_load"] = zoo_load_phase(learned)["seconds"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
     del meas

@@ -13,6 +13,9 @@ callable over (lensless, lensed) pairs with the reference's semantics:
 * ``<name>_unrolled`` metrics and ``ReconstructionError_PreProc`` when the
   reconstructor returns its intermediates;
 * Parameterize-and-Perturb adaptation per batch (``pnp``);
+* the predictions of the samples numbered in ``save_idx`` (counted over
+  all batches) written to ``save_dir/recon_<i>.png`` by
+  ``data.io.save_image``;
 * MSE and LPIPS averaged by batch sum over samples, the others by
   per-image mean.
 
@@ -86,10 +89,6 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
         raise NotImplementedError(
             "mesh-sharded evaluation comes with the port's parallel layer "
             "(ROADMAP Queue 1 item 17); run with mesh=None")
-    if save_idx is not None and save_dir is not None:
-        raise NotImplementedError(
-            "saving reconstructions needs data/io.save_image, which the port does "
-            "not have yet (ROADMAP Queue 1 item 12)")
     device = resolve_device(device)
     if lpips_fn is None and lpips_alex_fn is None:
         from .lpips import metrics_from_env
@@ -109,6 +108,7 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
 
     sums: dict = {}
     counts: dict = {}
+    total = 0
 
     def add(name, values, n):
         sums[name] = sums.get(name, 0.0) + float(torch.sum(as_tensor(values, None, device)))
@@ -155,6 +155,12 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
                 pre_process_out = pred[2]
             pred = pred[0]
         pred_original = pred
+        if save_idx is not None and save_dir is not None:
+            from ..data.io import save_image
+
+            for local_i in range(pred.shape[0]):
+                if total + local_i in save_idx:
+                    save_image(pred[local_i], f"{save_dir}/recon_{total + local_i}.png")
         if crop is not None:
             pred = _apply_crop(pred, crop)
             lensed = _apply_crop(lensed, crop)
@@ -174,5 +180,6 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
         if extra_metrics:
             for name, fn in extra_metrics.items():
                 add(name, fn(pred, lensless, lensed), n)
+        total += n
 
     return {name: s / counts[name] for name, s in sums.items()}

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .._device import as_host, as_tensor
-from ..data.image import resize as _resize
+from ..data.image import resize as _resize, rotate_bilinear
 from . import metrics as _tm
 
 
@@ -63,41 +63,13 @@ def lpips(true, est, normalize=True, lpips_variables=None, net="vgg", device=Non
                        as_tensor(true[None], device=device))[0])
 
 
-def _rotate(img: np.ndarray, angle: float) -> np.ndarray:
-    """``img`` (H, W[, C]) rotated by ``angle`` degrees about (w/2, h/2),
-    bilinear, zero outside: what ``cv2.warpAffine`` with
-    ``cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1)`` computes."""
-    img = np.asarray(img)
-    h, w = img.shape[:2]
-    a = np.deg2rad(angle)
-    c, s = np.cos(a), np.sin(a)
-    cx, cy = w / 2, h / 2
-    fwd = np.array([[c, s, (1 - c) * cx - s * cy], [-s, c, s * cx + (1 - c) * cy]])
-    inv = np.linalg.inv(np.vstack([fwd, [0.0, 0.0, 1.0]]))[:2]
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
-    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
-    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
-    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
-    fx, fy = sx - x0, sy - y0
-    src = img.reshape(h, w, -1).astype(np.float64)
-
-    def tap(yy, xx):
-        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-        return np.where(inside[..., None], src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)], 0.0)
-
-    fx, fy = fx[..., None], fy[..., None]
-    out = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
-           + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
-    return out.reshape(img.shape).astype(img.dtype)
-
-
 def extract(estimate, original, vertical_crop, horizontal_crop, rotation=0, verbose=False):
     """Extract a rotated and cropped region from the reconstruction and
     resize the original to match; returns ``(est_roi, original_resized)``
     as host arrays."""
     estimate = as_host(estimate)
     if rotation:
-        estimate = _rotate(estimate, rotation)
+        estimate = rotate_bilinear(estimate, rotation)
     est_roi = estimate[vertical_crop[0]:vertical_crop[1], horizontal_crop[0]:horizontal_crop[1]]
     original = as_host(original)
     if original.ndim == 2:

@@ -119,7 +119,8 @@ class VirtualSensor:
         return cls(**sensor_dict[name], downsample=downsample)
 
     def capture(self, scene=None, bit_depth=None, bayer=False):
-        """Aspect-preserving resize + center-pad of a scene to sensor
+        """Aspect-preserving resize + center-pad of a scene (an array, or
+        the path of an image file read by ``data.io.load_image``) to sensor
         resolution, gray/color handling, bit-depth quantization
         (sensor.py:221-305)."""
         if bayer:
@@ -128,9 +129,9 @@ class VirtualSensor:
             scene = np.random.rand(*self.image_shape)
         else:
             if isinstance(scene, str):
-                raise NotImplementedError(
-                    "capture(scene=<path>) needs data/io.load_image, which the port "
-                    "does not have yet (ROADMAP Queue 1 item 12); pass the image array")
+                from ..data.io import load_image
+
+                scene = load_image(scene)
             scale = np.min(np.array(self.resolution) / np.array(scene.shape[:2]))
             dsize = tuple((np.array(scene.shape[:2]) * scale).astype(int))
             scene = resize_hw(scene, dsize, "linear")

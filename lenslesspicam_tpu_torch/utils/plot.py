@@ -1,6 +1,5 @@
 """Plotting for the reconstruction API's progress display (port of
-``plot_image`` from lenslesspicam_tpu/utils/plot.py and of
-``gamma_correction`` from lenslesspicam_tpu/data/image.py).
+``plot_image`` from lenslesspicam_tpu/utils/plot.py).
 
 matplotlib is imported inside :func:`plot_image`, so importing this module
 needs none.
@@ -11,15 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from .._device import as_host
-
-
-def gamma_correction(vals, gamma=2.2):
-    """Rec. 709 gamma curve: linear below cc = 0.018 with matched slope,
-    ``1.099 v^(1/gamma) - 0.099`` above."""
-    cc = 0.018
-    inv_gam = 1 / gamma
-    clip_val = (1.099 * np.power(cc, inv_gam) - 0.099) / cc
-    return np.where(vals < cc, vals * clip_val, 1.099 * np.power(vals, inv_gam) - 0.099)
+from ..data.image import gamma_correction
 
 
 def plot_image(img, ax=None, gamma=None, normalize=True):

@@ -14,9 +14,10 @@ configs/benchmark/README.md:18-24):
     _psfNN       PSF-correction network
 
 ``parse_model_name`` turns a name into an architecture spec and
-``build_model`` makes the untrained module on a device.  Fetching and
-loading published checkpoints (``download_model``, ``load_model``) is not
-ported yet: they raise.
+``build_model`` makes the untrained module on a device.  ``load_model``
+rebuilds a model from a reference checkpoint folder (its Hydra config and
+torch weights); ``download_model`` would fetch one from the Hugging Face
+hub, which needs the network: it raises.
 """
 
 from __future__ import annotations
@@ -358,17 +359,203 @@ def build_model(name: str, nb: int = 4, device=None):
     )
 
 
-_NOT_PORTED = ("fetching and loading published checkpoints (Hugging Face, the "
-               "checkpoint's Hydra config) is not ported yet (ROADMAP Queue 1 item 16); "
-               "build_model and convert.state_dict carry JAX-layout weights")
-
-
 def download_model(camera: str, dataset: str, model: str, local_model_dir=None):
-    """Not ported yet: raises NotImplementedError."""
-    raise NotImplementedError(_NOT_PORTED)
+    """Fetch a published checkpoint from the Hugging Face hub: the port
+    does not reach the network, so this raises.  Download the repo's
+    folder (``model_dict[camera][dataset][model]``) by other means and
+    pass its path to :func:`load_model`."""
+    raise NotImplementedError(
+        f"downloading {model_dict[camera][dataset][model]!r} needs the network (the "
+        "Hugging Face hub), which the port does not reach; fetch the checkpoint folder "
+        "by other means and pass its path to load_model")
+
+
+def remove_data_parallel(state_dict):
+    """Strip the ``module.`` prefixes that ``nn.DataParallel`` leaves."""
+    return {k.replace("module.", ""): v for k, v in state_dict.items()}
+
+
+def _build_processor(sub_cfg, device, input_background=False, concat_comp=False):
+    """The processor of a pre/post_process config entry: a Restormer with
+    the config's sizes, or a UNetRes (``UnetRes`` or ``DruNet``) of ``nc``
+    channels and ``depth`` blocks a scale; None for no network."""
+    from ..models.restormer import Restormer
+    from ..models.unet import UNetRes
+
+    if not sub_cfg or not sub_cfg.get("network"):
+        return None
+    if sub_cfg["network"] == "Restormer":
+        rp = sub_cfg["restormer_params"]
+        return Restormer(out_channels=3, dim=rp["dim"], num_blocks=tuple(rp["num_blocks"]),
+                         num_refinement_blocks=rp["num_refinement_blocks"],
+                         heads=tuple(rp["heads"]), expansion=rp["ffn_expansion_factor"],
+                         device=device)
+    return UNetRes(in_nc=4, out_nc=3, nc=tuple(sub_cfg.get("nc") or _UNET_NC[None]),
+                   nb=sub_cfg.get("depth", 4), background_subtraction=input_background,
+                   concatenate_compensation=concat_comp, device=device)
+
+
+def _sub(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _load_strict(module, sub_sd, name):
+    """Load ``sub_sd`` into ``module``: every key of the module present,
+    no other, every shape equal, else a RuntimeError naming ``name``."""
+    try:
+        module.load_state_dict(sub_sd, strict=True)
+    except RuntimeError as e:
+        raise RuntimeError(f"checkpoint does not fit the config's {name}: {e}") from e
 
 
 def load_model(model_path: str, psf=None, verbose: bool = False, skip_pre: bool = False,
-               skip_post: bool = False, return_intermediate: bool = False):
-    """Not ported yet: raises NotImplementedError."""
-    raise NotImplementedError(_NOT_PORTED)
+               skip_post: bool = False, return_intermediate: bool = False, device=None):
+    """Rebuild a model from a reference checkpoint folder: its Hydra
+    config ``.hydra/config.yaml`` (``yaml.safe_load``, PyYAML imported
+    here) and its weights ``recon_epoch*`` (``BEST`` if there is one,
+    else the last in ``sorted()`` order), a torch state dict with the
+    reference's keys (``module.`` prefixes stripped; the unrolled
+    schedules ``_mu1_p``, ``_mu2_p``, ``_mu3_p``, ``_tau_p`` at the top
+    level).
+
+    Families: unrolled ADMM, trainable inversion, SVDeconvNet, MultiWiener;
+    UNetRes / DruNet / Restormer pre- and post-processors; a PSF network
+    (with its residual); background networks (direct, learned or
+    integrated subtraction); the compensation branch; the learned-PSF
+    (``psf_epochBEST.npy``, a TrainablePSF mask) and noisy-PSF (``psf.pt``,
+    ``files.psf_snr``) overrides.  Each component that the checkpoint
+    holds is loaded strictly (a missing or extra key, or a shape, raises);
+    one it does not hold keeps its initial values.  ``psf`` is unused, as
+    in the JAX package: the PSF goes to the model's forward.
+
+    Returns ``(model, config)``, or ``(model, config, psf)`` when the
+    checkpoint overrides the PSF (then pass that PSF to the forward):
+    ``model`` an ``nn.Module`` in ``eval()`` mode on ``device`` (None: the
+    CUDA card).  The one difference from the JAX package's signature: its
+    ``(model, variables, config[, psf])`` carries the weights apart, here
+    they live in the module.
+    """
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from ..models.trainable_recon import TrainableRecon
+    from ..models.unet import UNetRes
+
+    device = resolve_device(device)
+    cfg_path = os.path.join(model_path, ".hydra", "config.yaml")
+    if not os.path.isfile(cfg_path):
+        raise FileNotFoundError(f"no embedded config at {cfg_path}")
+    with open(cfg_path) as f:
+        config = yaml.safe_load(f)
+
+    ckpts = sorted(glob.glob(os.path.join(model_path, "recon_epoch*")))
+    if not ckpts:
+        raise FileNotFoundError(f"no checkpoint recon_epoch* in {model_path}")
+    best = [c for c in ckpts if "BEST" in c]
+    ckpt = best[0] if best else ckpts[-1]
+    sd = remove_data_parallel(torch.load(ckpt, map_location="cpu", weights_only=True))
+
+    recon_cfg = config.get("reconstruction", {}) or {}
+    files_cfg = config.get("files", {}) or {}
+    method = recon_cfg.get("method", "unrolled_admm")
+
+    # PSF overrides
+    psf_out = None
+    if (config.get("trainable_mask") or {}).get("mask_type") == "TrainablePSF":
+        p = os.path.join(model_path, "psf_epochBEST.npy")
+        if os.path.isfile(p):
+            psf_out = np.load(p)
+    if files_cfg.get("psf_snr") is not None:
+        p = os.path.join(model_path, "psf.pt")
+        if os.path.isfile(p):
+            psf_out = torch.load(p, map_location="cpu", weights_only=True).numpy()
+
+    def loaded(model):
+        model.eval()
+        if verbose:
+            print(f"loaded {method} from {ckpt}")
+        return (model, config) + ((psf_out,) if psf_out is not None else ())
+
+    if method == "multi_wiener":
+        from ..models.multi_wiener import MultiWiener
+
+        mw_nc = tuple(recon_cfg.get("multi_wiener", {}).get("nc", (64, 128, 256, 512, 512)))
+        model = MultiWiener(in_channels=3, out_channels=3,
+                            psf_channels=1 if files_cfg.get("single_channel_psf") else 3,
+                            nc=mw_nc, device=device)
+        _load_strict(model, {k.replace("avgpool_conv", "pool_conv"): v for k, v in sd.items()
+                             if not k.startswith(("pre_process", "post_process"))},
+                     "multi_wiener")
+        return loaded(model)
+
+    # the camera inversion; its weights under camera_inversion., the
+    # unrolled schedules at the top level
+    inv_sd = {**_sub(sd, "camera_inversion."),
+              **{k: v for k, v in sd.items() if k.startswith(("_mu", "_tau"))}}
+    if method == "unrolled_admm":
+        from ..models.unrolled import UnrolledADMM
+
+        inversion = UnrolledADMM(n_iter=recon_cfg.get("unrolled_admm", {}).get("n_iter", 5),
+                                 device=device)
+    elif method == "trainable_inv":
+        from ..models.inversion import TrainableInversion
+
+        inversion = TrainableInversion(K=recon_cfg.get("trainable_inv", {}).get("K", 1e-4))
+    elif method == "svdeconvnet":
+        from ..models.inversion import SVDeconvNet
+
+        inversion = SVDeconvNet(K=recon_cfg.get("svdeconvnet", {}).get("K", 3), device=device)
+        if psf_out is not None:
+            inv_sd["multipsf"] = torch.from_numpy(np.asarray(psf_out, np.float32))
+    else:
+        raise ValueError(f"unknown reconstruction method: {method!r}")
+    if inv_sd:
+        _load_strict(inversion, inv_sd, "camera inversion")
+
+    # background subtraction, processors, PSF network, compensation branch
+    learned_bg_nc = recon_cfg.get("learned_background_subtraction") or None
+    integrated_bg_nc = recon_cfg.get("integrated_background_subtraction") or None
+    comp_nc = recon_cfg.get("compensation") or None
+    pre_cfg = recon_cfg.get("pre_process") or {}
+    post_cfg = recon_cfg.get("post_process") or {}
+    psf_net_nc = recon_cfg.get("psf_network") or None
+    pre = _build_processor(pre_cfg, device,
+                           input_background=recon_cfg.get("unetres_input_background", False))
+    post = _build_processor(post_cfg, device, concat_comp=comp_nc[-1] if comp_nc else False)
+    comp_branch = None
+    if comp_nc:
+        from ..models.compensation import CompensationBranch
+
+        comp_branch = CompensationBranch(nc=tuple(comp_nc),
+                                         residual=recon_cfg.get("compensation_residual", False),
+                                         device=device)
+
+    def unet(nc):
+        return None if not nc else UNetRes(in_nc=4, out_nc=3, nc=tuple(nc), nb=len(nc),
+                                           device=device)
+
+    model = TrainableRecon(
+        camera_inversion=inversion, pre_process=pre, post_process=post,
+        psf_network=unet(psf_net_nc), background_network=unet(learned_bg_nc),
+        compensation_branch=comp_branch, psf_residual=recon_cfg.get("psf_residual", False),
+        direct_background_subtraction=bool(
+            recon_cfg.get("direct_background_subtraction", False)),
+        integrated_background_subtraction=bool(integrated_bg_nc),
+        skip_unrolled=recon_cfg.get("skip_unrolled", False), skip_pre=skip_pre,
+        skip_post=skip_post, return_intermediate=return_intermediate, device=device)
+
+    for name in ("pre_process", "post_process", "psf_network", "background_network"):
+        net, sub = getattr(model, f"{name}_model"), _sub(sd, f"{name}_model.")
+        if net is not None and sub:
+            _load_strict(net, sub, name)
+            if f"{name}_param" in sd:
+                with torch.no_grad():
+                    getattr(model, f"{name}_param").copy_(sd[f"{name}_param"])
+    comp_sd = _sub(sd, "compensation_branch.")
+    if comp_branch is not None and comp_sd:
+        _load_strict(comp_branch, comp_sd, "compensation branch")
+    return loaded(model)

@@ -159,7 +159,7 @@ def test_sensor_capture_matches_jax(name, downsample, scene_shape, bit_depth):
 def test_sensor_surface():
     assert tsensor.SensorOptions.values() == jsensor.SensorOptions.values()
     assert set(tsensor.sensor_dict) == set(jsensor.sensor_dict)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(FileNotFoundError, match="scene.png"):
         tsensor.VirtualSensor.from_name("rpi_hq", downsample=40).capture("scene.png")
     with pytest.raises(ValueError):
         tsensor.VirtualSensor.from_name("rpi_hq").downsample(1)
@@ -275,8 +275,11 @@ def test_benchmark_noise_lpips_and_refusals(tmp_path, monkeypatch):
     assert again == res
     with pytest.raises(NotImplementedError, match="item 17"):
         tbench.benchmark(rec, batches, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tbench.benchmark(rec, batches, save_idx=[0], save_dir=str(tmp_path), device=CPU)
+    (tmp_path / "saved").mkdir()
+    saved = tbench.benchmark(rec, batches, save_idx=[0], save_dir=str(tmp_path / "saved"),
+                             device=CPU)
+    assert saved == tbench.benchmark(rec, batches, device=CPU)
+    assert [p.name for p in (tmp_path / "saved").iterdir()] == ["recon_0.png"]
     with pytest.raises(ValueError, match="pnp requires"):
         tbench.benchmark(rec, batches, pnp={"mu": 1.0}, device=CPU)
 

@@ -378,8 +378,10 @@ def test_build_model_matches_jax(name):
 def test_build_model_refuses_baselines_and_loaders():
     with pytest.raises(ValueError, match="classical baseline"):
         tzoo.build_model("admm_pnp", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tzoo.load_model("some/checkpoint")
+    with pytest.raises(NotImplementedError, match="network"):
+        tzoo.download_model("diffusercam", "mirflickr", "U20")
+    with pytest.raises(FileNotFoundError, match="config"):
+        tzoo.load_model("some/checkpoint", device=CPU)
     assert tzoo.model_dict == jzoo.model_dict and tzoo._UNET_NC == jzoo._UNET_NC
 
 

@@ -5,7 +5,7 @@ The four compiled solver entries of the JAX package (``recon/admm.py``
 ``run_rsplit_jit`` and ``run_split_jit``) exist in the port with the JAX
 signatures and defaults, and are held to their JAX counterparts on the same
 seeded inputs, ``n_iter`` given as an int and as a 0-d tensor.  Then every
-public top-level name of each of the 28 modules that the two packages share
+public top-level name of each of the 33 modules that the two packages share
 by path (the JAX module's own functions, classes and values, not what it
 imports) exists in the port's module, but for the names that ROADMAP's
 Queue 1 still lists (EXCEPTIONS, each with its item) and one counterpart
@@ -168,25 +168,25 @@ def test_run_split_jit_matches_jax(interpret, backend, kind):
 
 
 # the modules of lenslesspicam_tpu that the port has at the same path
-SHARED = ("data.image", "eval.benchmark", "eval.lpips", "eval.metric", "eval.metrics",
-          "eval.pnp", "hardware.sensor", "models.background", "models.compensation",
+SHARED = ("data.datasets", "data.image", "data.io", "data.simulation", "eval.benchmark",
+          "eval.lpips", "eval.metric", "eval.metrics", "eval.pnp", "hardware.constants",
+          "hardware.sensor", "models.background", "models.compensation",
           "models.inversion", "models.multi_wiener", "models.restormer",
           "models.trainable_recon", "models.unet", "models.unrolled", "ops.fft_conv",
-          "ops.noise", "ops.padding", "ops.tv", "recon.admm", "recon.admm_split",
+          "ops.noise", "ops.padding", "ops.propagation", "ops.tv", "recon.admm",
+          "recon.admm_split",
           "recon.apgd", "recon.base", "recon.gd", "recon.mirflickr", "recon.tikhonov",
           "utils.plot", "zoo.model_dict")
-_ITEM_12 = "ROADMAP Queue 1 item 12 (data and optics)"
+_ITEM_15 = "ROADMAP Queue 1 item 15 (masks, the hub's datasets)"
 _ITEM_18 = "ROADMAP Queue 1 item 18 (utils)"
 # public names of a shared JAX module that the port does not have yet
 EXCEPTIONS = {
-    "data.image": dict.fromkeys(
-        ("FLOAT_DTYPES", "SUPPORTED_BIT_DEPTH", "autocorr2d", "bayer2rgb", "bayer2rgb_cc",
-         "gamma_correction", "get_max_val", "print_image_info", "rgb2bayer", "rotate_HWC",
-         "shift_with_pad"), _ITEM_12),
+    "data.datasets": dict.fromkeys(
+        ("HFDataset", "HFSimulated", "HITLDatasetTrainableMask",
+         "SimulatedDatasetTrainableMask", "get_dataset"), _ITEM_15),
     "utils.plot": dict.fromkeys(
         ("compare_models", "pixel_histogram", "plot_autocorr2d", "plot_autocorr_rgb",
          "plot_cross_section"), _ITEM_18),
-    "zoo.model_dict": {"remove_data_parallel": "ROADMAP Queue 1 item 16 (zoo checkpoints)"},
 }
 # public names whose counterpart has another name in the port
 RENAMED = {"models.trainable_recon": {"ProcessorBlock": "processor_block"}}
@@ -210,7 +210,7 @@ def test_shared_modules_are_every_module_of_both():
                 for p in (root / pkg).rglob("*.py") if p.name != "__init__.py"}
 
     assert set(SHARED) == paths("lenslesspicam_tpu") & paths("lenslesspicam_tpu_torch")
-    assert len(SHARED) == 28 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
+    assert len(SHARED) == 33 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
 
 
 @pytest.mark.parametrize("path", SHARED)
