@@ -46,8 +46,10 @@ solves against the exact one, launch counts, rates), runs the bandwidth
 probe P1-P3 (phase ``bandwidth``: every reading of the JAX script at
 6144 x 8192 bit-equal to its plain version, NaN to NaN, P3 also with NaN,
 inf and overflowing constants on planes holding +-0, +-inf and NaN, then
-timed beside the library copies; the best reading of P1, P2 or their
-library calls is the card's measured streaming rate, and
+timed beside the library copies, each reading the median of 5 timing
+pairs with every pair's rate kept, the gate raising on a median or on two
+pairs above 1.05 x the data sheet's rate; the largest median reading of
+P1, P2 or their library calls is the card's measured streaming rate, and
 every kernel row gets a bound at that rate beside the data sheet's),
 runs every kernel and the v3, full-width fused and pallas solvers at the
 padded grids of GRIDS, where the split designs take their general form
@@ -77,6 +79,16 @@ in-memory model, the card against the CPU, images/s and peak memory,
 ``benchmark`` over a ``MeasuredDataset`` folder saving a reconstruction,
 a learned-PSF override, ``angular_spectrum`` and ``fresnel_conv`` at 12
 MP / 4 and ``FarFieldSimulator`` on a batch of 4, each against the CPU),
+trains (phase ``train``: the JAX bench's train rung, UNetRes pre and post
+around a 5-iteration unrolled ADMM with remat, a batch of 4 at 270 x 480 x
+3, through ``train.trainer.Trainer``: one step on the card against the CPU
+from the same weights, the remat gradient against none and
+``filtered_synthesis``'s backward against plain autograd, a warm-up step
+and 10 steps whose loss falls, steps/s and peak memory; phase
+``train_mask``: DigiCam mask co-optimization, an ``AdafruitLCD`` at
+380 x 507 with the unrolled ADMM for 3 steps on
+``SimulatedDatasetTrainableMask`` batches, its PSF and gradient on the
+card against the CPU; neither launches a kernel of the port),
 checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
@@ -265,6 +277,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # a streaming reading above the data sheet's rate by more than 5 % is a
 # clock that does not scale with the work, not a result
 MAX_BYTES_PER_S = 1.05 * HBM_BYTES_PER_S
+BW_PAIRS = 5                 # timing pairs of each bandwidth reading, whose median it is
 F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 # the bandwidth probe's readings that stream a plane once in and once out,
 # with no other reads: P1, P2 and their library calls
@@ -1388,6 +1401,40 @@ def same_bits(out, ref):
     return int(nan.sum())
 
 
+def bw_reading(fn, x, gbytes, clock=time.perf_counter):
+    """One bandwidth reading of ``fn``: BW_PAIRS calls of ``probe_bw.timed``
+    with one (52 - 2 calls) pair each; the median pair decides ``ms`` and
+    ``gb_per_s``, and every pair's rate is kept (``pair_gb_per_s``).  A
+    median, not the best pair: one base loop slowed by the host shortens
+    its difference and would decide the reading.  A pair whose full loop
+    was not longer than its base loop (``timed`` raises) is dropped and
+    counted (``pairs_dropped``), as ``timed`` drops it among its own pairs;
+    with more than one dropped the clock does not scale, and it raises."""
+    runs, dropped = [], 0
+    for _ in range(BW_PAIRS):
+        try:
+            runs.append(PB.timed(fn, x, gbytes, reps=1, clock=clock))
+        except RuntimeError:
+            dropped += 1
+    if dropped > 1:
+        raise AssertionError(f"bw_reading: {dropped} of {BW_PAIRS} pairs did not scale with "
+                             "their number of calls: the clock does not scale")
+    ms = statistics.median(r["ms"] for r in runs)
+    return {"ms": ms, "gb_per_s": gbytes / (ms * 1e-3),
+            "pair_gb_per_s": [r["gb_per_s"] for r in runs], "pairs_dropped": dropped,
+            "calls": BW_PAIRS * runs[0]["calls"]}
+
+
+def bw_gate(label, pair_rates):
+    """Raise when a reading's median rate is above MAX_BYTES_PER_S, or when
+    two or more of its pairs are: a clock that does not scale shows in many
+    pairs, one descheduled base loop in one."""
+    over = [r for r in pair_rates if r * 1e9 > MAX_BYTES_PER_S]
+    if statistics.median(pair_rates) * 1e9 > MAX_BYTES_PER_S or len(over) >= 2:
+        raise AssertionError(f"{label}: pairs at {pair_rates} GB/s, median or {len(over)} above "
+                             f"{MAX_BYTES_PER_S / 1e9:.1f}: the clock does not scale")
+
+
 def bandwidth_phase(smi):
     """The bandwidth probe P1-P3 at 6144 x 8192 in every reading of the JAX
     script's three modes (``probe_bw.sweep``), and P3 at f32 (br = 16,
@@ -1404,10 +1451,10 @@ def bandwidth_phase(smi):
     version, P3 with the JAX script's ones and with each stack of
     P3_EDGE_CONSTS, and P3 at 12 MP on planes with X_SPECIALS with each
     stack of P3_EDGE_CONSTS.  Rates count two plane-bytes a call, as the
-    JAX script does; a
-    rate above MAX_BYTES_PER_S raises.  ``measured_bytes_per_s``, the
-    card's streaming ceiling, is the largest reading of a kernel or library
-    call of STREAM_PROBES; the line names the reading.  Returns
+    JAX script does; ``bw_gate`` raises on a reading above MAX_BYTES_PER_S.
+    ``measured_bytes_per_s``, the card's streaming ceiling, is the largest
+    median reading of a kernel or library call of STREAM_PROBES; the line
+    names the reading.  Returns
     (measured_bytes_per_s, launch counts of all timed runs, of the f32
     ones)."""
     t0 = time.perf_counter()
@@ -1454,25 +1501,29 @@ def bandwidth_phase(smi):
         consts = PB.const_planes(n, "cuda") if n is not None else None
         same(name, x, br, consts, f"{dtype} br={br} n={n}")
         gb = PB.plane_gbytes(x)
-        r, c = counted(lambda: PB.timed(PB.step(name, br, consts), x, gb),
+        label = f"{name} {dtype} br={br} n={n}"
+        r, c = counted(lambda: bw_reading(PB.step(name, br, consts), x, gb),
                        lambda r: zero_counts(**{name: r["calls"]}), f"{name} {dtype} br={br}")
-        plain = PB.timed(PB.step(name, br, consts, PB.PLAIN), x, gb)
+        plain = bw_reading(PB.step(name, br, consts, PB.PLAIN), x, gb)
         lib_name, lib = probe_library(name)
-        lib_r = PB.timed(lib, x, gb) if lib else None
-        rates = [r["gb_per_s"], plain["gb_per_s"]] + ([lib_r["gb_per_s"]] if lib_r else [])
-        if not max(rates) * 1e9 <= MAX_BYTES_PER_S:
-            raise AssertionError(f"{name} {dtype} br={br} n={n}: {max(rates):.1f} GB/s is above "
-                                 f"{MAX_BYTES_PER_S / 1e9:.1f}: the clock does not scale")
+        lib_r = bw_reading(lib, x, gb) if lib else None
+        for what, rd in (("kernel", r), ("plain", plain), ("library", lib_r)):
+            if rd is not None:
+                bw_gate(f"{label} {what}", rd["pair_gb_per_s"])
         for k in counts:
             counts[k] += c[k]
             counts_f32[k] += c[k] if dtype == F32 else 0
         readings.append({"probe": KERNEL_INFO[name][0], "name": name,
                          "dtype": str(dtype).removeprefix("torch."), "br": br, "n_consts": n,
                          **PB.design(name, *x.shape, x.element_size(), br),
-                         "ms": r["ms"], "gb_per_s": r["gb_per_s"], "plain_ms": plain["ms"],
-                         "plain_gb_per_s": plain["gb_per_s"], "library": lib_name,
+                         "ms": r["ms"], "gb_per_s": r["gb_per_s"],
+                         "pair_gb_per_s": r["pair_gb_per_s"], "plain_ms": plain["ms"],
+                         "plain_gb_per_s": plain["gb_per_s"],
+                         "plain_pair_gb_per_s": plain["pair_gb_per_s"], "library": lib_name,
                          "library_ms": lib_r["ms"] if lib_r else None,
-                         "library_gb_per_s": lib_r["gb_per_s"] if lib_r else None})
+                         "library_gb_per_s": lib_r["gb_per_s"] if lib_r else None,
+                         "library_pair_gb_per_s": lib_r["pair_gb_per_s"] if lib_r else None,
+                         "pairs_dropped": [rd["pairs_dropped"] for rd in (r, plain, lib_r) if rd]})
         del x, consts
     streams = [(rd[key], {"call": rd["library"] if key == "library_gb_per_s" else rd["probe"],
                           "dtype": rd["dtype"], "br": rd["br"]})
@@ -1482,8 +1533,11 @@ def bandwidth_phase(smi):
     best_p1 = max(rd["gb_per_s"] for rd in readings if rd["name"] == "pure_copy_plane")
     measured = ceiling * 1e9
     emit({"phase": "bandwidth", "grid": list(PB.PLANE),
-          "method": "probe_bw.timed: (52 calls - 2 calls) chained, best of 3 pairs, "
-                    "2 plane-bytes a call", "readings": readings, "edges_bit_equal": edges,
+          "method": f"bw_reading: the median of {BW_PAIRS} pairs of probe_bw.timed (52 calls - "
+                    "2 calls) chained, 2 plane-bytes a call, every pair's rate kept, a "
+                    "pair that does not scale dropped (at most one); the "
+                    "ceiling: the largest median of the STREAM_PROBES kernel and library "
+                    "readings", "readings": readings, "edges_bit_equal": edges,
           "measured_bytes_per_s": measured, "measured_from": ceiling_from,
           "best_p1_bytes_per_s": best_p1 * 1e9, "best_p1_share_of_measured": best_p1 / ceiling,
           "data_sheet_bytes_per_s": HBM_BYTES_PER_S,
@@ -2447,6 +2501,255 @@ def zoo_load_phase(learned, device="cuda"):
     return rec
 
 
+# --- training (phases train and train_mask) ------------------------------------------
+
+# the JAX bench's train rung (bench.py:761-830): Unet4M+U5+Unet4M's
+# processors around a 5-iteration unrolled ADMM that recomputes its steps
+# in the backward, a batch of 4 at the DiffuserCam grid, Adam at 1e-4 with
+# a global-norm clip of 1.0 (TrainerConfig's defaults)
+TRAIN_GRID = DIFFUSERCAM
+TRAIN_BATCH = 4
+TRAIN_NC = ((32, 64, 112, 128), (32, 64, 116, 128))     # bench.py:785-786, pre and post
+TRAIN_STEPS = 10                     # after one warm-up step (bench.py:801-822)
+TRAIN_SEED = 23
+# the card against the CPU at batch 1 runs both models in float64: in
+# float32 the seeded processors' gradients move by up to 2e-2 of their max
+# under a 1e-6 change of the measurement (ReLUs flip), so no fixed float32
+# bound can tell a wrong gradient from round-off; the float32 step's
+# errors are printed beside it
+TOL_TRAIN = {"loss": 1e-5,           # relative
+             "grad": 1e-4,           # max |card - cpu| / max |cpu| of each parameter's gradient
+             "update": 1e-6,         # the parameters after one update from the CPU's gradients
+             "remat": 1e-5,          # remat=True against remat=False on the card, each gradient
+             "vjp": 1e-5}            # filtered_synthesis's backward against plain autograd, f32
+# DigiCam mask co-optimization, configs/sim_digicam_psf.yaml: the Adafruit
+# LCD on the RPi HQ sensor at downsample 8 (380 x 507), a 19 x 26
+# controllable region, scene2mask 0.3 m, mask2sensor 2 mm, flipud and
+# deadspace on
+MASK_SHAPE = (19, 26)
+MASK_DOWNSAMPLE = 8
+MASK_GEOMETRY = dict(scene2mask=0.3, mask2sensor=0.002, flipud=True, deadspace=True)
+MASK_STEPS = 3
+MASK_OBJECTS = (8, 96, 128)          # seeded RGB objects, count and size
+TOL_MASK = {"psf": 1e-5, "grad": 1e-4}
+
+
+def train_model(device, remat=True):
+    """The train rung's TrainableRecon on ``device`` with seeded weights
+    carried from a JAX-layout tree."""
+    from lenslesspicam_tpu_torch.models.trainable_recon import TrainableRecon
+    from lenslesspicam_tpu_torch.models.unet import UNetRes
+    from lenslesspicam_tpu_torch.models.unrolled import UnrolledADMM
+
+    model = TrainableRecon(
+        UnrolledADMM(n_iter=5, remat=remat, device=device),
+        pre_process=UNetRes(out_nc=3, nc=TRAIN_NC[0], nb=4, device=device),
+        post_process=UNetRes(out_nc=3, nc=TRAIN_NC[1], nb=4, device=device), device=device)
+    model.load_state_dict(convert.state_dict(model, convert.random_variables(model, TRAIN_SEED)))
+    return model
+
+
+def train_inputs():
+    """The bench's seeded PSF and batch (bench.py:776-780), numpy float32."""
+    rng = np.random.RandomState(0)
+    psf = rng.rand(1, *TRAIN_GRID, 3).astype(np.float32)
+    psf /= np.linalg.norm(psf)
+    shape = (TRAIN_BATCH, 1, *TRAIN_GRID, 3)
+    return psf, {"lensless": rng.rand(*shape).astype(np.float32),
+                 "lensed": rng.rand(*shape).astype(np.float32)}
+
+
+def grad_errs(grads, ref):
+    """max |g - ref| / max |ref| of each parameter (0 where both are 0)."""
+    out = []
+    for g, r in zip(grads, ref):
+        d = float((g.detach().cpu() - r.detach().cpu()).abs().max())
+        m = float(r.detach().abs().max())
+        out.append(d / m if m > 0 else 0.0 if d == 0 else math.inf)
+    return out
+
+
+def synthesis_vjp_err(device):
+    """``filtered_synthesis``'s hand-written backward against autograd of
+    its plain form on the card, a complex and a real filter at the train
+    rung's padded grid: the largest error of dx and dH."""
+    from lenslesspicam_tpu_torch.ops.fft_conv import filtered_synthesis
+
+    ph, pw = (padded_size(n, "ref") for n in TRAIN_GRID)
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    x = torch.randn(2, 1, ph, pw, 3, generator=gen, device=device)
+    g = torch.randn(2, 1, ph, pw, 3, generator=gen, device=device)
+    errs = []
+    for H in (torch.randn(1, ph, pw // 2 + 1, 3, 2, generator=gen, device=device),
+              torch.rand(1, ph, pw // 2 + 1, 1, generator=gen, device=device)):
+        H = torch.view_as_complex(H) if H.shape[-1] == 2 else H
+        grads = []
+        for fn in (lambda a, b: filtered_synthesis(a, b, (ph, pw)),
+                   lambda a, b: torch.fft.irfft2(torch.fft.rfft2(a, dim=(-3, -2)) * b,
+                                                 s=(ph, pw), dim=(-3, -2))):
+            a, b = x.clone().requires_grad_(), H.clone().requires_grad_()
+            grads.append(torch.autograd.grad(fn(a, b), (a, b), g))
+        errs += [nerr(a.cpu(), b.cpu()) for a, b in zip(*grads)]
+    return max(errs)
+
+
+def train_phase(device="cuda"):
+    """The phase ``train``: the JAX bench's train rung (bench.py:761-830)
+    through the port's ``Trainer`` on ``device``: one float64 step at batch 1
+    on the card against the CPU from the same weights (loss, every gradient,
+    and the parameters after both optimizers take the CPU's gradients), the
+    float64 remat gradient against the one without remat on the card (the
+    float32 step's card-against-CPU errors printed, not gated) and
+    ``filtered_synthesis``'s backward against plain autograd on the card,
+    then one warm-up step and
+    TRAIN_STEPS steps threading the real optimizer state (the loss after
+    them below the warm-up loss, the bench's gate), steps/s by ``rate`` (1
+    against 6 steps, 3 pairs) and the peak device memory.  Every counted
+    run launches none of the port's kernels.  ``device="cpu"`` rehearses it
+    (with the CUDA calls patched out and TRAIN_GRID made small)."""
+    from lenslesspicam_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("f32 parity needs TF32 off")
+    t0 = time.perf_counter()
+    psf, batch = train_inputs()
+    one = {k: v[:1] for k, v in batch.items()}
+    cfg = TrainerConfig(epochs=1, lr=1e-4)
+
+    def trainer(model, dev):
+        return Trainer(model, psf, lambda: iter([batch]), [batch], cfg, device=dev)
+
+    one64 = {k: v.astype(np.float64) for k, v in one.items()}
+    card, cpu = (trainer(train_model(dev).double(), dev) for dev in (device, "cpu"))
+    loss_c, grads_c, _ = cpu.loss_and_grads(one64)
+    loss_g, grads_g, _ = card.loss_and_grads(one64)
+    plain = trainer(train_model(device, remat=False).double(), device)
+    loss_p, grads_p, _ = plain.loss_and_grads(one64)
+    cpu.apply_grads(grads_c)
+    card.apply_grads([g.to(device) for g in grads_c])
+    card_errs = grad_errs(grads_g, grads_c)
+    names = [n for n, _ in card.named_params]
+    errs = {"loss": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+            "grad": max(card_errs),
+            "update": max(grad_errs([p for _, p in card.named_params],
+                                    [p for _, p in cpu.named_params])),
+            "remat": max(*grad_errs(grads_g, grads_p),
+                         abs(float(loss_g) - float(loss_p)) / abs(float(loss_p))),
+            "vjp": synthesis_vjp_err(device)}
+    for k, err in errs.items():
+        if not err <= TOL_TRAIN[k]:
+            raise AssertionError(f"train: {k} {err:.3e} above {TOL_TRAIN[k]}")
+    errs["grad_worst_param"] = names[max(range(len(names)), key=card_errs.__getitem__)]
+    del card, cpu, plain, grads_c, grads_g, grads_p
+    # float32, as the rung trains: printed, not gated
+    errs32 = grad_errs(*(trainer(train_model(dev), dev).loss_and_grads(one)[1]
+                         for dev in (device, "cpu")))
+    errs["f32_not_gated"] = {"grad_max": max(errs32),
+                             "params_above_1e-4": sum(e > TOL_TRAIN["grad"] for e in errs32),
+                             "params": len(errs32)}
+
+    run = trainer(train_model(device), device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    loss0 = float(run.train_step(batch))
+    losses, counts = counted(lambda: [run.train_step(batch) for _ in range(TRAIN_STEPS)],
+                             zero_counts(), "train")
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(losses[-1])
+    if not (math.isfinite(loss0) and math.isfinite(loss) and loss < loss0):
+        raise AssertionError(f"train: the loss did not decrease ({loss0} -> {loss} over "
+                             f"{TRAIN_STEPS + 1} steps)")
+    steps = rate(lambda k: [run.train_step(batch) for _ in range(k)], base=1, full=6, pairs=3)
+    rec = {"phase": "train", "model": f"UNetRes nc {TRAIN_NC[0]} nb 4 + UnrolledADMM n 5 remat "
+                                      f"+ UNetRes nc {TRAIN_NC[1]} nb 4",
+           "grid": [*TRAIN_GRID, 3], "batch": TRAIN_BATCH, "config": "Adam lr 1e-4, clip 1.0",
+           "parameters": sum(p.numel() for _, p in run.named_params),
+           "loss_warmup": loss0, "loss_after": loss, "steps": TRAIN_STEPS + 1,
+           "losses": [float(v) for v in losses],
+           "steps_per_s": steps, "method": "(6 - 1) Trainer.train_step calls, 3 pairs",
+           "peak_mem_bytes": peak, "resident_bytes": resident, "card_vs_cpu_batch1": errs,
+           "card_vs_cpu_dtype": "float64", "tol": TOL_TRAIN, "launches": counts,
+           "kernels": "none of the port's: cuFFT (torch.fft) and cuDNN convolutions",
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+def train_mask_phase(device="cuda"):
+    """The phase ``train_mask``: DigiCam mask co-optimization with the
+    geometry of configs/sim_digicam_psf.yaml: an ``AdafruitLCD`` with
+    seeded values, its PSF and the gradient of a seeded weighting of it on
+    the card against the CPU from the same values, then a 5-iteration
+    unrolled ADMM trained with the mask through ``Trainer`` for MASK_STEPS
+    steps on ``SimulatedDatasetTrainableMask`` batches of 4, each simulated
+    through the mask's current PSF: the loss finite, the mask's values
+    moved and inside [0, 1].  No kernel of the port launches.
+    ``device="cpu"`` rehearses it (CUDA calls patched out)."""
+    from lenslesspicam_tpu_torch.data.datasets import SimulatedDatasetTrainableMask
+    from lenslesspicam_tpu_torch.data.simulation import FarFieldSimulator
+    from lenslesspicam_tpu_torch.hardware.trainable_mask import AdafruitLCD
+    from lenslesspicam_tpu_torch.models.trainable_recon import TrainableRecon
+    from lenslesspicam_tpu_torch.models.unrolled import UnrolledADMM
+    from lenslesspicam_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(TRAIN_SEED)
+    vals = rng.rand(*MASK_SHAPE).astype(np.float32)
+
+    def lcd(dev):
+        return AdafruitLCD(vals, sensor="rpi_hq", downsample=MASK_DOWNSAMPLE, device=dev,
+                           **MASK_GEOMETRY)
+
+    card_mask, cpu_mask = lcd(device), lcd("cpu")
+    psfs, grads = [], []
+    for m in (card_mask, cpu_mask):
+        psf = m.get_psf(m.params)
+        weight = torch.from_numpy(np.random.RandomState(1).rand(*psf.shape).astype(np.float32))
+        grads.append(torch.autograd.grad((psf * weight.to(psf.device)).sum(), m.params["vals"])[0])
+        psfs.append(psf.detach())
+    errs = {"psf": nerr(psfs[0].cpu(), psfs[1]), "grad": nerr(grads[0].cpu(), grads[1])}
+    for k, err in errs.items():
+        if not err <= TOL_MASK[k]:
+            raise AssertionError(f"train_mask: {k} card against CPU {err:.3e}")
+    del cpu_mask, grads
+
+    n, h, w = MASK_OBJECTS
+    images = [rng.rand(h, w, 3).astype(np.float32) for _ in range(n)]
+    sim = FarFieldSimulator(object_height=0.3, scene2mask=MASK_GEOMETRY["scene2mask"],
+                            mask2sensor=MASK_GEOMETRY["mask2sensor"], sensor="rpi_hq",
+                            quantize=False, device=device)
+    data = SimulatedDatasetTrainableMask(card_mask, images, sim)
+    model = TrainableRecon(UnrolledADMM(n_iter=5, device=device), device=device)
+    trainer = Trainer(model, data.psf, lambda: data.batches(4), [], TrainerConfig(epochs=1),
+                      mask=card_mask, device=device)
+    before = card_mask.params["vals"].detach().clone()
+
+    def steps():
+        losses = []
+        for _ in range(MASK_STEPS):
+            data.set_psf()
+            losses.append(float(trainer.train_step(next(data.batches(4)))))
+        return losses
+
+    losses, counts = counted(steps, zero_counts(), "train_mask")
+    after = card_mask.params["vals"].detach()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_mask: losses {losses}")
+    if torch.equal(after, before) or not (float(after.min()) >= 0.0 and float(after.max()) <= 1.0):
+        raise AssertionError("train_mask: the mask's values did not move or left [0, 1]")
+    rec = {"phase": "train_mask", "mask": "AdafruitLCD rpi_hq downsample 8",
+           "psf_grid": list(psfs[0].shape), "controllable": list(MASK_SHAPE),
+           "geometry": MASK_GEOMETRY, "model": "UnrolledADMM n 5", "batch": 4,
+           "steps": MASK_STEPS, "losses": losses,
+           "mask_moved_max": float((after - before).abs().max()),
+           "mask_range": [float(after.min()), float(after.max())],
+           "card_vs_cpu": errs, "tol": TOL_MASK, "launches": counts,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2677,6 +2980,9 @@ def main():
     seconds["learned"] = learned["seconds"]
     seconds["files"] = files_phase(psf2d, meas, scene_n)["seconds"]
     seconds["zoo_load"] = zoo_load_phase(learned)["seconds"]
+    train = train_phase()
+    seconds["train"] = train["seconds"]
+    seconds["train_mask"] = train_mask_phase()["seconds"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
     del meas

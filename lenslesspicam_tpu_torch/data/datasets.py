@@ -17,7 +17,9 @@ the JAX package:
 * ``DigiCamCelebA``, measured DigiCam images paired with CelebA originals
   projected to the lensed plane;
 * ``simulate_dataset``, the config-driven simulated dataset from arrays or
-  seeded random images.
+  seeded random images;
+* ``SimulatedDatasetTrainableMask``, a simulated dataset whose PSF comes
+  from a trainable mask (hardware/trainable_mask.py).
 
 The input-SNR noise is drawn by a ``torch.Generator`` seeded from the
 dataset's ``np.random.RandomState(seed)`` stream, one seed per sample, as
@@ -25,11 +27,11 @@ the JAX package seeds its ``jax.random`` key (``ops.noise`` holds the
 arithmetic after the draw).  Samples stay on the host; the simulators
 convolve on ``device`` (None: the CUDA card) and hand the result back.
 
-The datasets that download from the Hugging Face hub or draw their PSFs
-from ``hardware/mask.py`` (``HFDataset``, ``HFSimulated``, ``get_dataset``,
-``SimulatedDatasetTrainableMask``, ``HITLDatasetTrainableMask``) are not
-ported yet (ROADMAP Queue 1 item 15), nor is ``simulate_dataset``'s
-download of MNIST, Fashion-MNIST or CIFAR-10.
+The datasets that download from the Hugging Face hub or capture on a
+Raspberry Pi over SSH (``HFDataset``, ``HFSimulated``, ``get_dataset``,
+``HITLDatasetTrainableMask``) are not ported yet (ROADMAP Queue 1 item
+19), nor is ``simulate_dataset``'s download of MNIST, Fashion-MNIST or
+CIFAR-10.
 """
 
 from __future__ import annotations
@@ -431,6 +433,30 @@ class DigiCamCelebA(DualDataset):
         return lensless, lensed
 
 
+class SimulatedDatasetTrainableMask(SimulatedFarFieldDataset):
+    """Simulated dataset whose PSF is regenerated from a trainable mask
+    (dataset.py:980-1032): ``set_psf`` refreshes the simulator with the
+    mask's current PSF (computed without gradients; None: from its
+    current parameters)."""
+
+    def __init__(self, mask, dataset, simulator, **kwargs):
+        self._mask = mask
+        if simulator.conv is None:
+            with torch.no_grad():
+                simulator.set_psf(mask.get_psf(mask.params))
+        if simulator.quantize:
+            raise ValueError("the simulator must not quantize (differentiability; "
+                             "dataset.py:1014-1016)")
+        super().__init__(dataset, simulator, **kwargs)
+
+    def set_psf(self, psf=None):
+        if psf is None:
+            with torch.no_grad():
+                psf = self._mask.get_psf(self._mask.params)
+        self.sim.set_psf(psf)
+        self.psf = as_host(self.sim.get_psf())
+
+
 def simulate_dataset(config: dict, psf=None, device=None):
     """Config-driven simulated dataset.
 
@@ -448,7 +474,7 @@ def simulate_dataset(config: dict, psf=None, device=None):
     if isinstance(name, str) and name in ("mnist", "fashion_mnist", "cifar10"):
         raise NotImplementedError(
             f"the {name} dataset is downloaded from the Hugging Face hub, which the "
-            "port does not reach yet (ROADMAP Queue 1 item 15); pass the images as arrays")
+            "port does not reach yet (ROADMAP Queue 1 item 19); pass the images as arrays")
     if isinstance(name, (list, np.ndarray)):
         images = [np.asarray(im, np.float32) for im in name]
     else:

@@ -4,8 +4,9 @@ Host numpy code, as in the JAX package, without OpenCV:
 
 * ``resize`` computes what ``cv2.resize`` computes for float images
   (INTER_CUBIC: Keys' cubic with a = -0.75; INTER_LINEAR: linear;
-  half-pixel centres, replicated border, no antialiasing) as two products
-  with float64 weight matrices;
+  half-pixel centres, replicated border, no antialiasing; INTER_NEAREST:
+  the source pixel ``floor(i * n_in / n_out)``) as two products with
+  float64 weight matrices;
 * ``demosaic`` is ``cv2.cvtColor(raw, cv2.COLOR_BayerRG2RGB)`` bit for
   bit, edges included (bilinear, integer sums rounded half up);
 * ``rotate_bilinear`` is ``cv2.warpAffine`` with a rotation matrix, in
@@ -19,9 +20,10 @@ import numpy as np
 SUPPORTED_BIT_DEPTH = np.array([8, 10, 12, 16])
 FLOAT_DTYPES = (np.float32, np.float64)
 
-INTER_LINEAR = 1      # cv2's codes, which the JAX package's callers pass
+INTER_NEAREST = 0     # cv2's codes, which the JAX package's callers pass
+INTER_LINEAR = 1
 INTER_CUBIC = 2
-_KINDS = {INTER_LINEAR: "linear", INTER_CUBIC: "cubic"}
+_KINDS = {INTER_NEAREST: "nearest", INTER_LINEAR: "linear", INTER_CUBIC: "cubic"}
 
 
 def _cubic_coeffs(x):
@@ -36,6 +38,12 @@ def _cubic_coeffs(x):
 
 def resize_weights(n_in: int, n_out: int, kind: str = "cubic") -> np.ndarray:
     """(n_out, n_in) float64 weights of ``cv2.resize`` along one axis."""
+    if kind == "nearest":     # cv2's resizeNN: cvFloor(x * (1 / (n_out / n_in)))
+        src = np.minimum(np.floor(np.arange(n_out) * (1.0 / (n_out / n_in))).astype(np.int64),
+                         n_in - 1)
+        w = np.zeros((n_out, n_in))
+        w[np.arange(n_out), src] = 1.0
+        return w
     fx = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
     sx = np.floor(fx)
     fx = fx - sx

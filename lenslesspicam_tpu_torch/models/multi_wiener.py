@@ -9,8 +9,9 @@ padded to a multiple of 8; the output mapped ``(x + 1) / 2`` and clipped
 at 0.  NCHW inside; parameters named as the reference's
 (multi_wiener.py: ``inc``, ``inc0``, ``down_layers``, ``psf_down``,
 ``up_layers``, ``outc``).  BatchNorm has flax's momentum 0.99 (0.01 in
-PyTorch's convention) and eps 1e-5; ``eval()`` uses the running
-statistics.
+PyTorch's convention) and eps 1e-5; ``train()`` updates the running
+variance with the biased batch variance, as flax does; ``eval()`` uses the
+running statistics.
 """
 
 from __future__ import annotations
@@ -24,9 +25,27 @@ from torch import nn
 from .._device import module_input, resolve_device
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose ``train()`` forward updates the running
+    statistics as flax ``nn.BatchNorm`` does: ``running_var`` with the
+    biased batch variance (PyTorch's own uses the unbiased one, n / (n - 1)
+    times larger).  The state-dict names are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            mean = x.mean(dim=(0, 2, 3))
+            var = x.var(dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 def batch_norm(ch: int) -> nn.BatchNorm2d:
     """flax ``nn.BatchNorm``'s defaults: momentum 0.99, eps 1e-5."""
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.01)
+    return FlaxBatchNorm2d(ch, eps=1e-5, momentum=0.01)
 
 
 class DoubleConv(nn.Module):

@@ -103,22 +103,24 @@ class TrainableRecon(nn.Module):
     def _make_convolver(self, psf) -> FFTConvolver:
         inv = self.camera_inversion
         if inv is not None and hasattr(type(inv), "make_convolver"):
-            return type(inv).make_convolver(psf, pad_policy=self.pad_policy, device=psf.device)
-        return FFTConvolver.from_psf(psf, pad=True, norm="ortho", pad_policy=self.pad_policy,
-                                     device=psf.device)
+            return type(inv).make_convolver(psf, dtype=psf.dtype, pad_policy=self.pad_policy,
+                                            device=psf.device)
+        return FFTConvolver.from_psf(psf, pad=True, norm="ortho", dtype=psf.dtype,
+                                     pad_policy=self.pad_policy, device=psf.device)
 
     def _process(self, name, image, **kwargs):
         return processor_block(getattr(self, f"{name}_model"), getattr(self, f"{name}_param"),
                                image, **kwargs)
 
     def forward(self, data, psf, background=None):
-        device = self._anchor.device
-        data = module_input(data, device)
-        psf = module_input(psf, device)
+        # inputs take the module's dtype: float32 unless it was converted
+        device, dtype = self._anchor.device, self._anchor.dtype
+        data = module_input(data, device, dtype)
+        psf = module_input(psf, device, dtype)
         if data.ndim != 5:
             raise ValueError("data must be (B, D, H, W, C)")
         if background is not None:
-            background = module_input(background, device)
+            background = module_input(background, device, dtype)
 
         # 1. background subtraction (trainable_recon.py:318-335)
         if self.direct_background_subtraction or (

@@ -8,9 +8,11 @@ the trailing ``ifftshift`` is folded into ``H`` as the real
 ``(-1)^(ky + kx)`` mask, so ``deconvolve`` uses ``conj(H)`` of the same
 stored spectrum.  ``norm`` applies to ``H`` only: the data's FFTs keep
 the backward norm, as in the JAX package (and the reference's
-``RealFFTConvolve2D``).  ``filtered_synthesis`` is differentiated by
-plain autograd: the JAX package's hand-written backward, a memory saving
-for training, comes with training.
+``RealFFTConvolve2D``).  ``filtered_synthesis`` has the JAX package's
+hand-written backward (fft_conv.py:49-93): the adjoint of a circular
+convolution is the circular convolution with ``conj(H)``, so the backward
+runs the forward's FFT pattern again and keeps only ``rfft2(x)`` and
+``H`` from the forward.
 """
 
 from __future__ import annotations
@@ -24,10 +26,52 @@ from .._device import resolve_device
 from .padding import padded_size
 
 
+class _FilteredSynthesis(torch.autograd.Function):
+    """``irfft2(rfft2(x) * H)`` with the JAX package's VJP: ``dx =
+    irfft2(rfft2(g) conj(H))`` and JAX's spectrum cotangent ``w / N
+    conj(rfft2(g)) rfft2(x)``, ``w`` the half-spectrum weights (1 at DC
+    and, for an even width, at Nyquist, 2 elsewhere), summed over the axes
+    ``H`` was broadcast along and made real for a real ``H``.  PyTorch's
+    gradient of a complex tensor is the conjugate of JAX's cotangent, so
+    ``dH`` is ``w / N rfft2(g) conj(rfft2(x))``."""
+
+    @staticmethod
+    def forward(ctx, x, H, s):
+        X = torch.fft.rfft2(x, dim=(-3, -2))
+        ctx.save_for_backward(X, H)
+        ctx.s = s
+        return torch.fft.irfft2(X * H, s=s, dim=(-3, -2))
+
+    @staticmethod
+    def backward(ctx, g):
+        X, H = ctx.saved_tensors
+        ph, pw = ctx.s
+        G = torch.fft.rfft2(g, dim=(-3, -2))
+        dx = dH = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.fft.irfft2(G * torch.conj(H), s=ctx.s, dim=(-3, -2))
+        if ctx.needs_input_grad[1]:
+            w = torch.full((pw // 2 + 1,), 2.0, device=G.device)
+            w[0] = 1.0
+            if pw % 2 == 0:
+                w[-1] = 1.0
+            dH = (w[None, :, None] / (ph * pw)) * G * torch.conj(X)
+            extra = dH.ndim - H.ndim
+            if extra:
+                dH = dH.sum(dim=tuple(range(extra)))
+            for axis, (da, hb) in enumerate(zip(dH.shape, H.shape)):
+                if hb == 1 and da != 1:
+                    dH = dH.sum(dim=axis, keepdim=True)
+            if not H.is_complex():
+                dH = dH.real     # a real filter (ADMM's R_divmat): a real cotangent
+            dH = dH.to(H.dtype)
+        return dx, dH, None
+
+
 def filtered_synthesis(x, H, s):
-    """``irfft2(rfft2(x) * H)`` over axes (-3, -2)."""
-    y = torch.fft.rfft2(x, dim=(-3, -2)) * H
-    return torch.fft.irfft2(y, s=s, dim=(-3, -2))
+    """``irfft2(rfft2(x) * H)`` over axes (-3, -2), differentiated by the
+    hand-written backward of :class:`_FilteredSynthesis`."""
+    return _FilteredSynthesis.apply(x, H, tuple(s))
 
 
 def _spatial_pad(x, pad_widths):

@@ -1,6 +1,6 @@
 """In-loop kernel times of the port's solvers on one card.
 
-    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4|learned]
+    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4|learned|train]
                               [--mode bench|f32] [--n 20]
 
 Builds the port's kernels, makes the 12 MP certification measurement of
@@ -36,7 +36,15 @@ off; no kernel of the port is built or launched) and adds the device time
 by group (``groups``: cuDNN's layout transposes, its convolutions, cuFFT's
 transforms, the rest), the convolutions' operations per call counted from
 their shapes (2 per multiply-add) and their time at the card's f32 peak,
-and images/s; its it/s are forward calls per second.  Exits non-zero without a CUDA device.
+and images/s; its it/s are forward calls per second.  ``--solver train``
+traces ``--n`` steps of ``chip_smoke.py``'s train rung (``Trainer.train_step``
+on the JAX bench's model and batch, TF32 off, after two warm-up steps) with
+the same groups plus the optimizer's (``optimizer``: Adam's and the clip's
+elementwise kernels), and times each stage of a step with CUDA events, the
+median over ``--n`` steps: the forward and the loss with the autograd graph
+(``forward_ms``), ``loss_and_grads`` (``forward_backward_ms``; the backward is
+the difference) and ``apply_grads`` (``update_ms``); its it/s are steps per
+second.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -134,6 +142,7 @@ def measurement(solver, scene, psf2d):
 # device kernels by what computes them, from their names: cuDNN's layout
 # transposes around its convolutions, its convolutions (implicit GEMM,
 # the transposed convolutions' dgrad engine), cuFFT's transforms
+OPTIMIZER_GROUP = ("optimizer", re.compile(r"multi_tensor|adam|foreach", re.I))
 KERNEL_GROUPS = (("layout", re.compile(r"nhwcToNchw|nchwToNhwc", re.I)),
                  ("convolution", re.compile(r"conv|cudnn|xmma|winograd|implicit|fprop", re.I)),
                  ("fft", re.compile(r"fft", re.I)))
@@ -183,13 +192,7 @@ def profile_learned(n):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         calls = cs.rate(forward, base=1, full=6, pairs=3)
-    kernels = {}
-    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = device_time_us(evt)
-            kernels[evt.key] = {"us": us, "calls": evt.count, "us_per_call": us / max(evt.count, 1)}
-            groups[next((g for g, rx in KERNEL_GROUPS if rx.search(evt.key)), "other")] += us
+    kernels, groups = kernel_groups(prof, KERNEL_GROUPS)
     total = sum(k["us"] for k in kernels.values())
     print(json.dumps({"solver": "learned", "model": cs.LEARNED_NAME,
                       "grid": [*cs.DIFFUSERCAM, 3], "batch": cs.LEARNED_BATCH, "forward_calls": n,
@@ -204,11 +207,80 @@ def profile_learned(n):
     return 0
 
 
+def kernel_groups(prof, groups_rx):
+    """Device time by kernel and by group of a finished trace."""
+    kernels = {}
+    groups = dict.fromkeys([g for g, _ in groups_rx] + ["other"], 0.0)
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = device_time_us(evt)
+            kernels[evt.key] = {"us": us, "calls": evt.count, "us_per_call": us / max(evt.count, 1)}
+            groups[next((g for g, rx in groups_rx if rx.search(evt.key)), "other")] += us
+    return kernels, groups
+
+
+def profile_train(n):
+    """Trace ``n`` steps of the train rung (module docstring); print one
+    JSON line."""
+    from lenslesspicam_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    psf, batch = cs.train_inputs()
+    trainer = Trainer(cs.train_model("cuda"), psf, lambda: iter([batch]), [batch],
+                      TrainerConfig(epochs=1, lr=1e-4), device="cuda")
+    data, lensed = (torch.from_numpy(batch[k]).cuda() for k in ("lensless", "lensed"))
+    psf_t = torch.from_numpy(psf).cuda()
+
+    def steps(k):
+        for _ in range(k):
+            trainer.train_step(batch)
+
+    def forward():
+        trainer.model.train()
+        return trainer._loss(trainer.model(data, psf_t), lensed, psf_t, None)
+
+    def stage_ms(fn):
+        out = []
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return float(np.median(out))
+
+    steps(2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        steps(n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, groups = kernel_groups(prof, (OPTIMIZER_GROUP, *KERNEL_GROUPS))
+    total = sum(k["us"] for k in kernels.values())
+    grads = trainer.loss_and_grads(batch)[1]
+    stages = {"forward_ms": stage_ms(forward),
+              "forward_backward_ms": stage_ms(lambda: trainer.loss_and_grads(batch)),
+              "update_ms": stage_ms(lambda: trainer.apply_grads(grads))}
+    stages["backward_ms"] = stages["forward_backward_ms"] - stages["forward_ms"]
+    print(json.dumps({"solver": "train", "grid": [*cs.TRAIN_GRID, 3], "batch": cs.TRAIN_BATCH,
+                      "steps": n, "kernels": kernels, "kernel_us": total, "groups": groups,
+                      "group_share": {g: us / total for g, us in groups.items()} if total else None,
+                      "kernel_us_per_step": total / n, "stages": stages, "wall_us": wall_us,
+                      "busy_share": total / wall_us if wall_us else None,
+                      "it_per_s": cs.rate(steps, base=1, full=6, pairs=3),
+                      "card": card_name()}), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--solver",
                     choices=("rsplit", "rsplit_v2", "split", "pallas", "rgb", "batch4",
-                             "learned"),
+                             "learned", "train"),
                     default="rsplit")
     ap.add_argument("--mode", choices=("bench", "f32"), default="bench")
     ap.add_argument("--n", type=int, default=20)
@@ -218,6 +290,8 @@ def main():
         return 1
     if args.solver == "learned":
         return profile_learned(args.n)
+    if args.solver == "train":
+        return profile_train(args.n)
     if (args.solver, args.mode) not in MODES:
         print(f"profile_solver: {args.solver} runs in the bench mode only", file=sys.stderr)
         return 2

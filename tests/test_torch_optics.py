@@ -317,7 +317,7 @@ def test_simulate_dataset_offline_matches_jax(monkeypatch, images):
     for idx in range(len(t)):
         for a, b in zip(t[idx], j[idx]):
             assert _rel(a, b) <= TOL
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         tds.simulate_dataset({"dataset": "mnist"}, psf=psf, device=CPU)
 
 

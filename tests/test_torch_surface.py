@@ -5,7 +5,7 @@ The four compiled solver entries of the JAX package (``recon/admm.py``
 ``run_rsplit_jit`` and ``run_split_jit``) exist in the port with the JAX
 signatures and defaults, and are held to their JAX counterparts on the same
 seeded inputs, ``n_iter`` given as an int and as a 0-d tensor.  Then every
-public top-level name of each of the 33 modules that the two packages share
+public top-level name of each of the 40 modules that the two packages share
 by path (the JAX module's own functions, classes and values, not what it
 imports) exists in the port's module, but for the names that ROADMAP's
 Queue 1 still lists (EXCEPTIONS, each with its item) and one counterpart
@@ -169,21 +169,21 @@ def test_run_split_jit_matches_jax(interpret, backend, kind):
 
 # the modules of lenslesspicam_tpu that the port has at the same path
 SHARED = ("data.datasets", "data.image", "data.io", "data.simulation", "eval.benchmark",
-          "eval.lpips", "eval.metric", "eval.metrics", "eval.pnp", "hardware.constants",
-          "hardware.sensor", "models.background", "models.compensation",
+          "eval.lpips", "eval.metric", "eval.metrics", "eval.pnp", "hardware.aperture",
+          "hardware.constants", "hardware.mask", "hardware.sensor", "hardware.slm",
+          "hardware.trainable_mask", "models.background", "models.compensation",
           "models.inversion", "models.multi_wiener", "models.restormer",
           "models.trainable_recon", "models.unet", "models.unrolled", "ops.fft_conv",
           "ops.noise", "ops.padding", "ops.propagation", "ops.tv", "recon.admm",
           "recon.admm_split",
           "recon.apgd", "recon.base", "recon.gd", "recon.mirflickr", "recon.tikhonov",
-          "utils.plot", "zoo.model_dict")
-_ITEM_15 = "ROADMAP Queue 1 item 15 (masks, the hub's datasets)"
+          "train.loggers", "train.steps", "train.trainer", "utils.plot", "zoo.model_dict")
+_ITEM_19 = "ROADMAP Queue 1 item 19 (the hub's and the hardware-in-the-loop datasets)"
 _ITEM_18 = "ROADMAP Queue 1 item 18 (utils)"
 # public names of a shared JAX module that the port does not have yet
 EXCEPTIONS = {
     "data.datasets": dict.fromkeys(
-        ("HFDataset", "HFSimulated", "HITLDatasetTrainableMask",
-         "SimulatedDatasetTrainableMask", "get_dataset"), _ITEM_15),
+        ("HFDataset", "HFSimulated", "HITLDatasetTrainableMask", "get_dataset"), _ITEM_19),
     "utils.plot": dict.fromkeys(
         ("compare_models", "pixel_histogram", "plot_autocorr2d", "plot_autocorr_rgb",
          "plot_cross_section"), _ITEM_18),
@@ -210,7 +210,7 @@ def test_shared_modules_are_every_module_of_both():
                 for p in (root / pkg).rglob("*.py") if p.name != "__init__.py"}
 
     assert set(SHARED) == paths("lenslesspicam_tpu") & paths("lenslesspicam_tpu_torch")
-    assert len(SHARED) == 33 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
+    assert len(SHARED) == 40 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
 
 
 @pytest.mark.parametrize("path", SHARED)
@@ -228,3 +228,65 @@ def test_port_module_has_every_public_jax_name(path):
     missing = sorted(n for n in public - set(skip)
                      if not hasattr(tmod, renamed.get(n, n)))
     assert missing == []
+
+
+# --- chip_smoke.py's bandwidth readings -------------------------------------------------
+
+def _pair_clock(ms_per_call):
+    """A stand-in clock for ``probe_bw.timed`` with one pair a call: each
+    pair reads (t0, t1, t2) so that its (52 - 2)-call difference is the
+    given time per call."""
+    times = []
+    for d in ms_per_call:
+        times += [0.0, 52 * d * 1e-3, 54 * d * 1e-3]
+    return iter(times).__next__
+
+
+@pytest.mark.parametrize("ms,median_ms,raises", [
+    ([1.0, 1.1, 0.9, 1.05, 0.95], 1.0, False),
+    ([1.0, 0.01, 0.9, 1.05, 0.95], 0.95, False),     # one descheduled base loop
+    ([1.0, 0.01, 0.02, 1.05, 0.95], 0.95, True),     # two pairs over the gate
+    ([0.01, 0.02, 0.03, 1.05, 0.95], 0.03, True),    # the median over the gate
+])
+def test_bandwidth_reading_is_the_median_of_its_pairs(ms, median_ms, raises):
+    """``chip_smoke.bw_reading`` takes the median of BW_PAIRS pairs of
+    ``probe_bw.timed`` (a stand-in clock in place of the card's), keeps
+    every pair's rate, and ``bw_gate`` raises on a median above
+    MAX_BYTES_PER_S or on two pairs above it, not on one."""
+    import chip_smoke as cs
+
+    gbytes = 2.0     # 2 GB a call: 1 ms is 2000 GB/s, 0.03 ms over the 3517.5 GB/s gate
+    rd = cs.bw_reading(lambda s: s, torch.zeros(4), gbytes, clock=_pair_clock(ms))
+    assert cs.BW_PAIRS == len(ms) == len(rd["pair_gb_per_s"])
+    assert rd["ms"] == pytest.approx(median_ms) and rd["calls"] == 5 * (2 + 52 + 2)
+    assert rd["gb_per_s"] == pytest.approx(gbytes / (median_ms * 1e-3))
+    assert rd["pair_gb_per_s"] == pytest.approx([gbytes / (d * 1e-3) for d in ms])
+    if raises:
+        with pytest.raises(AssertionError, match="clock does not scale"):
+            cs.bw_gate("probe", rd["pair_gb_per_s"])
+    else:
+        cs.bw_gate("probe", rd["pair_gb_per_s"])
+
+
+@pytest.mark.parametrize("ms,median_ms,dropped", [
+    ([1.0, 0.0, 0.9, 1.05, 0.95], 0.975, 1),         # one pair's loops took the same time
+    ([1.0, 0.0, -0.5, 1.05, 0.95], None, 2),        # two pairs did not scale
+])
+def test_bandwidth_reading_drops_a_pair_that_does_not_scale(ms, median_ms, dropped):
+    """A pair whose full loop was not longer than its base loop is no
+    reading: ``chip_smoke.bw_reading`` drops it and counts it, takes the
+    median of the others and every call made, and raises when more than
+    one of its BW_PAIRS pairs does not scale (a stand-in clock in place of
+    the card's)."""
+    import chip_smoke as cs
+
+    gbytes = 2.0
+    if median_ms is None:
+        with pytest.raises(AssertionError, match="clock does not scale"):
+            cs.bw_reading(lambda s: s, torch.zeros(4), gbytes, clock=_pair_clock(ms))
+        return
+    rd = cs.bw_reading(lambda s: s, torch.zeros(4), gbytes, clock=_pair_clock(ms))
+    assert rd["pairs_dropped"] == dropped and rd["calls"] == 5 * (2 + 52 + 2)
+    assert rd["ms"] == pytest.approx(median_ms)
+    assert rd["pair_gb_per_s"] == pytest.approx([gbytes / (d * 1e-3) for d in ms if d > 0])
+    cs.bw_gate("probe", rd["pair_gb_per_s"])
