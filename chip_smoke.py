@@ -89,7 +89,14 @@ and 10 steps whose loss falls, steps/s and peak memory; phase
 380 x 507 with the unrolled ADMM for 3 steps on
 ``SimulatedDatasetTrainableMask`` batches, its PSF and gradient on the
 card against the CPU; neither launches a kernel of the port),
-checks that each counted run went
+runs the row-sharded spatial ADMM of ``parallel/spatial.py`` over a
+one-rank NCCL group (phase ``spatial``: at 12 MP gray the rpallas backend
+(K1, K4, K5, K9), the pallas backend (K12-K15) and auto, which must
+choose rpallas, and rpallas at 3 MP RGB, each against the exact solver,
+with launch counts, collectives, peak memory, host precompute seconds and
+the loop's it/s; the collectives per iteration beside
+``ici_traffic_model``; the on-path kernels at a 4-way split's pencil
+shapes), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -128,6 +135,7 @@ from lenslesspicam_tpu_torch.recon.admm import ADMMParams
 from lenslesspicam_tpu_torch.models.trainable_recon import processor_block
 from lenslesspicam_tpu_torch.models.unet import drunet_denoise
 from lenslesspicam_tpu_torch.recon.base import ADMM, apply_admm
+from lenslesspicam_tpu_torch.utils.tracing import F32_FLOP_PER_S, HBM_BYTES_PER_S
 from lenslesspicam_tpu_torch.zoo.model_dict import _UNET_NC, build_model
 
 SENSOR = (3040, 4056)        # 12 MP, padded to 6144 x 8192
@@ -273,12 +281,10 @@ K15_K17_FORMS = ("h_passB", "h_passB:inverse", "h_passB:filter", "h_passB:invers
                  "h_passB_dual")
 K16_K18_FORMS = ("h_passB_combine", "h_passB_combine2")
 TOL_SYNTHESIS = 1e-4         # filtered_synthesis_pallas2 vs torch.fft (tests/test_pallas_fft.py:93)
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 # a streaming reading above the data sheet's rate by more than 5 % is a
 # clock that does not scale with the work, not a result
 MAX_BYTES_PER_S = 1.05 * HBM_BYTES_PER_S
 BW_PAIRS = 5                 # timing pairs of each bandwidth reading, whose median it is
-F32_FLOP_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 # the bandwidth probe's readings that stream a plane once in and once out,
 # with no other reads: P1, P2 and their library calls
 STREAM_PROBES = ("pure_copy_plane", "copy_plane")
@@ -1668,6 +1674,146 @@ def grids_phase():
 # matmul and cuDNN convolutions, as the JAX package computes them outside
 # any Pallas kernel)
 CLASSICAL_N, CLASSICAL_DISP = 10, 4
+SPATIAL_N = 10
+SPATIAL_RATE = dict(base=2, full=12, pairs=3)
+# 3 MP RGB, MULTICHIP_r05.json's second case (__graft_entry__.py:188-235):
+# the certification scene of seed 11 at 1536 x 2048, scaled 1, 0.75, 0.55
+# per channel, padded to 3072 x 4096
+SPATIAL_RGB = (1536, 2048)
+SPATIAL_RGB_SCALES = (1.0, 0.75, 0.55)
+# the pencil shapes one rank of a 4-way split of the 12 MP grid gives the
+# kernels (no card with 4 GPUs is at hand): K1 on the stacked rk and v (2
+# planes) and K9 at ph / 4 = 1536 rows, K4 and K5 at the half width / 4 =
+# 1024 lanes, K12 and K13 at 1536 rows, K14 and K15 at the width / 4 = 2048
+SPATIAL_SPLIT = 4
+TOL_SPATIAL = 1e-4           # max |spatial - exact| / max |exact| at n = 10
+
+
+def want_spatial_counts(n, backend="rpallas"):
+    """Launches of an n-iteration spatial solve: rpallas per iteration K1
+    on the stacked rk and v, K4 twice, K5, K9; pallas K12 twice, K14 and
+    K15 four times each, K13 twice; whatever the number of planes."""
+    if backend == "rpallas":
+        return zero_counts(rfft_w=n, h_passA_pair=2 * n, h_combine_dual=n, irfft_w_dual=n)
+    return zero_counts(fft_w=2 * n, h_passA=4 * n, h_passB=4 * n, ifft_w=2 * n)
+
+
+def spatial_kernels(ph, pw, n=SPATIAL_SPLIT):
+    """K1, K4, K5, K9 and K12-K15 against their plain versions at one
+    rank's pencil shapes of an n-way split of the (ph, pw) grid, f32, as
+    the spatial loop calls them (a stack of one plane; K1 of two)."""
+    one = (1, 1)
+    check_kernels(ph // n, pw, False, F32, F32, F32, F32, f"spatial{n}", names=("rfft_w",),
+                  planes=(2, 1))
+    check_kernels(ph // n, pw, False, F32, F32, F32, F32, f"spatial{n}",
+                  names=("irfft_w_dual",), planes=one)
+    check_kernels(ph, pw // n, False, F32, F32, F32, F32, f"spatial{n}", planes=one,
+                  names=("h_passA_pair", "h_passA_pair:inverse", "h_combine_dual"))
+    check_kernels(ph // n, pw, False, F32, F32, F32, F32, f"spatial{n}", planes=one,
+                  names=("fft_w", "ifft_w"), cases=split_kernel_cases)
+    check_kernels(ph, pw // n, False, F32, F32, F32, F32, f"spatial{n}", planes=one,
+                  names=("h_passA", "h_passA:inverse", "h_passB", "h_passB:inverse"),
+                  cases=pallas_kernel_cases)
+
+
+def spatial_solve(mesh, conv, data5, scene_n, backend, exact, label):
+    """One spatial solve at n = SPATIAL_N through ``backend`` against the
+    exact solve: launch counts, collectives, peak memory, the gates, the
+    rate of the loop (its host precompute and placement timed apart)."""
+    from lenslesspicam_tpu_torch.parallel import distributed as pdist, spatial
+
+    chosen = spatial._choose_backend(mesh, conv, backend, None)
+    params = ADMMParams()
+    torch.cuda.reset_peak_memory_stats()
+    pdist.reset_collective_counts()
+    out, counts = counted(lambda: spatial.spatial_sharded_admm(
+        mesh, conv, data5, params, SPATIAL_N, backend=backend),
+        want_spatial_counts(SPATIAL_N, chosen), f"{label} {backend}")
+    peak = torch.cuda.max_memory_allocated()
+    coll = pdist.collective_counts()
+    if out.shape != exact.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label} {backend}: output not finite at {tuple(exact.shape)}")
+    err = nerr(out, exact)
+    p_exact, p_out = psnr_db(exact, scene_n), psnr_db(out, scene_n)
+    if not (err <= TOL_SPATIAL and abs(p_exact - p_out) <= TOL_PSNR_DB):
+        raise AssertionError(f"{label} {backend}: {err:.3e} of the max, PSNR {p_out:.3f} vs "
+                             f"exact {p_exact:.3f} dB")
+    t0 = time.perf_counter()
+    inputs = (spatial._rpallas_inputs if chosen == "rpallas" else spatial._pallas_inputs)(
+        mesh, conv, data5, params)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    ph, pw = conv.padded_shape[1:3]
+    build = (lambda k: spatial._build_rpallas_run(mesh, ph, pw, params, k)) \
+        if chosen == "rpallas" else (lambda k: spatial._build_pallas_run(mesh, ph, params, k))
+    rec = {"backend": backend, "chosen": chosen, "n_iter": SPATIAL_N, "vs_exact": err,
+           "psnr_exact_db": p_exact, "psnr_db": p_out, "launches": counts,
+           "collectives_per_solve": coll, "peak_mem_bytes": peak,
+           "host_precompute_s": t_pre,
+           "loop_it_per_s": rate(lambda k: build(k)(*inputs), **SPATIAL_RATE)}
+    del inputs
+    return rec
+
+
+def spatial_phase(psf2d, meas, scene_n, device="cuda"):
+    """The row-sharded spatial ADMM (``parallel/spatial.py``) over a
+    one-rank NCCL group on this card: at 12 MP gray (pad_policy "tpu",
+    6144 x 8192) the rpallas, pallas and auto backends (auto must choose
+    rpallas) and at 3 MP RGB rpallas, each within TOL_SPATIAL of the max
+    of the exact solver and TOL_PSNR_DB of its PSNR at n = 10, with its
+    launch counts, collectives, peak memory, host precompute seconds and
+    the loop's it/s (n = 12 against 2, 3 pairs); the rpallas loop's
+    collectives per iteration beside ``ici_traffic_model``; the on-path
+    kernels at a 4-way split's pencil shapes.  Every collective goes
+    through NCCL (all_to_all_single, all_gather_into_tensor, the halo's
+    batch_isend_irecv to the rank itself).  ``device="cpu"`` rehearses it
+    over gloo (the plain versions; ``torch.cuda`` calls patched)."""
+    from lenslesspicam_tpu_torch.parallel import distributed as pdist, spatial
+
+    t0 = time.perf_counter()
+    rank, world = pdist.initialize(f"127.0.0.1:{pdist._free_port()}", 1, 0, device=device)
+    backend = "nccl" if device == "cuda" else "gloo"
+    try:
+        if (rank, world, torch.distributed.get_backend()) != (0, 1, backend):
+            raise AssertionError(f"spatial: group {rank}/{world} "
+                                 f"{torch.distributed.get_backend()}")
+        mesh = pdist.multihost_mesh(("sp",))
+        conv = admm.make_convolver(psf2d[None, :, :, None], pad_policy="tpu", device=device)
+        ph, pw = conv.padded_shape[1:3]
+        data5 = meas[None, None, :, :, None]
+        exact = admm.run(conv, data5, n_iter=SPATIAL_N)
+        sc5 = scene_n[None, None, :, :, None]
+        gray = {b: spatial_solve(mesh, conv, data5, sc5, b, exact, "spatial 12 MP")
+                for b in ("rpallas", "pallas", "auto")}
+        if gray["auto"]["chosen"] != "rpallas":
+            raise AssertionError(f"spatial auto chose {gray['auto']['chosen']}")
+        traffic = {"counted": spatial.collective_bytes_per_iter(mesh, ph, pw, n_iter=2),
+                   "model": spatial.ici_traffic_model(ph, pw, pdist.axis_size(mesh, "sp"))}
+        del exact
+
+        scene, psf = cert_scene_psf(SPATIAL_RGB, np.random.RandomState(11))
+        scene_rgb = np.stack([scene * s for s in SPATIAL_RGB_SCALES], axis=-1)
+        psf_rgb = np.repeat(psf[None, :, :, None], 3, axis=-1)
+        fwd = FFTConvolver.from_psf(psf_rgb, pad=True, norm="backward", device=device)
+        meas3 = fwd.convolve(torch.from_numpy(scene_rgb[None, None]).to(device))
+        meas3 = meas3 / meas3.amax(dim=(-3, -2), keepdim=True).clamp_min(1e-9)
+        del fwd
+        conv3 = admm.make_convolver(psf_rgb, pad_policy="tpu", device=device)
+        exact3 = admm.run(conv3, meas3, n_iter=SPATIAL_N)
+        sc3 = torch.from_numpy(scene_rgb / scene_rgb.max()).to(device)[None, None]
+        rgb = spatial_solve(mesh, conv3, meas3, sc3, "rpallas", exact3, "spatial 3 MP RGB")
+        del exact3, meas3
+        spatial_kernels(ph, pw)
+    finally:
+        pdist.shutdown()
+    rec = {"phase": "spatial", "grid": list(meas.shape), "padded": [ph, pw], "world_size": world,
+           "backend": backend, "gray": gray, "traffic_per_iter": traffic,
+           "rgb": {"grid": list(SPATIAL_RGB), "padded": list(conv3.padded_shape[1:3]), **rgb},
+           "tol": TOL_SPATIAL, "tol_db": TOL_PSNR_DB, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 CLASSICAL_SMALL = (32, 40, 3)        # tests/test_api.py's grid
 DIFFUSERCAM = GRIDS[0]               # 270 x 480 (bench.py:34)
 TOL_CHUNKED = 1e-5                   # apply(disp_iter) against one run, normalized
@@ -2971,6 +3117,10 @@ def main():
     for mode in ("rgb", "batch4"):
         modes[mode] = mode_phase(mode, scene, psf2d, conv)
         seconds[mode] = modes[mode]["seconds"]
+    spatial = spatial_phase(psf2d, meas, scene_n)
+    seconds["spatial"] = spatial["seconds"]
+    for b in ("rpallas", "pallas"):
+        rates[f"spatial_{b}_loop_it_per_s"] = spatial["gray"][b]["loop_it_per_s"]
     for mode in modes:
         rates[f"{mode}_it_per_s"] = modes[mode]["it_per_s"]
         rates[f"{mode}_plane_it_per_s"] = modes[mode]["plane_it_per_s"]
@@ -3010,7 +3160,9 @@ def main():
              "round_trip": counts_rt, "split_bench": split["launches_bench"],
              "split_round_trip": counts_srt, "split_pallas_bf16": pallas["launches_bf16"],
              "filtered_synthesis": synthesis["launches"], "fft_h_combine2": counts_c2["bf16"],
-             "bandwidth": counts_bw, "learned": learned["launches"]}
+             "bandwidth": counts_bw, "learned": learned["launches"],
+             "spatial": spatial["gray"]["rpallas"]["launches"],
+             "spatial_pallas": spatial["gray"]["pallas"]["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else

@@ -21,6 +21,13 @@ callable over (lensless, lensed) pairs with the reference's semantics:
 
 The batches go to ``device`` (None: the CUDA card) and every metric is
 computed there.
+
+Mesh-sharded evaluation: with ``mesh`` (a ``DeviceMesh`` with a 'data'
+dim, ``parallel.sharding.make_mesh``) each rank of the dim reconstructs
+its block of every batch (the shot noise is drawn on the whole batch
+first, so it is the noise of ``mesh=None``), the per-image metrics are
+all-gathered over the dim, and every rank returns what ``mesh=None``
+returns.  Every metric must then be per image (shape ``(batch,)``).
 """
 
 from __future__ import annotations
@@ -59,6 +66,42 @@ def _lpips_pair(pred, target):
     return p4, t4
 
 
+class _Shard:
+    """This rank's block of each batch along the mesh's 'data' dim, and
+    the all-gather of its per-image metrics (no mesh: the whole batch)."""
+
+    def __init__(self, mesh):
+        self.group, self.n, self.k = None, 1, 0
+        if mesh is not None:
+            from ..parallel.distributed import axis_size
+
+            if "data" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+                raise ValueError("mesh must be a DeviceMesh with a 'data' dim")
+            self.group = mesh.get_group("data")
+            self.n, self.k = axis_size(mesh, "data"), mesh.get_local_rank("data")
+
+    def start(self, batch: int) -> int:
+        return self.k * (batch // self.n)
+
+    def block(self, x):
+        if self.group is None or x is None:
+            return x
+        if x.shape[0] % self.n:
+            raise ValueError(f"a batch of {x.shape[0]} does not divide over {self.n} ranks")
+        b = x.shape[0] // self.n
+        return x[self.k * b:(self.k + 1) * b]
+
+    def gather(self, name, values):
+        if self.group is None:
+            return values
+        from ..parallel.distributed import all_gather
+
+        if values.dim() != 1:
+            raise ValueError(f"metric {name}: a mesh needs per-image values, got shape "
+                             f"{tuple(values.shape)}")
+        return all_gather(values, 0, self.group)
+
+
 def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = None,
               crop: Optional[dict] = None, normalize: bool = True,
               generator: Optional[torch.Generator] = None,
@@ -85,11 +128,8 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
     Parameterize-and-Perturb adaptation per batch, in place of
     ``reconstruct``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded evaluation comes with the port's parallel layer "
-            "(ROADMAP Queue 1 item 17); run with mesh=None")
     device = resolve_device(device)
+    shard = _Shard(mesh)
     if lpips_fn is None and lpips_alex_fn is None:
         from .lpips import metrics_from_env
 
@@ -111,7 +151,8 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
     total = 0
 
     def add(name, values, n):
-        sums[name] = sums.get(name, 0.0) + float(torch.sum(as_tensor(values, None, device)))
+        values = shard.gather(name, as_tensor(values, None, device))
+        sums[name] = sums.get(name, 0.0) + float(torch.sum(values))
         counts[name] = counts.get(name, 0) + n
 
     def add_metrics(pred, target, n, suffix=""):
@@ -131,6 +172,9 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
         psfs, background = batch.get("psfs"), batch.get("background")
         if snr is not None:
             lensless = add_shot_noise(lensless, snr, generator)
+        n = int(lensless.shape[0])
+        lensless, lensed, psfs, background = (shard.block(a) for a in
+                                              (lensless, lensed, psfs, background))
 
         if pnp is not None:
             from .pnp import parameterize_perturb
@@ -159,13 +203,13 @@ def benchmark(reconstruct: Callable, batches: Iterable, snr: Optional[float] = N
             from ..data.io import save_image
 
             for local_i in range(pred.shape[0]):
-                if total + local_i in save_idx:
-                    save_image(pred[local_i], f"{save_dir}/recon_{total + local_i}.png")
+                i = total + shard.start(n) + local_i
+                if i in save_idx:
+                    save_image(pred[local_i], f"{save_dir}/recon_{i}.png")
         if crop is not None:
             pred = _apply_crop(pred, crop)
             lensed = _apply_crop(lensed, crop)
 
-        n = int(lensless.shape[0])
         add_metrics(pred, lensed, n)
         if model is not None and hasattr(model, "reconstruction_error"):
             add("ReconstructionError",

@@ -1,6 +1,7 @@
 """In-loop kernel times of the port's solvers on one card.
 
-    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4|learned|train]
+    python3 profile_solver.py [--solver rsplit|rsplit_v2|split|pallas|rgb|batch4|spatial|
+                                        spatial_pallas|learned|train]
                               [--mode bench|f32] [--n 20]
 
 Builds the port's kernels, makes the 12 MP certification measurement of
@@ -9,7 +10,8 @@ solve of ``--n`` iterations with ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON line: for every CUDA kernel its device time
 in all and per call and its number of calls; the sum over kernels, split
 into the port's own CUDA kernels (``port_us``) and PyTorch's (``torch_us``:
-the state algebra, casts, copies, ``dc_patch``'s FFTs); the traced
+the state algebra, casts, copies, ``dc_patch``'s FFTs; NCCL's kernels
+among them, also apart as ``nccl_us``); the traced
 window's wall time and the device's busy share of it (the sum over the
 window); per iteration the bytes that PyTorch's operations read and write
 (``torch_bytes_per_iter``, counted by a dispatch mode over a 1- and a
@@ -22,7 +24,10 @@ views and allocations nothing); the solver's it/s by the difference method
 full-width ``run_split(backend="fused")``, ``pallas`` the full-width
 ``run_split(backend="pallas")``, ``rgb`` and ``batch4`` the JAX bench's RGB
 (3 planes) and gray batch=4 rungs through ``run_rsplit_general`` (always
-in the headline mode); ``--mode bench`` runs a solver in the storage modes
+in the headline mode), ``spatial`` and ``spatial_pallas`` the loop of
+``parallel/spatial.py``'s rpallas and pallas backends over a one-rank NCCL
+group at f32 (``--mode f32``; its host precompute and placement before the
+trace, the final gather not in it); ``--mode bench`` runs a solver in the storage modes
 the JAX bench's headline environment gives it (bf16 spectra, int16
 carries; the full-width fused path keeps f32 TV carries, the pallas path
 has no carries), ``f32`` at f32.  The ``rsplit``, ``rsplit_v2``, ``split``,
@@ -71,7 +76,7 @@ MODES = {("rsplit", "bench"): HEADLINE, ("rsplit_v2", "bench"): HEADLINE,
          ("pallas", "bench"): dict(io="bf16"),
          ("rgb", "bench"): HEADLINE, ("batch4", "bench"): HEADLINE,
          ("rsplit", "f32"): {}, ("rsplit_v2", "f32"): {}, ("split", "f32"): {},
-         ("pallas", "f32"): {}}
+         ("pallas", "f32"): {}, ("spatial", "f32"): {}, ("spatial_pallas", "f32"): {}}
 
 
 def device_time_us(evt) -> float:
@@ -280,7 +285,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--solver",
                     choices=("rsplit", "rsplit_v2", "split", "pallas", "rgb", "batch4",
-                             "learned", "train"),
+                             "spatial", "spatial_pallas", "learned", "train"),
                     default="rsplit")
     ap.add_argument("--mode", choices=("bench", "f32"), default="bench")
     ap.add_argument("--n", type=int, default=20)
@@ -293,7 +298,8 @@ def main():
     if args.solver == "train":
         return profile_train(args.n)
     if (args.solver, args.mode) not in MODES:
-        print(f"profile_solver: {args.solver} runs in the bench mode only", file=sys.stderr)
+        print(f"profile_solver: {args.solver} does not run in the {args.mode} mode",
+              file=sys.stderr)
         return 2
     _build.build_all()
     scene, psf2d = cs.cert_scene_psf(cs.SENSOR, np.random.RandomState(0))
@@ -305,6 +311,26 @@ def main():
 
         def solve(k):
             return admm_split.run_rsplit(pre, n_iter=k, placement=placement, **modes)
+    elif args.solver in ("spatial", "spatial_pallas"):
+        from lenslesspicam_tpu_torch.parallel import distributed as pdist, spatial
+        from lenslesspicam_tpu_torch.recon import admm
+
+        pdist.initialize(device="cuda")
+        mesh = pdist.multihost_mesh(("sp",))
+        conv = admm.make_convolver(psf[None, :, :, None], pad_policy="tpu")
+        ph, pw = conv.padded_shape[1:3]
+        data5 = torch.from_numpy(meas).to("cuda")[None, None, :, :, None]
+        params = admm.ADMMParams()
+        if args.solver == "spatial":
+            inputs = spatial._rpallas_inputs(mesh, conv, data5, params)
+
+            def solve(k):
+                return spatial._build_rpallas_run(mesh, ph, pw, params, k)(*inputs)
+        else:
+            inputs = spatial._pallas_inputs(mesh, conv, data5, params)
+
+            def solve(k):
+                return spatial._build_pallas_run(mesh, ph, params, k)(*inputs)
     elif args.solver in ("rgb", "batch4"):
         pre, info = admm_split.precompute_rsplit_general(psf, meas)
         meas_t = torch.from_numpy(meas).to("cuda")
@@ -335,6 +361,7 @@ def main():
             if any(re.search(rf"\b{n}\b", evt.key) for n in own):
                 port_us += us
     total = sum(k["us"] for k in kernels.values())
+    nccl_us = sum(k["us"] for name, k in kernels.items() if "nccl" in name.lower())
     counted = []
     for k in (1, 2):
         with ByteCount() as bc:
@@ -344,6 +371,7 @@ def main():
     print(json.dumps({"solver": args.solver, "mode": args.mode, "modes": modes,
                       "n_iter": args.n, "grid": list(cs.SENSOR), "kernels": kernels,
                       "kernel_us": total, "port_us": port_us, "torch_us": total - port_us,
+                      "nccl_us": nccl_us,
                       "torch_us_per_iter": (total - port_us) / args.n,
                       "torch_bytes_per_iter": counted[1] - counted[0],
                       "wall_us": wall_us, "busy_share": total / wall_us if wall_us else None,

@@ -273,7 +273,7 @@ def test_benchmark_noise_lpips_and_refusals(tmp_path, monkeypatch):
     again = tbench.benchmark(rec, batches, snr=10.0, device=CPU,
                              generator=torch.Generator().manual_seed(0))
     assert again == res
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="'data' dim"):
         tbench.benchmark(rec, batches, mesh=object(), device=CPU)
     (tmp_path / "saved").mkdir()
     saved = tbench.benchmark(rec, batches, save_idx=[0], save_dir=str(tmp_path / "saved"),

@@ -5,7 +5,7 @@ The four compiled solver entries of the JAX package (``recon/admm.py``
 ``run_rsplit_jit`` and ``run_split_jit``) exist in the port with the JAX
 signatures and defaults, and are held to their JAX counterparts on the same
 seeded inputs, ``n_iter`` given as an int and as a 0-d tensor.  Then every
-public top-level name of each of the 40 modules that the two packages share
+public top-level name of each of the 45 modules that the two packages share
 by path (the JAX module's own functions, classes and values, not what it
 imports) exists in the port's module, but for the names that ROADMAP's
 Queue 1 still lists (EXCEPTIONS, each with its item) and one counterpart
@@ -174,22 +174,25 @@ SHARED = ("data.datasets", "data.image", "data.io", "data.simulation", "eval.ben
           "hardware.trainable_mask", "models.background", "models.compensation",
           "models.inversion", "models.multi_wiener", "models.restormer",
           "models.trainable_recon", "models.unet", "models.unrolled", "ops.fft_conv",
-          "ops.noise", "ops.padding", "ops.propagation", "ops.tv", "recon.admm",
+          "ops.noise", "ops.padding", "ops.propagation", "ops.tv",
+          "parallel.distributed", "parallel.sharding", "parallel.spatial", "recon.admm",
           "recon.admm_split",
           "recon.apgd", "recon.base", "recon.gd", "recon.mirflickr", "recon.tikhonov",
-          "train.loggers", "train.steps", "train.trainer", "utils.plot", "zoo.model_dict")
+          "train.loggers", "train.steps", "train.trainer", "utils.config", "utils.plot",
+          "utils.tracing", "zoo.model_dict")
 _ITEM_19 = "ROADMAP Queue 1 item 19 (the hub's and the hardware-in-the-loop datasets)"
-_ITEM_18 = "ROADMAP Queue 1 item 18 (utils)"
 # public names of a shared JAX module that the port does not have yet
 EXCEPTIONS = {
     "data.datasets": dict.fromkeys(
         ("HFDataset", "HFSimulated", "HITLDatasetTrainableMask", "get_dataset"), _ITEM_19),
-    "utils.plot": dict.fromkeys(
-        ("compare_models", "pixel_histogram", "plot_autocorr2d", "plot_autocorr_rgb",
-         "plot_cross_section"), _ITEM_18),
 }
-# public names whose counterpart has another name in the port
-RENAMED = {"models.trainable_recon": {"ProcessorBlock": "processor_block"}}
+# public names whose counterpart has another name in the port: the JAX
+# package's audits of compiled HLO and its count of TPU matmul calls read, in
+# the port, the counted collectives and the kernel launches
+RENAMED = {"models.trainable_recon": {"ProcessorBlock": "processor_block"},
+           "parallel.spatial": {"hlo_collective_bytes_per_iter": "collective_bytes_per_iter"},
+           "parallel.distributed": {"hlo_dcn_psum_bytes": "allreduce_bytes"},
+           "utils.tracing": {"fused_admm_matmuls_per_iter": "fused_admm_launches_per_iter"}}
 
 
 def _public(mod):
@@ -210,7 +213,7 @@ def test_shared_modules_are_every_module_of_both():
                 for p in (root / pkg).rglob("*.py") if p.name != "__init__.py"}
 
     assert set(SHARED) == paths("lenslesspicam_tpu") & paths("lenslesspicam_tpu_torch")
-    assert len(SHARED) == 40 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
+    assert len(SHARED) == 45 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
 
 
 @pytest.mark.parametrize("path", SHARED)
