@@ -96,7 +96,16 @@ choose rpallas, and rpallas at 3 MP RGB, each against the exact solver,
 with launch counts, collectives, peak memory, host precompute seconds and
 the loop's it/s; the collectives per iteration beside
 ``ici_traffic_model``; the on-path kernels at a 4-way split's pencil
-shapes), checks that each counted run went
+shapes), serves the DigiCam multimask dataset in the Hugging Face hub's
+format (phase ``hub``: ``get_dataset("digicam_mirflickr_multi")`` over 8
+seeded rows at 380 x 507 x 3 with 4 mask labels, its files from a stand-in
+``hf_hub_download`` over a temporary folder; each label's PSF simulated on
+the card against the CPU; ``benchmark`` over its batches of 4, each
+sample solved by the fused RGB solver, f32 v3, one precompute per label,
+with an RGB solve's launches of K1, K3, K4, K5 and K6; one sample against
+the exact solver; ``HFSimulated`` and a simulated
+``HITLDatasetTrainableMask`` sample on the card against the CPU),
+checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -189,7 +198,7 @@ GRIDS = ((270, 480), (380, 507), (240, 320), (48, 135))
 ODD_ROWS = 95
 TOL_KERNEL = 1e-4            # f32 outputs: max |kernel - plain| / max |plain|
 TOL_PSNR_DB = 0.1            # |PSNR exact - PSNR fused| at n = 10
-TOL_SMALL = 1e-5             # fused vs exact, normalized, small grid, n = 10
+TOL_SMALL = 1e-5             # fused vs exact, normalized, small grid and hub, n = 10
 TOL_LOOP = 1e-4              # fused loop, kernels vs plain versions, n = 3
 # headline mode (io bf16, int16 carries): a bf16 output may differ from the
 # plain version's by one bf16 ulp where the two f32 pre-images straddle a
@@ -2896,6 +2905,205 @@ def train_mask_phase(device="cuda"):
     return rec
 
 
+# phase ``hub``: the DigiCam multimask dataset in the Hugging Face hub's
+# format (data/datasets.py HFDataset through get_dataset), served at its
+# measurement grid through the fused RGB solver.  The smoke run needs
+# neither the network nor huggingface_hub: the phase writes the dataset's
+# mask files to a temporary folder and puts a stand-in hf_hub_download that
+# returns them in sys.modules for its own run only
+HUB_NAME = "digicam_mirflickr_multi"     # data/datasets.py available_datasets
+HUB_GRID = GRIDS[1]                      # 380 x 507, the RPi HQ sensor at downsample 8
+HUB_LENSED = (270, 360)                  # the rows' lensed images, resized by the alignment
+HUB_ROWS = 8
+HUB_LABELS = 4
+HUB_BATCH = 4
+HUB_N = 10
+HUB_SEED = 25
+HUB_SOURCE = ("stand-in huggingface_hub.hf_hub_download returning masks/mask_{label}.npy "
+              "written by the phase (neither the network nor huggingface_hub is used)")
+
+
+class HubRows:
+    """The duck-type of a loaded ``datasets.Dataset`` that HFDataset reads:
+    indexable dict rows and ``column_names``."""
+
+    def __init__(self, rows):
+        self.rows = rows
+        self.column_names = list(rows[0])
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        return self.rows[int(idx)]
+
+
+def hub_phase(device="cuda"):
+    """The phase ``hub``: ``get_dataset(HUB_NAME)`` over HUB_ROWS seeded
+    rows at the DigiCam grid, its registry geometry (rotate, display
+    resolution, alignment) as given; each label's PSF simulated through
+    ``AdafruitLCD`` on the card against the same dataset built on the CPU
+    within TOL_MASK["psf"]; ``eval.benchmark`` over its batches of
+    HUB_BATCH on the card, each sample solved by the fused RGB solver
+    (``precompute_rsplit_general`` once per label, ``run_rsplit_general``,
+    f32, v3, n = HUB_N) with the launches of one RGB solve each (K1, K3,
+    2 K4, K5, K6 per iteration), the alignment's region scored against the
+    lensed image; one sample against the exact solver on the same PSF
+    within TOL_SMALL of its max and within TOL_PSNR_DB; ``HFSimulated`` on a batch and a
+    ``HITLDatasetTrainableMask(simulate=True)`` sample from an
+    ``AdafruitLCD`` on the card against the CPU within TOL_SIM.
+    ``device="cpu"`` rehearses it (CUDA calls and the launch check patched
+    out).  Returns the phase's record."""
+    import tempfile
+
+    from lenslesspicam_tpu_torch.data import datasets as ds_mod
+    from lenslesspicam_tpu_torch.hardware.trainable_mask import AdafruitLCD
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(HUB_SEED)
+    rows = HubRows([{"lensless": (rng.rand(*HUB_GRID, 3) * 255).astype(np.uint8),
+                     "lensed": (rng.rand(*HUB_LENSED, 3) * 255).astype(np.uint8),
+                     "mask_label": i % HUB_LABELS} for i in range(HUB_ROWS)])
+    saved = sys.modules.get("huggingface_hub")
+    with tempfile.TemporaryDirectory() as folder:
+        os.makedirs(os.path.join(folder, "masks"))
+        for lab in range(HUB_LABELS):
+            np.save(os.path.join(folder, "masks", f"mask_{lab}.npy"),
+                    rng.rand(*MASK_SHAPE).astype(np.float32))
+        asked = []
+
+        def hf_hub_download(repo_id, filename, repo_type=None, **_):
+            asked.append(filename)
+            return os.path.join(folder, filename)
+
+        sys.modules["huggingface_hub"] = types.SimpleNamespace(hf_hub_download=hf_hub_download)
+        try:
+            t1 = time.perf_counter()
+            ds = ds_mod.get_dataset(HUB_NAME, split=rows, device=device)
+            build_s = time.perf_counter() - t1
+            ds_cpu = ds_mod.get_dataset(HUB_NAME, split=rows, device="cpu")
+            sim = {dev: ds_mod.HFSimulated(
+                ds.repo, split=rows, snr_db=None, display_res=ds.display_res,
+                alignment=ds_mod.available_datasets[HUB_NAME]["alignment"], device=dev)
+                for dev in (device, "cpu")}
+        finally:
+            if saved is None:
+                del sys.modules["huggingface_hub"]
+            else:
+                sys.modules["huggingface_hub"] = saved
+    if sorted(set(asked)) != [f"masks/mask_{lab}.npy" for lab in range(HUB_LABELS)]:
+        raise AssertionError(f"hub: files asked of the hub {asked}")
+    if ds.mask_labels != list(range(HUB_LABELS)) or not ds.rotate or ds.alignment is None:
+        raise AssertionError(f"hub: labels {ds.mask_labels}, geometry {ds.alignment}")
+    psf_err = {lab: nerr(torch.from_numpy(ds.psf[lab]), torch.from_numpy(ds_cpu.psf[lab]))
+               for lab in ds.mask_labels}
+    for lab, err in psf_err.items():
+        if tuple(ds.psf[lab].shape) != (1, *HUB_GRID, 3) or not err <= TOL_MASK["psf"]:
+            raise AssertionError(f"hub: PSF of label {lab} {ds.psf[lab].shape}, card against "
+                                 f"CPU {err:.3e}")
+
+    # the dataset's own rate on the host: every batch, no solve
+    t1 = time.perf_counter()
+    batches = list(ds.batches(HUB_BATCH))
+    host_s = time.perf_counter() - t1
+    if [tuple(b["lensless"].shape) for b in batches] != [(HUB_BATCH, 1, *HUB_GRID, 3)] * (
+            HUB_ROWS // HUB_BATCH):
+        raise AssertionError(f"hub: batches {[b['lensless'].shape for b in batches]}")
+
+    # the fused RGB solver, one precompute per label on its PSF
+    pres, pre_s, psfs_dev = {}, {}, {}
+    for lab in ds.mask_labels:
+        t1 = time.perf_counter()
+        pres[lab] = admm_split.precompute_rsplit_general(
+            ds.psf[lab], batches[0]["lensless"][:1], device=device)
+        pre_s[lab] = time.perf_counter() - t1
+        psfs_dev[lab] = torch.from_numpy(ds.psf[lab]).to(device)
+    per_solve, solve_s = want_counts(HUB_N), []
+    top, left = ds.alignment["top_left"]
+    roi = (slice(top, top + ds.alignment["height"]), slice(left, left + ds.alignment["width"]))
+
+    def label_of(psf):
+        found = [lab for lab, p in psfs_dev.items() if torch.equal(psf, p)]
+        if len(found) != 1:
+            raise AssertionError(f"hub: a sample's PSF matches labels {found}")
+        return found[0]
+
+    def solve(lensless, lab):
+        pre, info = pres[lab]
+        return admm_split.run_rsplit_general(pre, info, lensless, n_iter=HUB_N)
+
+    def reconstruct(lensless, psfs):
+        outs = []
+        for i in range(lensless.shape[0]):
+            lab, before = label_of(psfs[i]), all_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = solve(lensless[i:i + 1], lab)
+            torch.cuda.synchronize()
+            solve_s.append(time.perf_counter() - t1)
+            after = all_counts()
+            got = {k: after[k] - before[k] for k in after}
+            if device != "cpu" and got != per_solve:
+                raise AssertionError(f"hub: a solve's launches {got} != {per_solve}")
+            outs.append(out[..., roi[0], roi[1], :])
+        return torch.cat(outs)
+
+    want_all = {k: v * HUB_ROWS for k, v in per_solve.items()}
+    metrics, counts = counted(lambda: benchmark(reconstruct, batches, device=device),
+                              want_all, "hub")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"hub: metrics {metrics}")
+
+    # one sample at n = HUB_N against the exact solver on its PSF: the whole
+    # output held to TOL_SMALL of its max, and the alignment's region scored
+    # against the lensed image
+    b0 = batches[0]
+    lab0 = int(rows[0]["mask_label"])
+    data0 = torch.from_numpy(b0["lensless"][:1]).to(device)
+    fused0 = solve(data0, lab0)[0, 0]
+    exact0 = admm.run(admm.make_convolver(ds.psf[lab0], device=device), data0,
+                      n_iter=HUB_N)[0, 0]
+    target = torch.from_numpy(b0["lensed"][0, 0]).to(device)
+    p_fused, p_exact = (psnr_db(x[roi[0], roi[1]], target) for x in (fused0, exact0))
+    vs_exact = nerr(fused0, exact0)
+    if not (bool(torch.isfinite(fused0).all()) and vs_exact <= TOL_SMALL
+            and abs(p_fused - p_exact) <= TOL_PSNR_DB):
+        raise AssertionError(f"hub: fused against exact {vs_exact:.3e} of the max, "
+                             f"{p_fused:.3f} dB against {p_exact:.3f} dB")
+
+    # HFSimulated on one batch, HITL simulated on one sample: card against CPU
+    sim_err = nerr(torch.from_numpy(next(sim[device].batches(HUB_BATCH))["lensless"]),
+                   torch.from_numpy(next(sim["cpu"].batches(HUB_BATCH))["lensless"]))
+    vals = rng.rand(*MASK_SHAPE).astype(np.float32)
+    base = [rng.rand(*HUB_LENSED, 3).astype(np.float32)]
+    hitl = [ds_mod.HITLDatasetTrainableMask(
+        AdafruitLCD(vals, sensor="rpi_hq", downsample=MASK_DOWNSAMPLE, device=dev,
+                    **MASK_GEOMETRY), base, simulate=True, device=dev)[0][0]
+        for dev in (device, "cpu")]
+    hitl_err = nerr(torch.from_numpy(hitl[0]), torch.from_numpy(hitl[1]))
+    for name, err in (("HFSimulated", sim_err), ("HITL", hitl_err)):
+        if not err <= TOL_SIM:
+            raise AssertionError(f"hub: {name} card against CPU {err:.3e}")
+
+    rec = {"phase": "hub", "dataset": HUB_NAME, "source": HUB_SOURCE, "rows": HUB_ROWS,
+           "grid": [*HUB_GRID, 3], "lensed": [*HUB_LENSED, 3], "labels": HUB_LABELS,
+           "alignment": ds.alignment, "rotate": ds.rotate, "batch": HUB_BATCH,
+           "solver": "run_rsplit_general f32 v3", "n_iter": HUB_N,
+           "psf_card_vs_cpu": psf_err, "tol_psf": TOL_MASK["psf"],
+           "benchmark": metrics, "fused_vs_exact_normalized": vs_exact,
+           "tol_vs_exact": TOL_SMALL, "psnr_fused_db": p_fused, "psnr_exact_db": p_exact,
+           "tol_db": TOL_PSNR_DB, "hf_simulated_card_vs_cpu": sim_err,
+           "hitl_card_vs_cpu": hitl_err, "tol_sim": TOL_SIM, "launches": counts,
+           "launches_per_solve": {k: v for k, v in per_solve.items() if v},
+           "dataset_build_s": build_s,
+           "dataset_samples_per_s": HUB_ROWS / host_s,
+           "solve_ms": [1e3 * v for v in solve_s],
+           "solve_samples_per_s": 1.0 / statistics.median(solve_s),
+           "precompute_s_by_label": pre_s, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3133,6 +3341,9 @@ def main():
     train = train_phase()
     seconds["train"] = train["seconds"]
     seconds["train_mask"] = train_mask_phase()["seconds"]
+    hub = hub_phase()
+    seconds["hub"] = hub["seconds"]
+    rates["hub_solve_samples_per_s"] = hub["solve_samples_per_s"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
     del meas
@@ -3162,7 +3373,7 @@ def main():
              "filtered_synthesis": synthesis["launches"], "fft_h_combine2": counts_c2["bf16"],
              "bandwidth": counts_bw, "learned": learned["launches"],
              "spatial": spatial["gray"]["rpallas"]["launches"],
-             "spatial_pallas": spatial["gray"]["pallas"]["launches"]}
+             "spatial_pallas": spatial["gray"]["pallas"]["launches"], "hub": hub["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else

@@ -4,9 +4,9 @@ Host numpy code, as in the JAX package, without OpenCV:
 
 * ``resize`` computes what ``cv2.resize`` computes for float images
   (INTER_CUBIC: Keys' cubic with a = -0.75; INTER_LINEAR: linear;
-  half-pixel centres, replicated border, no antialiasing; INTER_NEAREST:
-  the source pixel ``floor(i * n_in / n_out)``) as two products with
-  float64 weight matrices;
+  half-pixel centres, replicated border, no antialiasing) as two products
+  with float64 weight matrices, and INTER_NEAREST (the source pixel
+  ``floor(i * n_in / n_out)``) as a gather;
 * ``demosaic`` is ``cv2.cvtColor(raw, cv2.COLOR_BayerRG2RGB)`` bit for
   bit, edges included (bilinear, integer sums rounded half up);
 * ``rotate_bilinear`` is ``cv2.warpAffine`` with a rotation matrix, in
@@ -36,14 +36,16 @@ def _cubic_coeffs(x):
     return np.stack([c0, c1, c2, 1.0 - c0 - c1 - c2], axis=-1)
 
 
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The source pixel of each output pixel, as cv2's resizeNN picks it:
+    cvFloor(x * (1 / (n_out / n_in)))."""
+    return np.minimum(np.floor(np.arange(n_out) * (1.0 / (n_out / n_in))).astype(np.int64),
+                      n_in - 1)
+
+
 def resize_weights(n_in: int, n_out: int, kind: str = "cubic") -> np.ndarray:
-    """(n_out, n_in) float64 weights of ``cv2.resize`` along one axis."""
-    if kind == "nearest":     # cv2's resizeNN: cvFloor(x * (1 / (n_out / n_in)))
-        src = np.minimum(np.floor(np.arange(n_out) * (1.0 / (n_out / n_in))).astype(np.int64),
-                         n_in - 1)
-        w = np.zeros((n_out, n_in))
-        w[np.arange(n_out), src] = 1.0
-        return w
+    """(n_out, n_in) float64 weights of ``cv2.resize`` along one axis,
+    ``kind`` "linear" or "cubic"."""
     fx = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
     sx = np.floor(fx)
     fx = fx - sx
@@ -67,6 +69,8 @@ def resize_hw(img: np.ndarray, hw, kind: str = "cubic") -> np.ndarray:
     resizes it, in the input's dtype (integer types rounded and
     saturated)."""
     src = np.asarray(img)
+    if kind == "nearest":
+        return src[_nearest_index(src.shape[0], hw[0])][:, _nearest_index(src.shape[1], hw[1])]
     out = np.einsum("yh,hw...->yw...", resize_weights(src.shape[0], hw[0], kind),
                     src.astype(np.float64))
     out = np.einsum("xw,yw...->yx...", resize_weights(src.shape[1], hw[1], kind), out)

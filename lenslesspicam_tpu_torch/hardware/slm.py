@@ -6,7 +6,7 @@ full-sensor mask and a simulated PSF (slm.py:126-273
 get_programmable_mask, slm.py:316-408 get_intensity_psf), plus the
 sub-pattern layout converters (slm.py:276-313).  The SSH
 device-programming path (set_programmable_mask, slm.py:45-123) is
-host-side and gated on paramiko (hardware/remote.py, not ported).
+host-side and gated on paramiko (hardware/remote.py).
 
 Cell placement indices (deadspace-aware) are precomputed in numpy at build
 time; the value scatter is one ``scatter_reduce`` (the maximum, as the JAX

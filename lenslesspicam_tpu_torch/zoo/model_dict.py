@@ -16,8 +16,8 @@ configs/benchmark/README.md:18-24):
 ``parse_model_name`` turns a name into an architecture spec and
 ``build_model`` makes the untrained module on a device.  ``load_model``
 rebuilds a model from a reference checkpoint folder (its Hydra config and
-torch weights); ``download_model`` would fetch one from the Hugging Face
-hub, which needs the network: it raises.
+torch weights); ``download_model`` fetches one from the Hugging Face hub
+(``huggingface_hub``, imported at the call).
 """
 
 from __future__ import annotations
@@ -360,14 +360,14 @@ def build_model(name: str, nb: int = 4, device=None):
 
 
 def download_model(camera: str, dataset: str, model: str, local_model_dir=None):
-    """Fetch a published checkpoint from the Hugging Face hub: the port
-    does not reach the network, so this raises.  Download the repo's
-    folder (``model_dict[camera][dataset][model]``) by other means and
-    pass its path to :func:`load_model`."""
-    raise NotImplementedError(
-        f"downloading {model_dict[camera][dataset][model]!r} needs the network (the "
-        "Hugging Face hub), which the port does not reach; fetch the checkpoint folder "
-        "by other means and pass its path to load_model")
+    """Download a published checkpoint folder from the Hugging Face hub
+    (``huggingface_hub.snapshot_download``, imported here; needs the
+    network or the hub's cache) and return its local path, for
+    :func:`load_model`."""
+    from huggingface_hub import snapshot_download
+
+    repo_id = model_dict[camera][dataset][model]
+    return snapshot_download(repo_id=repo_id, cache_dir=local_model_dir)
 
 
 def remove_data_parallel(state_dict):

@@ -28,6 +28,7 @@ max |port - JAX| / max |JAX|:
 
 import io
 import os
+import sys
 from contextlib import redirect_stdout
 
 import cv2
@@ -304,7 +305,9 @@ def test_natural_sort_and_registry():
 def test_simulate_dataset_offline_matches_jax(monkeypatch, images):
     """The offline ``simulate_dataset`` (seeded random images, or arrays)
     on the same PSF: both packages' items, the noise drawn with
-    ``PRNGKey(0)`` as the JAX simulator draws it without a key."""
+    ``PRNGKey(0)`` as the JAX simulator draws it without a key; without
+    the ``datasets`` package both raise ImportError on a hub name (its
+    call is in tests/test_torch_hub_datasets.py)."""
     monkeypatch.setattr(tnoise, "_normal", lambda x, g: torch.from_numpy(np.array(
         jax.random.normal(jax.random.PRNGKey(0), tuple(x.shape), jnp.float32))))
     psf = _psf((1, 32, 48, 3))
@@ -317,8 +320,10 @@ def test_simulate_dataset_offline_matches_jax(monkeypatch, images):
     for idx in range(len(t)):
         for a, b in zip(t[idx], j[idx]):
             assert _rel(a, b) <= TOL
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tds.simulate_dataset({"dataset": "mnist"}, psf=psf, device=CPU)
+    monkeypatch.setitem(sys.modules, "datasets", None)    # the hub's names need the package
+    for simulate, kw in ((tds.simulate_dataset, dict(device=CPU)), (jds.simulate_dataset, {})):
+        with pytest.raises(ImportError):
+            simulate({"dataset": "mnist"}, psf=psf, **kw)
 
 
 def test_diffusercam_folders_match_jax(tmp_path):

@@ -5,11 +5,12 @@ The four compiled solver entries of the JAX package (``recon/admm.py``
 ``run_rsplit_jit`` and ``run_split_jit``) exist in the port with the JAX
 signatures and defaults, and are held to their JAX counterparts on the same
 seeded inputs, ``n_iter`` given as an int and as a 0-d tensor.  Then every
-public top-level name of each of the 45 modules that the two packages share
+public top-level name of each of the 47 modules that the two packages share
 by path (the JAX module's own functions, classes and values, not what it
-imports) exists in the port's module, but for the names that ROADMAP's
-Queue 1 still lists (EXCEPTIONS, each with its item) and one counterpart
-under another name (RENAMED).
+imports) exists in the port's module, under its own name or, for a few,
+under another (RENAMED); and the JAX package's modules that the port does
+not have by path are exactly the three that it has under another
+(JAX_ONLY).
 
 Tolerances: 1e-5 normalized for the exact and the fused half-spectrum
 solver (``tests/test_torch_admm.py``'s TOL_SOLVER; the Pallas kernels in
@@ -170,7 +171,8 @@ def test_run_split_jit_matches_jax(interpret, backend, kind):
 # the modules of lenslesspicam_tpu that the port has at the same path
 SHARED = ("data.datasets", "data.image", "data.io", "data.simulation", "eval.benchmark",
           "eval.lpips", "eval.metric", "eval.metrics", "eval.pnp", "hardware.aperture",
-          "hardware.constants", "hardware.mask", "hardware.sensor", "hardware.slm",
+          "hardware.constants", "hardware.fabrication", "hardware.mask", "hardware.remote",
+          "hardware.sensor", "hardware.slm",
           "hardware.trainable_mask", "models.background", "models.compensation",
           "models.inversion", "models.multi_wiener", "models.restormer",
           "models.trainable_recon", "models.unet", "models.unrolled", "ops.fft_conv",
@@ -180,12 +182,12 @@ SHARED = ("data.datasets", "data.image", "data.io", "data.simulation", "eval.ben
           "recon.apgd", "recon.base", "recon.gd", "recon.mirflickr", "recon.tikhonov",
           "train.loggers", "train.steps", "train.trainer", "utils.config", "utils.plot",
           "utils.tracing", "zoo.model_dict")
-_ITEM_19 = "ROADMAP Queue 1 item 19 (the hub's and the hardware-in-the-loop datasets)"
-# public names of a shared JAX module that the port does not have yet
-EXCEPTIONS = {
-    "data.datasets": dict.fromkeys(
-        ("HFDataset", "HFSimulated", "HITLDatasetTrainableMask", "get_dataset"), _ITEM_19),
-}
+# the modules of lenslesspicam_tpu that the port has under another path: the
+# Pallas kernels are CUDA kernels behind ops/kernels.py and ops/split_fft.py,
+# and the conversion of the reference's torch state dicts is the port's own
+# loading of them under the modules' names (zoo/model_dict.py)
+JAX_ONLY = {"ops.pallas_fft": "ops.split_fft", "ops.pallas_kernels2": "ops.kernels",
+            "zoo.convert": "zoo.model_dict"}
 # public names whose counterpart has another name in the port: the JAX
 # package's audits of compiled HLO and its count of TPU matmul calls read, in
 # the port, the counted collectives and the kernel launches
@@ -203,33 +205,43 @@ def _public(mod):
             and getattr(v, "__module__", mod.__name__) == mod.__name__}
 
 
+def _module_paths(pkg):
+    """The non-package module paths of ``pkg``, dotted, under the package."""
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1] / pkg
+    return {".".join(p.relative_to(root).with_suffix("").parts)
+            for p in root.rglob("*.py") if p.name != "__init__.py"}
+
+
 def test_shared_modules_are_every_module_of_both():
     """SHARED is every non-package module path that both packages have."""
-    from pathlib import Path
-    root = Path(__file__).resolve().parents[1]
+    assert set(SHARED) == _module_paths("lenslesspicam_tpu") & _module_paths(
+        "lenslesspicam_tpu_torch")
+    assert len(SHARED) == 47 and set(RENAMED) <= set(SHARED)
 
-    def paths(pkg):
-        return {".".join(p.relative_to(root / pkg).with_suffix("").parts)
-                for p in (root / pkg).rglob("*.py") if p.name != "__init__.py"}
 
-    assert set(SHARED) == paths("lenslesspicam_tpu") & paths("lenslesspicam_tpu_torch")
-    assert len(SHARED) == 45 and set(EXCEPTIONS) | set(RENAMED) <= set(SHARED)
+def test_jax_only_modules_are_the_kernels_and_the_conversion():
+    """Every module path of the JAX package that the port lacks is a key of
+    JAX_ONLY, and each one's counterpart is a module of the port: a JAX
+    module that the port neither has nor maps fails here by name."""
+    jax_only = _module_paths("lenslesspicam_tpu") - _module_paths("lenslesspicam_tpu_torch")
+    assert sorted(jax_only) == sorted(JAX_ONLY)
+    for counterpart in JAX_ONLY.values():
+        importlib.import_module(f"lenslesspicam_tpu_torch.{counterpart}")
 
 
 @pytest.mark.parametrize("path", SHARED)
 def test_port_module_has_every_public_jax_name(path):
     """Each public name of the JAX module is in the port's, under its own
-    name or its RENAMED one, but for its EXCEPTIONS; each exception and
-    each renamed name is still a public JAX name the port lacks (a stale
-    entry fails)."""
+    name or its RENAMED one; each renamed name is still a public JAX name
+    the port lacks (a stale entry fails)."""
     jmod = importlib.import_module(f"lenslesspicam_tpu.{path}")
     tmod = importlib.import_module(f"lenslesspicam_tpu_torch.{path}")
     public = _public(jmod)
-    skip, renamed = EXCEPTIONS.get(path, {}), RENAMED.get(path, {})
-    for name in (*skip, *renamed):
+    renamed = RENAMED.get(path, {})
+    for name in renamed:
         assert name in public and not hasattr(tmod, name), name
-    missing = sorted(n for n in public - set(skip)
-                     if not hasattr(tmod, renamed.get(n, n)))
+    missing = sorted(n for n in public if not hasattr(tmod, renamed.get(n, n)))
     assert missing == []
 
 

@@ -17,6 +17,7 @@ tolerance for models with networks inside).
 
 import functools
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -349,6 +350,11 @@ def test_load_model_defaults_to_the_card(tmp_path, monkeypatch):
         tzoo.load_model(str(tmp_path / "nowhere"), device=CPU)
 
 
-def test_download_model_needs_the_network():
-    with pytest.raises(NotImplementedError, match="network"):
-        tzoo.download_model("diffusercam", "mirflickr", "U20")
+def test_download_model_needs_the_network(monkeypatch):
+    """The download goes through ``huggingface_hub`` as in the JAX package:
+    without the package both raise ImportError (the call itself is held to
+    JAX's in tests/test_torch_hub_datasets.py)."""
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    for zoo in (tzoo, jzoo):
+        with pytest.raises(ImportError):
+            zoo.download_model("diffusercam", "mirflickr", "U20")
