@@ -104,8 +104,17 @@ the card against the CPU; ``benchmark`` over its batches of 4, each
 sample solved by the fused RGB solver, f32 v3, one precompute per label,
 with an RGB solve's launches of K1, K3, K4, K5 and K6; one sample against
 the exact solver; ``HFSimulated`` and a simulated
-``HITLDatasetTrainableMask`` sample on the card against the CPU),
-checks that each counted run went
+``HITLDatasetTrainableMask`` sample on the card against the CPU), runs
+the CLI apps of ``lenslesspicam_tpu_torch.scripts`` as a user runs them
+(phase ``cli``: ``recon.admm`` on a synthetic 12 MP RGB pair of 16-bit PNGs
+at downsample 1, padded to 6144 x 8192 x 3, and at downsample 4, each held
+to the ``ADMM`` API on the same loaded arrays; ``quality_baseline``'s full
+sweep on the card with each ``admm_rfused`` solve's launches of K1, K3, K4,
+K5 and K6, each of its 126 PSNRs within 0.01 dB of the same sweep on the
+CPU; the other apps
+of ``recon``, ``eval`` and ``sim`` at their configs' sizes, the hub's on
+stand-in rows and a seeded zoo checkpoint; host seconds and peak memory
+of each), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -3104,6 +3113,323 @@ def hub_phase(device="cuda"):
     return rec
 
 
+# phase ``cli``: the CLI apps of lenslesspicam_tpu_torch/scripts, run as a
+# user runs them (their ``main`` with the JAX scripts' dotted overrides; no
+# LPT_PLATFORM, so on the card).  The hub's apps read stand-in ``datasets``
+# and ``huggingface_hub`` modules put in sys.modules for the phase's own run
+CLI_SEED = 26
+CLI_ADMM = ((1, 10), (4, 100))            # (preprocess.downsample, admm.n_iter)
+CLI_PADDED = {1: (6144, 8192)}            # the exact solver's padded grid at downsample 1
+CLI_HUB_ROWS = 4
+CLI_HUB_RAW = (540, 960)                  # DiffuserCam's stand-in rows, downsample 2 -> 270 x 480
+CLI_ZOO_N = 5                             # the stand-in zoo checkpoint: an unrolled ADMM
+TOL_CLI = 1e-6                            # the admm app against the ADMM API, of the max
+TOL_CLI_DB = 0.01                         # quality_baseline, the card against the CPU
+CLI_SOURCE = ("synthetic 12 MP RGB pair (3040 x 4056 x 3, 16-bit PNGs, seed 26: the "
+              "certification scene and three sparse PSFs, the measurement convolved on the "
+              "card); stand-in hub rows and a seeded zoo checkpoint; no network")
+
+
+def _cli_pair(folder, device):
+    """The synthetic 12 MP RGB pair as 16-bit PNGs (OpenCV's BGR order):
+    three sparse PSFs, the certification scene weighted per channel, the
+    measurement convolved on ``device``; returns the files and the scene."""
+    import cv2
+
+    rng = np.random.RandomState(CLI_SEED)
+    scene, _ = cert_scene_psf(SENSOR, rng)
+    psf = np.stack([cert_scene_psf(SENSOR, rng)[1] for _ in range(3)], axis=-1)
+    scene3 = np.stack([scene * w for w in (1.0, 0.8, 0.6)], axis=-1).astype(np.float32)
+    fwd = FFTConvolver.from_psf(psf[None], pad=True, norm="backward", device=device)
+    meas = fwd.convolve(torch.from_numpy(scene3)[None, None].to(device))[0, 0]
+    meas = (meas / meas.max()).cpu().numpy()
+    del fwd
+    files = {}
+    for name, img in (("psf", psf / psf.max()), ("data", meas), ("scene", scene3 / scene3.max())):
+        files[name] = os.path.join(folder, f"{name}.png")
+        if not cv2.imwrite(files[name], (img[..., ::-1] * 65535).round().astype(np.uint16)):
+            raise AssertionError(f"cli: could not write {files[name]}")
+    return files
+
+
+def _cli_zoo_checkpoint(folder, config):
+    """A reference checkpoint folder of a seeded unrolled ADMM
+    (``zoo.load_model``'s layout: the Hydra config and the schedules at the
+    state dict's top level)."""
+    import yaml
+
+    from lenslesspicam_tpu_torch.models.trainable_recon import TrainableRecon
+    from lenslesspicam_tpu_torch.models.unrolled import UnrolledADMM
+
+    model = TrainableRecon(camera_inversion=UnrolledADMM(n_iter=CLI_ZOO_N, device="cpu"),
+                           device="cpu")
+    sd = convert.state_dict(model, convert.random_variables(model, CLI_SEED))
+    sd = {k.replace("camera_inversion._", "_"): v for k, v in sd.items()}
+    os.makedirs(os.path.join(folder, ".hydra"))
+    with open(os.path.join(folder, ".hydra", "config.yaml"), "w") as f:
+        yaml.safe_dump(config, f)
+    torch.save(sd, os.path.join(folder, "recon_epochBEST"))
+    return folder
+
+
+def cli_phase(smi="", device="cuda"):
+    """The phase ``cli``: every app of ``lenslesspicam_tpu_torch.scripts``
+    through its ``main``, on the card (``LPT_PLATFORM`` unset), each with
+    its host seconds and peak memory:
+
+    * ``recon.admm`` on the synthetic 12 MP RGB pair at
+      ``preprocess.downsample=1`` (padded to 6144 x 8192 x 3, n = 10) and
+      at the config's downsample 4 (n = 100), each held to the ``ADMM`` API
+      on the same loaded arrays within TOL_CLI of the max;
+      ``gradient_descent``, ``apgd`` and ``demo`` on the pair at downsample
+      4 with the config's counts; ``compute_metrics_from_original`` on the
+      admm app's downsample-4 result;
+    * ``eval.quality_baseline``'s full sweep (3 scenes x 6 algorithms x 7
+      iteration counts) on the card, each ``admm_rfused`` solve with the
+      launches of ``want_counts(n)`` (K1, K3, 2 K4, K5, K6) and every other
+      solve with none, the whole sweep counted; the same sweep on the CPU,
+      all 126 entries present on both and each card PSNR within TOL_CLI_DB
+      of the CPU's;
+    * ``eval.benchmark_recon`` at configs/benchmark.yaml's defaults and
+      ``recon.train_learning_based`` at configs/train.yaml with
+      ``training.epoch=1``;
+    * ``sim.single_file`` (the pair's scene and PSF) and
+      ``sim.simulate_dataset`` (a Fresnel zone aperture) at their configs'
+      sizes;
+    * the hub's apps on stand-in rows: ``recon.dataset_recon`` (ADMM and a
+      seeded zoo checkpoint), ``recon.diffusercam`` (ADMM and the zoo
+      model) and ``recon.digicam`` (ADMM and the zoo model, from a local
+      checkpoint folder).
+
+    ``device="cpu"`` rehearses it at whatever ``SENSOR`` is set to (the
+    launch checks and the card-against-CPU sweep skipped).  Returns the
+    phase's record."""
+    import tempfile
+
+    import cv2
+
+    from lenslesspicam_tpu_torch._device import as_host
+    from lenslesspicam_tpu_torch.data.io import load_data
+    from lenslesspicam_tpu_torch.scripts.eval import benchmark_recon as app_bench
+    from lenslesspicam_tpu_torch.scripts.eval import compute_metrics_from_original as app_metrics
+    from lenslesspicam_tpu_torch.scripts.eval import quality_baseline as qb
+    from lenslesspicam_tpu_torch.scripts.recon import admm as app_admm
+    from lenslesspicam_tpu_torch.scripts.recon import apgd as app_apgd
+    from lenslesspicam_tpu_torch.scripts.recon import dataset_recon as app_dsrecon
+    from lenslesspicam_tpu_torch.scripts.recon import demo as app_demo
+    from lenslesspicam_tpu_torch.scripts.recon import diffusercam as app_diffusercam
+    from lenslesspicam_tpu_torch.scripts.recon import digicam as app_digicam
+    from lenslesspicam_tpu_torch.scripts.recon import gradient_descent as app_gd
+    from lenslesspicam_tpu_torch.scripts.recon import train_learning_based as app_train
+    from lenslesspicam_tpu_torch.scripts.sim import simulate_dataset as app_simds
+    from lenslesspicam_tpu_torch.scripts.sim import single_file as app_single
+    from lenslesspicam_tpu_torch.zoo.model_dict import model_dict
+
+    t0 = time.perf_counter()
+    on_card = device != "cpu"
+    host_s, peak = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_s[name] = time.perf_counter() - t1
+        peak[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    saved_env = os.environ.pop("LPT_PLATFORM", None)
+    if not on_card:
+        os.environ["LPT_PLATFORM"] = "cpu"
+    saved_mods = {m: sys.modules.get(m) for m in ("datasets", "huggingface_hub")}
+    rec = {"phase": "cli", "source": CLI_SOURCE, "grid": [*SENSOR, 3]}
+    try:
+        with tempfile.TemporaryDirectory() as folder:
+            files = run("pair", lambda: _cli_pair(folder, device))
+            out = os.path.join(folder, "runs")
+
+            # recon.admm: the app against the API on the same loaded arrays
+            admm_rec = {}
+            for ds, n in CLI_ADMM:
+                args = [f"input.psf={files['psf']}", f"input.data={files['data']}",
+                        f"preprocess.downsample={ds}", f"admm.n_iter={n}"]
+                res = run(f"admm_ds{ds}", lambda: app_admm.main([*args, f"output_dir={out}"]))
+                psf, data = load_data(files["psf"], files["data"], downsample=ds)
+                api = lpt.ADMM(psf, device=device)
+                api.set_data(data)
+                ref = as_host(api.apply(n_iter=n))
+                padded = list(api._convolver.padded_shape[1:3])
+                del api
+                err = float(np.abs(res - ref).max() / np.abs(ref).max())
+                grid = [SENSOR[0] // ds, SENSOR[1] // ds, 3]
+                if not (isinstance(res, np.ndarray) and list(res.shape) == [1, *grid]
+                        and np.isfinite(res).all() and err <= TOL_CLI
+                        and (SENSOR != (3040, 4056) or ds not in CLI_PADDED
+                             or tuple(padded) == CLI_PADDED[ds])):
+                    raise AssertionError(f"cli: admm at downsample {ds}: {np.shape(res)}, "
+                                         f"padded {padded}, against the API {err:.3e}")
+                admm_rec[f"ds{ds}"] = {"n_iter": n, "shape": list(res.shape), "padded": padded,
+                                       "vs_api": err}
+                if ds == 4:
+                    np.save(os.path.join(folder, "recon_ds4.npy"), res[0])
+            rec["admm"] = admm_rec
+            rec["tol_vs_api"] = TOL_CLI
+
+            ds4 = [f"input.psf={files['psf']}", f"input.data={files['data']}",
+                   "preprocess.downsample=4", f"output_dir={out}"]
+            shapes = {"gradient_descent": list(run("gradient_descent",
+                                                   lambda: app_gd.main(ds4)).shape),
+                      "apgd": list(run("apgd", lambda: app_apgd.main(ds4)).shape),
+                      "demo": list(run("demo", lambda: app_demo.main(
+                          [f"raw={files['data']}", f"camera.psf={files['psf']}",
+                           "recon.downsample=4", f"output_dir={out}"])).shape)}
+            scores = run("compute_metrics_from_original", lambda: app_metrics.compute_metrics(
+                [f"files.recon={os.path.join(folder, 'recon_ds4.npy')}",
+                 f"files.original={files['scene']}", f"output_dir={out}"]))
+            rec["metrics_ds4_vs_scene"] = scores
+
+            # eval.quality_baseline: each solve's launches, the sweep counted
+            plain_reconstruct, solves = qb.reconstruct, []
+
+            def checked(algo, psf, meas, n_iter, device=None):
+                before = all_counts()
+                res = plain_reconstruct(algo, psf, meas, n_iter, device)
+                torch.cuda.synchronize()
+                after = all_counts()
+                got = {k: after[k] - before[k] for k in after}
+                want = want_counts(n_iter) if algo == "admm_rfused" else zero_counts()
+                if str(device) != "cpu" and got != want:
+                    raise AssertionError(f"cli: quality_baseline {algo} n={n_iter} launches "
+                                         f"{got} != {want}")
+                solves.append(algo)
+                return res
+
+            total = zero_counts()
+            for n in qb.N_ITER_SWEEP:
+                for k, v in want_counts(n).items():
+                    total[k] += 3 * v
+            qb.reconstruct = checked
+            try:
+                sweep, counts = run("quality_baseline", lambda: counted(
+                    lambda: qb.run_sweep(device=device), total if on_card else zero_counts(),
+                    "cli quality_baseline"))
+                cpu_sweep = run("quality_baseline_cpu", lambda: qb.run_sweep(device="cpu"))
+            finally:
+                qb.reconstruct = plain_reconstruct
+            keys = {(s, a, n) for s, d in sweep.items() for a, v in d.items() for n in v}
+            cpu_keys = {(s, a, n) for s, d in cpu_sweep.items() for a, v in d.items() for n in v}
+            want_entries = 3 * len(qb.ALGOS) * len(qb.N_ITER_SWEEP)
+            entries = len(keys)
+            finite = all(math.isfinite(m[k]) for d in sweep.values() for v in d.values()
+                         for m in v.values() for k in m)
+            gaps = {f"{s}/{a}/{n}": abs(sweep[s][a][n]["psnr"] - cpu_sweep[s][a][n]["psnr"])
+                    for s, a, n in keys & cpu_keys}
+            worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:5]
+            if entries != want_entries or cpu_keys != keys or not finite or (
+                    on_card and max(gaps.values()) > TOL_CLI_DB):
+                raise AssertionError(f"cli: quality_baseline {entries}/{want_entries} entries, "
+                                     f"CPU's {len(cpu_keys)}, finite {finite}, card against "
+                                     f"CPU worst {worst}")
+            rec["quality_baseline"] = {
+                "entries": entries, "solves": len(solves),
+                "compared": len(gaps), "psnr_card_vs_cpu_db_max": max(gaps.values()),
+                "psnr_card_vs_cpu_db_worst": worst, "tol_db": TOL_CLI_DB,
+                "rects_admm_rfused_psnr_db": {n: m["psnr"] for n, m in
+                                              sweep["rects"]["admm_rfused"].items()}}
+            rec["launches"] = counts
+
+            # eval.benchmark_recon and recon.train_learning_based at their configs
+            bench = run("benchmark_recon", lambda: app_bench.main([f"output_dir={out}"]))
+            algos = ["ADMM", "FISTA", "GradientDescent", "NesterovGradientDescent"]
+            if sorted(bench) != sorted(algos) or not all(
+                    sorted(v) == [5, 10, 20, 50, 100, 200, 300] and all(
+                        math.isfinite(x) for m in v.values() for x in m.values())
+                    for v in bench.values()):
+                raise AssertionError(f"cli: benchmark_recon {bench}")
+            rec["benchmark_recon_psnr_db"] = {a: {n: m["PSNR"] for n, m in v.items()}
+                                              for a, v in bench.items()}
+            K.reset_launches()
+            log = run("train_learning_based", lambda: app_train.main(
+                ["training.epoch=1", f"output_dir={out}"]))
+            rec["train_launches"] = {k: v for k, v in all_counts().items() if v}
+            psnrs = [m["eval"]["PSNR"] for _, m in sorted(log.items())]
+            if len(psnrs) != 2 or not all(math.isfinite(p) for p in psnrs):
+                raise AssertionError(f"cli: train_learning_based log {log}")
+            rec["train_psnr_db_by_epoch"] = psnrs
+
+            # the simulation apps
+            single = run("single_file", lambda: app_single.simulate(
+                [f"files.original={files['scene']}", f"files.psf={files['psf']}",
+                 f"output_dir={out}"]))
+            sim_dir = run("simulate_dataset", lambda: app_simds.main(
+                ["mask.type=FresnelZoneAperture", f"output_dir={out}"]))
+            shapes["single_file"] = list(single.shape)
+            shapes["simulate_dataset_pairs"] = len(os.listdir(os.path.join(sim_dir, "lensed")))
+            if not np.isfinite(single).all() or shapes["simulate_dataset_pairs"] != 32:
+                raise AssertionError(f"cli: simulation apps {shapes}")
+
+            # the hub's apps on stand-in rows and a seeded zoo checkpoint
+            rng = np.random.RandomState(CLI_SEED)
+            hub_dir = os.path.join(folder, "hub")
+            os.makedirs(hub_dir)
+            rows = HubRows([{"lensless": (rng.rand(*CLI_HUB_RAW, 3) * 255).astype(np.uint8),
+                             "lensed": (rng.rand(*CLI_HUB_RAW, 3) * 255).astype(np.uint8)}
+                            for _ in range(CLI_HUB_ROWS)])
+            hub_psf = (rng.rand(*CLI_HUB_RAW, 3) * 200 + 20).astype(np.uint8)
+            for name in ("psf.tiff", "psf.png"):
+                cv2.imwrite(os.path.join(hub_dir, name), hub_psf)
+            unrolled = {"reconstruction": {
+                "method": "unrolled_admm", "unrolled_admm": {"n_iter": CLI_ZOO_N},
+                "pre_process": {"network": None}, "post_process": {"network": None}}}
+            zoo_name = next(iter(model_dict["diffusercam"]["mirflickr"]))
+            zoo = _cli_zoo_checkpoint(os.path.join(folder, "zoo"), unrolled)
+            digicam_ckpt = _cli_zoo_checkpoint(os.path.join(folder, "digicam"), {
+                "files": {"dataset": "owner/digicam", "huggingface_psf": "psf.png",
+                          "downsample": 2},
+                "alignment": {"top_left": [20, 30], "height": 200, "width": 300}, **unrolled})
+            sys.modules["datasets"] = types.SimpleNamespace(
+                load_dataset=lambda repo, split=None, cache_dir=None, **_: rows)
+            sys.modules["huggingface_hub"] = types.SimpleNamespace(
+                hf_hub_download=lambda repo_id, filename, **_: os.path.join(hub_dir, filename),
+                snapshot_download=lambda repo_id, **_: zoo)
+            hub_rec = {}
+            for algo in ("admm", f"hf:diffusercam:mirflickr:{zoo_name}"):
+                tag = "dataset_recon_" + ("admm" if algo == "admm" else "zoo")
+                got = run(tag, lambda: app_dsrecon.main(
+                    ["dataset=diffusercam_mirflickr", f"algo={algo}", f"output_dir={out}"]))
+                hub_rec[tag] = got
+            for model in ("admm", zoo_name):
+                tag = "diffusercam_" + ("admm" if model == "admm" else "zoo")
+                hub_rec[tag] = list(run(tag, lambda: app_diffusercam.main(
+                    [f"model={model}", "n_trials=2", f"output_dir={out}"])).shape)
+            for model in ("admm", "U5"):
+                tag = "digicam_" + ("admm" if model == "admm" else "zoo")
+                res, avg_ms = run(tag, lambda: app_digicam.main(
+                    [f"model={model}", f"model_path={digicam_ckpt}", "n_trials=2",
+                     f"output_dir={out}"]))
+                hub_rec[tag] = {"shape": list(res.shape), "avg_ms": avg_ms}
+            for tag in ("dataset_recon_admm", "dataset_recon_zoo"):
+                if len(hub_rec[tag]) != CLI_HUB_ROWS or not all(
+                        math.isfinite(v) for m in hub_rec[tag] for v in m.values()):
+                    raise AssertionError(f"cli: {tag} {hub_rec[tag]}")
+            rec["hub"] = hub_rec
+            rec["shapes"] = shapes
+    finally:
+        for m, mod in saved_mods.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+        os.environ.pop("LPT_PLATFORM", None)
+        if saved_env is not None:
+            os.environ["LPT_PLATFORM"] = saved_env
+    rec.update({"host_s": host_s, "peak_mem_bytes": peak,
+                "card": smi, "seconds": time.perf_counter() - t0})
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3343,6 +3669,8 @@ def main():
     seconds["train_mask"] = train_mask_phase()["seconds"]
     hub = hub_phase()
     seconds["hub"] = hub["seconds"]
+    cli = cli_phase(smi)
+    seconds["cli"] = cli["seconds"]
     rates["hub_solve_samples_per_s"] = hub["solve_samples_per_s"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
@@ -3373,7 +3701,8 @@ def main():
              "filtered_synthesis": synthesis["launches"], "fft_h_combine2": counts_c2["bf16"],
              "bandwidth": counts_bw, "learned": learned["launches"],
              "spatial": spatial["gray"]["rpallas"]["launches"],
-             "spatial_pallas": spatial["gray"]["pallas"]["launches"], "hub": hub["launches"]}
+             "spatial_pallas": spatial["gray"]["pallas"]["launches"], "hub": hub["launches"],
+             "cli": cli["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else

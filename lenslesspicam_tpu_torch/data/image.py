@@ -4,8 +4,9 @@ Host numpy code, as in the JAX package, without OpenCV:
 
 * ``resize`` computes what ``cv2.resize`` computes for float images
   (INTER_CUBIC: Keys' cubic with a = -0.75; INTER_LINEAR: linear;
-  half-pixel centres, replicated border, no antialiasing) as two products
-  with float64 weight matrices, and INTER_NEAREST (the source pixel
+  half-pixel centres, replicated border, no antialiasing) one axis after
+  the other, each output pixel the float64 sum of its 2 (linear) or 4
+  (cubic) weighted source pixels, and INTER_NEAREST (the source pixel
   ``floor(i * n_in / n_out)``) as a gather;
 * ``demosaic`` is ``cv2.cvtColor(raw, cv2.COLOR_BayerRG2RGB)`` bit for
   bit, edges included (bilinear, integer sums rounded half up);
@@ -43,9 +44,10 @@ def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
                       n_in - 1)
 
 
-def resize_weights(n_in: int, n_out: int, kind: str = "cubic") -> np.ndarray:
-    """(n_out, n_in) float64 weights of ``cv2.resize`` along one axis,
-    ``kind`` "linear" or "cubic"."""
+def _resize_taps(n_in: int, n_out: int, kind: str = "cubic"):
+    """The source pixels (n_out, k) of each output pixel of ``cv2.resize``
+    along one axis, clipped to the axis, and their float64 coefficients:
+    k = 2 for "linear", 4 for "cubic"."""
     fx = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
     sx = np.floor(fx)
     fx = fx - sx
@@ -58,10 +60,20 @@ def resize_weights(n_in: int, n_out: int, kind: str = "cubic") -> np.ndarray:
         taps, coeffs = sx[:, None] + np.arange(2), np.stack([1.0 - fx, fx], axis=-1)
     else:
         taps, coeffs = sx[:, None] + np.arange(-1, 3), _cubic_coeffs(fx)
-    w = np.zeros((n_out, n_in))
-    rows = np.repeat(np.arange(n_out), taps.shape[1])
-    np.add.at(w, (rows, np.clip(taps, 0, n_in - 1).ravel()), coeffs.ravel())
-    return w
+    return np.clip(taps, 0, n_in - 1), coeffs
+
+
+def _resize_axis(x: np.ndarray, n_out: int, axis: int, kind: str) -> np.ndarray:
+    """``x`` resized along ``axis``: each output pixel the sum of its 2
+    ("linear") or 4 ("cubic") source pixels of :func:`_resize_taps`, each
+    times its coefficient, in float64."""
+    taps, coeffs = _resize_taps(x.shape[axis], n_out, kind)
+    shape = [1] * x.ndim
+    shape[axis] = n_out
+    out = np.zeros(x.shape[:axis] + (n_out,) + x.shape[axis + 1:])
+    for k in range(taps.shape[1]):
+        out += coeffs[:, k].reshape(shape) * np.take(x, taps[:, k], axis=axis)
+    return out
 
 
 def resize_hw(img: np.ndarray, hw, kind: str = "cubic") -> np.ndarray:
@@ -71,9 +83,8 @@ def resize_hw(img: np.ndarray, hw, kind: str = "cubic") -> np.ndarray:
     src = np.asarray(img)
     if kind == "nearest":
         return src[_nearest_index(src.shape[0], hw[0])][:, _nearest_index(src.shape[1], hw[1])]
-    out = np.einsum("yh,hw...->yw...", resize_weights(src.shape[0], hw[0], kind),
-                    src.astype(np.float64))
-    out = np.einsum("xw,yw...->yx...", resize_weights(src.shape[1], hw[1], kind), out)
+    out = _resize_axis(src.astype(np.float64), hw[0], 0, kind)
+    out = _resize_axis(out, hw[1], 1, kind)
     if np.issubdtype(src.dtype, np.integer):
         info = np.iinfo(src.dtype)
         return np.clip(np.rint(out), info.min, info.max).astype(src.dtype)

@@ -512,32 +512,49 @@ def spawn_cpu_ranks(argv, n_procs: int, n_local: int | None = None,
 
 def wait_ranks(started) -> list:
     """Wait for the ranks of :func:`spawn_cpu_ranks`; returns their
-    outputs, and raises (with the tail of the output) if one fails or
-    outlasts the timeout, killing the others."""
-    import subprocess
+    outputs, and raises (with the tail of the output) if one fails or the
+    group outlasts the timeout, killing the others.  Every rank's pipe is
+    drained at once, by a thread each: a rank that writes more than a pipe
+    holds never blocks while another rank is waited on."""
+    import threading
+    import time
 
     procs, timeout = started
-    outs = []
+    outs = [""] * len(procs)
+
+    def drain(pid, p):
+        outs[pid] = p.stdout.read()
+        p.wait()
+
+    threads = [threading.Thread(target=drain, args=(pid, p), daemon=True)
+               for pid, p in enumerate(procs)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout
     try:
-        for pid, p in enumerate(procs):
-            try:
-                out, _ = p.communicate(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                out, _ = p.communicate()
-                raise RuntimeError(f"rank {pid} timed out:\n{out[-2000:]}")
-            outs.append(out)
-            if p.returncode != 0:
-                raise RuntimeError(f"rank {pid} failed (rc={p.returncode}):\n{out[-3000:]}")
+        while True:
+            for pid, (p, t) in enumerate(zip(procs, threads)):
+                if not t.is_alive() and p.returncode != 0:
+                    raise RuntimeError(
+                        f"rank {pid} failed (rc={p.returncode}):\n{outs[pid][-3000:]}")
+            alive = [pid for pid, t in enumerate(threads) if t.is_alive()]
+            if not alive:
+                return outs
+            if time.monotonic() > deadline:
+                pid = alive[0]
+                procs[pid].kill()
+                threads[pid].join()
+                raise RuntimeError(f"rank {pid} timed out:\n{outs[pid][-2000:]}")
+            threads[alive[0]].join(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    return outs
+        for t in threads:
+            t.join()
 
 
-def run_cpu_dryrun(n_procs: int = 2, n_local: int = 2, timeout: int = 600) -> dict:
+def run_cpu_dryrun(n_procs: int = 2, n_local: int = 4, timeout: int = 600) -> dict:
     """Run the dryrun worker on ``n_procs`` simulated hosts of ``n_local``
     gloo ranks each (``n_procs * n_local`` processes) and return rank 0's
     result dict.  Raises on any rank's failure."""

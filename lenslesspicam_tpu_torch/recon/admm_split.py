@@ -334,7 +334,7 @@ def precompute_rsplit_general(psf, data, params: ADMMParams = ADMMParams(),
     return pre, dict(batch=data.shape[0], depth=depth, channels=ch)
 
 
-def run_rsplit_general(pre: RSplitPrecomp, info: dict, data,
+def run_rsplit_general(pre_planes: RSplitPrecomp, info: dict, data,
                        params: ADMMParams = ADMMParams(), n_iter: int = 100,
                        return_sat: bool = False, placement: str = "v3",
                        io: str = "f32", carry_tv: str = "f32",
@@ -343,23 +343,23 @@ def run_rsplit_general(pre: RSplitPrecomp, info: dict, data,
     package's ``run_rsplit_general``); returns (B, D, H, W, C), clipped
     at 0, and with ``return_sat`` the max saturation over all planes.
 
-    ``pre`` and ``info`` come from :func:`precompute_rsplit_general`.
+    ``pre_planes`` and ``info`` come from :func:`precompute_rsplit_general`.
     Data of depth 1 is broadcast over the PSF's depths.  The B * D * C
     planes (b-major, then d, then c) are padded from ``data`` on the
     device and run as one stack through :func:`run_split_rfused`, the
     per-PSF constants broadcast over the batch."""
-    dev = pre.Hr.device
+    dev = pre_planes.Hr.device
     data = _as_5d(as_device(data, torch.float32, dev))
     batch, depth, ch = info["batch"], info["depth"], info["channels"]
     if data.shape[1] == 1 and depth > 1:
         data = data.expand(data.shape[0], depth, *data.shape[2:])
-    nh, nw = pre.psf_shape
-    ph, pw = pre.padded_shape
-    sy, sx = pre.start
+    nh, nw = pre_planes.psf_shape
+    ph, pw = pre_planes.padded_shape
+    sy, sx = pre_planes.start
     planes = data.permute(0, 1, 4, 2, 3).reshape(batch * depth * ch, nh, nw)
     pad = torch.zeros((planes.shape[0], ph, pw), dtype=torch.float32, device=dev)
     pad[:, sy : sy + nh, sx : sx + nw] = planes
-    out = run_split_rfused(pre._replace(data_pad=sf.to_split_layout(pad).contiguous()),
+    out = run_split_rfused(pre_planes._replace(data_pad=sf.to_split_layout(pad).contiguous()),
                            params, n_iter, return_sat=return_sat, io=io,
                            carry_tv=carry_tv, carry_v=carry_v, sat_every=sat_every,
                            placement=placement)
@@ -680,29 +680,29 @@ def precompute_split_general(psf, data, params: ADMMParams = ADMMParams(), devic
             dict(batch=data.shape[0], depth=depth, channels=ch))
 
 
-def run_split_general(pre: SplitPrecomp, info: dict, data,
+def run_split_general(pre_planes: SplitPrecomp, info: dict, data,
                       params: ADMMParams = ADMMParams(), n_iter: int = 100,
                       backend: str = "jax", io: str = "f32", carry_tv: str = "f32",
                       carry_v: str = "f32"):
     """Batched RGB / 3-D full-width split ADMM (the JAX package's
     ``run_split_general``); returns (B, D, H, W, C), clipped at 0.
 
-    ``pre`` and ``info`` come from :func:`precompute_split_general`.  Data
+    ``pre_planes`` and ``info`` come from :func:`precompute_split_general`.  Data
     of depth 1 is broadcast over the PSF's depths.  The B * D * C planes
     (b-major, then d, then c) are padded from ``data`` on the device and
     run as one stack through :func:`run_split`, the per-PSF constants
     broadcast over the batch: one launch per kernel per pass."""
-    dev = pre.Hr.device
+    dev = pre_planes.Hr.device
     data = _as_5d(as_device(data, torch.float32, dev))
     batch, depth, ch = info["batch"], info["depth"], info["channels"]
     if data.shape[1] == 1 and depth > 1:
         data = data.expand(data.shape[0], depth, *data.shape[2:])
-    nh, nw = pre.psf_shape
-    ph, pw = pre.padded_shape
-    sy, sx = pre.start
+    nh, nw = pre_planes.psf_shape
+    ph, pw = pre_planes.padded_shape
+    sy, sx = pre_planes.start
     planes = data.permute(0, 1, 4, 2, 3).reshape(batch * depth * ch, nh, nw)
     pad = torch.zeros((planes.shape[0], ph, pw), dtype=torch.float32, device=dev)
     pad[:, sy : sy + nh, sx : sx + nw] = planes
-    out = run_split(pre._replace(data_pad=pad), params, n_iter, backend=backend, io=io,
+    out = run_split(pre_planes._replace(data_pad=pad), params, n_iter, backend=backend, io=io,
                     carry_tv=carry_tv, carry_v=carry_v)
     return out.reshape(batch, depth, ch, nh, nw).permute(0, 1, 3, 4, 2).contiguous()

@@ -27,7 +27,7 @@ F32_FLOP_PER_S = 67e12        # H100 SXM data sheet, f32 outside the tensor core
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "outputs/lpt_trace"):
+def trace(log_dir: str = "/tmp/lpt_trace"):
     """Profile the block with ``torch.profiler`` and write its Chrome trace
     to ``log_dir/trace_<pid>_<ms>.json``; yields ``log_dir``.  With a CUDA
     card the CUDA activity is traced too and the block is an NVTX range

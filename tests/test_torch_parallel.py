@@ -241,7 +241,7 @@ def dryrun():
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(1) as pool:
-        yield pool.submit(tdist.run_cpu_dryrun)
+        yield pool.submit(tdist.run_cpu_dryrun, n_local=2)
 
 
 def _mesh(n, axis="sp"):
@@ -413,3 +413,48 @@ def test_dcn_traffic_model_is_the_jax_model():
     for hosts in (1, 2, 8):
         assert tdist.dcn_scaling_efficiency(0.5, 4 * 8_000_000, hosts) == \
             jdist.dcn_scaling_efficiency(0.5, 4 * 8_000_000, hosts)
+
+
+# rank 1 prints 1 MB, more than a pipe holds, then leaves a mark; rank 0 waits
+# for the mark, as a rank waits for its peers in a collective
+_CHATTY_RANKS = """
+import os, sys, time
+mark = os.environ["LPT_TEST_MARK"]
+if os.environ["LPT_PROCESS_ID"] == "1":
+    sys.stdout.write("x" * (1 << 20))
+    sys.stdout.flush()
+    open(mark, "w").close()
+else:
+    t0 = time.monotonic()
+    while not os.path.exists(mark):
+        if time.monotonic() - t0 > 60:
+            sys.exit(3)
+        time.sleep(0.01)
+    print("rank 0 done")
+"""
+
+
+def test_wait_ranks_drains_every_pipe_at_once(tmp_path):
+    """A rank that writes 1 MB while rank 0 waits for it does not stall the
+    group: ``wait_ranks`` reads every rank's pipe at once and returns in
+    seconds, with each rank's whole output."""
+    import time
+
+    t0 = time.monotonic()
+    outs = tdist.wait_ranks(tdist.spawn_cpu_ranks(
+        ["-c", _CHATTY_RANKS], 2, timeout=30, env={"LPT_TEST_MARK": str(tmp_path / "mark")}))
+    assert time.monotonic() - t0 < 15
+    assert outs[0].strip() == "rank 0 done" and outs[1] == "x" * (1 << 20)
+
+
+def test_wait_ranks_reports_the_rank_that_failed():
+    """A rank that exits non-zero is named with the tail of its output,
+    while a peer still runs; the peer is killed."""
+    prog = ("import os, sys, time\n"
+            "if os.environ['LPT_PROCESS_ID'] == '1':\n"
+            "    print('rank 1 gives up'); sys.exit(5)\n"
+            "time.sleep(60)\n")
+    started = tdist.spawn_cpu_ranks(["-c", prog], 2, timeout=30)
+    with pytest.raises(RuntimeError, match=r"rank 1 failed \(rc=5\):\nrank 1 gives up"):
+        tdist.wait_ranks(started)
+    assert all(p.poll() is not None for p in started[0])

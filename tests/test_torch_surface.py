@@ -245,6 +245,164 @@ def test_port_module_has_every_public_jax_name(path):
     assert missing == []
 
 
+# --- signatures ----------------------------------------------------------------------
+#
+# Every public function, class and method that both packages have takes the
+# JAX parameter names, in the same order, of the same kinds, with the same
+# defaults.  The differences allowed everywhere: flax's ``parent`` / ``name``
+# (a flax module's dataclass fields), ``key`` -> ``generator`` (a jax.random
+# key -> a torch.Generator), an added ``device=`` and ``jnp.float32`` ->
+# ``torch.float32`` as a default; the RENAMED names are other functions and
+# are not compared.  The port's other differences are listed by name below;
+# each entry must still be a difference (a stale one fails).
+
+# parameters the port adds: the storage modes that the JAX package sets as
+# module globals (pk2._IO_DTYPE, ...), the kernels' ops table, torch layers'
+# input widths (flax infers them on the first call), the process group of a
+# collective (JAX's run inside shard_map over a named axis), and a few options
+PORT_ONLY = {
+    "eval.metric.lpips": ("net",),
+    "hardware.trainable_mask.TrainableMask.make_optimizer": ("params",),
+    "models.background.IntegratedBackgroundSub": ("in_nc",),
+    "models.multi_wiener.DoubleConv": ("in_ch",),
+    "models.multi_wiener.Down": ("in_ch",),
+    "models.multi_wiener.Up": ("in_ch",),
+    "models.restormer.LayerNorm2d": ("dim",),
+    "models.restormer.Restormer": ("in_channels",),
+    "models.unet.UNet": ("in_nc",),
+    "models.unet.UNetRes": ("in_nc",),
+    "ops.propagation.spherical_wavefront": ("dtype",),
+    "parallel.spatial.filtered_synthesis_sharded": ("group",),
+    "parallel.spatial.finite_diff_adj_sharded": ("group",),
+    "parallel.spatial.finite_diff_sharded": ("group",),
+    "parallel.spatial.roll_down_sharded": ("group",),
+    "parallel.spatial.roll_up_sharded": ("group",),
+    "recon.admm.run_state": ("initial_est",),
+    "recon.admm_split.run_rsplit_general": ("placement", "io", "carry_tv", "carry_v",
+                                            "sat_every"),
+    "recon.admm_split.run_split": ("io", "carry_tv", "carry_v"),
+    "recon.admm_split.run_split_fused": ("ops", "io", "carry_tv", "carry_v"),
+    "recon.admm_split.run_split_general": ("io", "carry_tv", "carry_v"),
+    "recon.admm_split.run_split_rfused": ("ops", "io", "carry_tv", "carry_v", "sat_every",
+                                          "placement"),
+    "train.trainer.make_optimizer": ("module",),
+}
+# JAX parameters that carry a flax module's variables: the torch module holds them
+JAX_ONLY_PARAMS = {"models.restormer.restormer_fn": ("variables",),
+                   "models.unet.drunet_denoise": ("params",)}
+# the port's own parameter lists: LPIPS weights drawn from a seed (flax's init
+# traces an image shape), saved from a state dict, and the roofline against
+# the H100's data sheet (the JAX one reads a TPU's HBM rate and matmul issue)
+CHANGED = {"eval.lpips.random_params": ("seed", "net"),
+           "eval.lpips.save_params_npz": ("state_dict", "path"),
+           "utils.tracing.roofline_report": ("shape", "iters_per_s", "channels", "hbm_bw",
+                                             "half_spectrum", "flop_rate")}
+
+
+def _shared_callables(path):
+    """(qualified name, JAX object, port object, flax module?) for every
+    public function and class of the module and each public method of its
+    classes that the JAX class defines (a flax module's dataclass fields
+    are parameters, not methods)."""
+    import dataclasses
+
+    import flax.linen as nn
+
+    jmod = importlib.import_module(f"lenslesspicam_tpu.{path}")
+    tmod = importlib.import_module(f"lenslesspicam_tpu_torch.{path}")
+    out = []
+    for name in sorted(_public(jmod) - set(RENAMED.get(path, {}))):
+        jv, tv = getattr(jmod, name), getattr(tmod, name)
+        if inspect.isclass(jv):
+            flax_mod = issubclass(jv, nn.Module)
+            out.append((f"{path}.{name}", jv, tv, flax_mod))
+            fields = {f.name for f in dataclasses.fields(jv)} if dataclasses.is_dataclass(jv) \
+                else set()
+            for m, mv in vars(jv).items():
+                if m.startswith("_") or m in fields or isinstance(mv, property):
+                    continue
+                if callable(mv) or isinstance(mv, (staticmethod, classmethod)):
+                    out.append((f"{path}.{name}.{m}", getattr(jv, m), getattr(tv, m), False))
+        elif callable(jv):
+            out.append((f"{path}.{name}", jv, tv, False))
+    return out
+
+
+def _same_default(jd, td):
+    """A JAX default and the port's are the same value: jnp.float32 is
+    torch.float32, and two callables are the same function by name or by
+    their values on a small array."""
+    if jd is inspect.Parameter.empty or td is inspect.Parameter.empty:
+        return jd is td
+    if jd is jnp.float32:
+        return td is torch.float32
+    if callable(jd) and callable(td) and not inspect.isclass(jd):
+        if getattr(jd, "__name__", None) == getattr(td, "__name__", None) != "<lambda>":
+            return True
+        x = np.array([-1.5, 0.0, 2.0], np.float32)
+        try:
+            return np.array_equal(np.asarray(jd(x)), td(torch.from_numpy(x)).numpy())
+        except Exception:
+            return False
+    return type(jd).__name__ == type(td).__name__ and repr(jd) == repr(td)
+
+
+def _signature(qual, fn, side, flax_mod=False, jax_names=()):
+    """The normalized (name, kind, default) list of ``fn``'s parameters;
+    the port's ``device`` is dropped where the JAX function has none."""
+    try:
+        params = list(inspect.signature(fn).parameters.values())
+    except ValueError:      # a builtin's constructor (a dict subclass): no signature
+        return None
+    if side == "jax":
+        drop = set(JAX_ONLY_PARAMS.get(qual, ())) | ({"parent", "name"} if flax_mod else set())
+        return [("generator" if p.name == "key" else p.name, p.kind, p.default)
+                for p in params if p.name not in drop]
+    drop = set(PORT_ONLY.get(qual, ())) | ({"device"} - set(jax_names))
+    return [(p.name, p.kind, p.default) for p in params if p.name not in drop]
+
+
+def _same_signature(js, ts):
+    if js is None or ts is None:
+        return js is ts
+    return len(js) == len(ts) and all(
+        jn == tn and jk == tk and _same_default(jd, td)
+        for (jn, jk, jd), (tn, tk, td) in zip(js, ts))
+
+
+def test_signature_exceptions_name_shared_callables():
+    """Every entry of PORT_ONLY and JAX_ONLY_PARAMS names a shared callable
+    and parameters that its side has and the other lacks; every CHANGED
+    entry names a shared callable."""
+    found = {q: (j, t) for path in SHARED for q, j, t, _ in _shared_callables(path)}
+    for table, side in ((PORT_ONLY, 1), (JAX_ONLY_PARAMS, 0)):
+        for qual, names in table.items():
+            assert qual in found, qual
+            have = inspect.signature(found[qual][side]).parameters
+            other = inspect.signature(found[qual][1 - side]).parameters
+            assert set(names) <= set(have) and not set(names) & set(other), (qual, names)
+    assert set(CHANGED) <= set(found)
+
+
+@pytest.mark.parametrize("path", SHARED)
+def test_port_signatures_are_the_jax_signatures(path):
+    """Each public function, class and method of the JAX module that the
+    port shares takes, in the port, the JAX parameters in the same order,
+    of the same kinds, with the same defaults, but for the differences
+    allowed above; a CHANGED entry takes its listed parameters, and still
+    differs from JAX's."""
+    wrong = []
+    for qual, jv, tv, flax_mod in _shared_callables(path):
+        js = _signature(qual, jv, "jax", flax_mod)
+        ts = _signature(qual, tv, "port", jax_names=[n for n, _, _ in js or ()])
+        if qual in CHANGED:
+            assert tuple(n for n, _, _ in ts) == CHANGED[qual], qual
+            assert not _same_signature(js, ts), f"{qual} is no longer CHANGED"
+        elif not _same_signature(js, ts):
+            wrong.append((qual, [(n, d) for n, _, d in js], [(n, d) for n, _, d in ts]))
+    assert wrong == []
+
+
 # --- chip_smoke.py's bandwidth readings -------------------------------------------------
 
 def _pair_clock(ms_per_call):

@@ -9,7 +9,9 @@
   documented H100 defaults; its operation count is the sum of
   ``chip_smoke.py``'s per-kernel counts, and its launches per iteration
   ``chip_smoke.py``'s launch counts; ``trace`` writes a Chrome trace and
-  ``time_fn`` times;
+  ``time_fn`` times; every call of ``trace`` in the port and its tools
+  names its ``log_dir`` (the default, JAX's ``/tmp/lpt_trace``, is shared
+  by every process of the host);
 - ``utils.plot`` under Agg: the histograms, cross sections,
   autocorrelations and training curves of the JAX functions.
 """
@@ -193,6 +195,28 @@ def test_trace_writes_a_chrome_trace_and_time_fn_times(tmp_path):
     calls = []
     t = ttracing.time_fn(lambda a: calls.append(a) or torch.fft.rfft2(a), x, repeats=3)
     assert 0.0 < t < 10.0 and len(calls) == 4
+
+
+def test_port_tools_give_trace_a_log_dir():
+    """No caller in the port, ``chip_smoke.py``, ``profile_solver.py`` or
+    ``ab_kernels.py`` leans on ``trace``'s fixed default directory."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = [*sorted((root / "lenslesspicam_tpu_torch").rglob("*.py")),
+             *(root / name for name in ("chip_smoke.py", "profile_solver.py", "ab_kernels.py"))]
+    bare = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            name = fn.id if isinstance(fn, ast.Name) else getattr(fn, "attr", None)
+            if name == "trace" and not node.args and not any(
+                    k.arg == "log_dir" for k in node.keywords):
+                bare.append(f"{path.relative_to(root)}:{node.lineno}")
+    assert len(files) > 80 and bare == []
 
 
 # --- utils.plot --------------------------------------------------------------------------
