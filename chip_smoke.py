@@ -114,7 +114,12 @@ K5 and K6, each of its 126 PSNRs within 0.01 dB of the same sweep on the
 CPU; the other apps
 of ``recon``, ``eval`` and ``sim`` at their configs' sizes, the hub's on
 stand-in rows and a seeded zoo checkpoint; host seconds and peak memory
-of each), checks that each counted run went
+of each), runs the simulation, hub-model and measurement apps (phase
+``cli2``: the mask simulators at the RPi HQ sensor / 16, DigiCam's PSF,
+the dataset simulators, ``digicam_example``, the DiffuserCam, multi-lens
+and PSF-error apps on stand-in rows, each on the card and on the CPU in
+this process and held together; no kernel on their path, every launch
+count 0), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -3125,6 +3130,7 @@ CLI_HUB_RAW = (540, 960)                  # DiffuserCam's stand-in rows, downsam
 CLI_ZOO_N = 5                             # the stand-in zoo checkpoint: an unrolled ADMM
 TOL_CLI = 1e-6                            # the admm app against the ADMM API, of the max
 TOL_CLI_DB = 0.01                         # quality_baseline, the card against the CPU
+TOL_METRIC = 1e-4                         # a printed or returned metric, relative
 CLI_SOURCE = ("synthetic 12 MP RGB pair (3040 x 4056 x 3, 16-bit PNGs, seed 26: the "
               "certification scene and three sparse PSFs, the measurement convolved on the "
               "card); stand-in hub rows and a seeded zoo checkpoint; no network")
@@ -3152,18 +3158,19 @@ def _cli_pair(folder, device):
     return files
 
 
-def _cli_zoo_checkpoint(folder, config):
-    """A reference checkpoint folder of a seeded unrolled ADMM
-    (``zoo.load_model``'s layout: the Hydra config and the schedules at the
-    state dict's top level)."""
+def _cli_zoo_checkpoint(folder, config, model=None, seed=CLI_SEED):
+    """A reference checkpoint folder of a seeded ``model``, by default an
+    unrolled ADMM (``zoo.load_model``'s layout: the Hydra config and the
+    schedules at the state dict's top level)."""
     import yaml
 
     from lenslesspicam_tpu_torch.models.trainable_recon import TrainableRecon
     from lenslesspicam_tpu_torch.models.unrolled import UnrolledADMM
 
-    model = TrainableRecon(camera_inversion=UnrolledADMM(n_iter=CLI_ZOO_N, device="cpu"),
-                           device="cpu")
-    sd = convert.state_dict(model, convert.random_variables(model, CLI_SEED))
+    if model is None:
+        model = TrainableRecon(camera_inversion=UnrolledADMM(n_iter=CLI_ZOO_N, device="cpu"),
+                               device="cpu")
+    sd = convert.state_dict(model, convert.random_variables(model, seed))
     sd = {k.replace("camera_inversion._", "_"): v for k, v in sd.items()}
     os.makedirs(os.path.join(folder, ".hydra"))
     with open(os.path.join(folder, ".hydra", "config.yaml"), "w") as f:
@@ -3430,6 +3437,544 @@ def cli_phase(smi="", device="cuda"):
     return rec
 
 
+# phase ``cli2``: the simulation, hub-model and offline measurement apps of
+# lenslesspicam_tpu_torch/scripts (their ``main`` with the JAX scripts'
+# dotted overrides), each on the card (LPT_PLATFORM unset) and then on the
+# CPU (LPT_PLATFORM=cpu) in this process, without noise (snr_db=null) so
+# that both sides draw none.  None of them reaches a kernel: the exact
+# solver, cuDNN and separable Tikhonov
+CLI2_SEED = 27
+CLI2_IMAGE = (480, 640)                   # the seeded PNGs the sim apps read
+CLI2_FILES = 8                            # mask_dataset and sim.dataset, one batch of 8
+CLI2_TORCH_FILES, CLI2_TORCH_BATCH = 16, 4
+CLI2_N = 100                              # the recon apps' ADMM iterations (their configs')
+CLI2_MASKS = {                            # mask_single_file: every mask type of sim_mask_*.yaml
+    "mls_flatcam_tikhonov": ["mask.type=MLS", "simulation.flatcam=True", "recon.algo=tikhonov"],
+    "mura_admm": ["mask.type=MURA", "mask.n_bits=101", "recon.algo=admm"],   # a prime
+    "fza_admm": ["mask.type=FZA", "recon.algo=admm"],
+    "phasecontour_admm": ["mask.type=PhaseContour", "mask.phase_mask_iter=10",
+                          "recon.algo=admm"]}
+CLI2_MASK_DATASETS = ("mls_flatcam_tikhonov", "mura_admm")
+CLI2_PSF_ERR_ROWS = 4
+CLI2_PSF_ERR_CPU = 2                      # the CPU's sweep: row 0 at the first two shares
+CLI2_EXACT_DB = 100.0                     # a PSNR above it: an inversion exact to round-off
+CLI2_PATTERN = (3, 128, 160)              # the Adafruit LCD's full grid
+CLI2_CAPTURE = (760, 1014)                # digicam_example's measurement, resized to 380 x 507
+CLI2_MULTILENS_NC = (32, 64, 112, 128)    # the background network's widths (Unet4M's plan)
+TOL_CLI2_PHASE_CONTOUR = 1e-4             # phase retrieval carries f32 differences (tests)
+TOL_CLI2_TIKHONOV = 1e-5                  # tests/test_torch_classical.py's TOL_EXACT
+TOL_CLI2_SIMULATED = 1e-4                 # what ADMM makes of a quantized simulated plane
+# the card against the CPU where 1e-5 did not hold (NVIDIA H100 80GB HBM3, 700.00 W)
+TOL_CLI2_PSF = 5e-5                       # AdafruitLCD at scene2mask 0.3 m: 1.88e-5 measured
+TOL_CLI2_ADMM = 5e-5                      # exact ADMM, n = 100 at 380 x 507: 1.11e-5 measured
+
+
+class _Cli2Records:
+    """While active, records what the apps simulate and solve: each
+    ``FarFieldSimulator.propagate_image`` (the quantized plane, and the
+    same call again without the quantization, whose planes are compared:
+    a rounding tie may fall either way), each FlatCam
+    ``CodedAperture.simulate``, each ``admm.run_jit`` with the PSF of its
+    convolver, each Tikhonov ``apply`` with its solver; as host arrays."""
+
+    def __init__(self):
+        from lenslesspicam_tpu_torch.data import simulation
+        from lenslesspicam_tpu_torch.hardware import mask
+        from lenslesspicam_tpu_torch.recon import tikhonov
+
+        self.targets = [(simulation.FarFieldSimulator, "propagate_image"),
+                        (mask.CodedAperture, "simulate"), (admm, "make_convolver"),
+                        (admm, "run_jit"), (tikhonov.CodedApertureReconstruction, "apply")]
+        self.saved = {}
+        self.sims, self.flatcam, self.solves, self.tikhonov = [], [], [], []
+        self.psfs = {}
+
+    def __enter__(self):
+        from lenslesspicam_tpu_torch._device import as_host
+
+        self.saved = {t: getattr(*t) for t in self.targets}
+        propagate, simulate, make_conv, run_jit, apply = self.saved.values()
+
+        def propagate_image(sim, *args, **kwargs):
+            out = propagate(sim, *args, **kwargs)
+            if sim.quantize:
+                sim.quantize = False
+                try:
+                    clean = propagate(sim, *args, **kwargs)
+                finally:
+                    sim.quantize = True
+                self.sims.append((as_host(out[0] if isinstance(out, tuple) else out),
+                                  tuple(as_host(o) for o in (clean if isinstance(clean, tuple)
+                                                             else (clean,)))))
+            return out
+
+        def simulate_(m, *args, **kwargs):
+            out = simulate(m, *args, **kwargs)
+            self.flatcam.append(as_host(out))
+            return out
+
+        def make_convolver(psf, *args, **kwargs):
+            conv = make_conv(psf, *args, **kwargs)
+            self.psfs[id(conv)] = as_host(psf)
+            return conv
+
+        def run_jit_(conv, data, *args, **kwargs):
+            out = run_jit(conv, data, *args, **kwargs)
+            n_iter = kwargs.get("n_iter", args[1] if len(args) > 1 else 100)
+            self.solves.append((self.psfs.get(id(conv)), as_host(data), int(n_iter),
+                                as_host(out)))
+            return out
+
+        def apply_(recon, img):
+            out = apply(recon, img)
+            self.tikhonov.append((recon, as_host(img), as_host(out)))
+            return out
+
+        for (obj, name), fn in zip(self.targets, (propagate_image, simulate_, make_convolver,
+                                                  run_jit_, apply_)):
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), fn in self.saved.items():
+            setattr(obj, name, fn)
+        return False
+
+
+def _cli2_metrics(text):
+    """The metric lines an app printed (``NAME value`` or ``NAME (avg)
+    value``), by name."""
+    import re
+
+    return {m[0]: float(m[1]) for m in
+            re.findall(r"^(MSE|PSNR|SSIM|LPIPS)(?: \(avg\))? (\S+)$", text, re.M)}
+
+
+def _cli2_same_metrics(label, card, cpu):
+    """Raises unless the card's metrics are the CPU's: PSNR within
+    TOL_CLI_DB, the others within TOL_METRIC relative; where the CPU's
+    PSNR is above CLI2_EXACT_DB (an inversion exact to float round-off)
+    the card's must be too, and its MSE and PSNR are not compared.
+    Returns the largest differences."""
+    if sorted(card) != sorted(cpu) or not {"MSE", "PSNR", "SSIM"} <= set(cpu):
+        raise AssertionError(f"cli2: {label} metrics {card} against the CPU's {cpu}")
+    exact = cpu["PSNR"] > CLI2_EXACT_DB
+    gaps = {}
+    for k, ref in cpu.items():
+        if exact and k in ("MSE", "PSNR"):
+            ok = card["PSNR"] > CLI2_EXACT_DB
+            gaps[k] = None
+        elif k == "PSNR":
+            gaps[k] = abs(card[k] - ref)
+            ok = gaps[k] <= TOL_CLI_DB
+        else:
+            gaps[k] = abs(card[k] - ref) / max(abs(ref), 1e-12)
+            ok = gaps[k] <= TOL_METRIC
+        if not ok:
+            raise AssertionError(f"cli2: {label} {k} card {card[k]} against the CPU's {ref}")
+    return {"psnr_db": card["PSNR"], "exact": exact, "gaps": gaps}
+
+
+def _cli2_same_records(label, card, cpu, tol_sim=TOL_SIM):
+    """Raises unless the card's records are the CPU's: each clean simulated
+    plane within ``tol_sim`` of its max and each quantized one within one
+    level; each FlatCam measurement within TOL_SIM; the first ADMM solve's
+    first sample against the CPU's solver on the card's PSF and data
+    within TOL_CLI2_ADMM; each Tikhonov estimate against the CPU's solver on the card's
+    measurement within TOL_CLI2_TIKHONOV.  Returns the errors."""
+    if (len(card.sims), len(card.flatcam), len(card.solves), len(card.tikhonov)) != (
+            len(cpu.sims), len(cpu.flatcam), len(cpu.solves), len(cpu.tikhonov)):
+        raise AssertionError(f"cli2: {label} records differ in number")
+    err = {"sims": 0.0, "levels_max": 0, "levels_differing": 0, "flatcam": 0.0}
+    for (q, clean), (q_cpu, clean_cpu) in zip(card.sims, cpu.sims):
+        for a, b in zip(clean, clean_cpu):
+            err["sims"] = max(err["sims"], nerr(torch.from_numpy(a), torch.from_numpy(b)))
+        err["levels_max"] = max(err["levels_max"], int(np.abs(q - q_cpu).max()))
+        err["levels_differing"] += int((q != q_cpu).sum())
+    for a, b in zip(card.flatcam, cpu.flatcam):
+        err["flatcam"] = max(err["flatcam"], nerr(torch.from_numpy(a), torch.from_numpy(b)))
+    if card.solves:     # its first sample: the solve is independent along the batch
+        psf, data, n, out = card.solves[0]
+        ref = admm.run(admm.make_convolver(psf, device="cpu"), data[:1], n_iter=n)
+        err["admm_same_inputs"] = nerr(torch.from_numpy(out[:1]), ref)
+        err["admm_n"] = n
+    if card.tikhonov:
+        _, img, out = card.tikhonov[0]
+        recon_cpu = cpu.tikhonov[0][0]
+        err["tikhonov_same_inputs"] = nerr(torch.from_numpy(out),
+                                           recon_cpu.apply(torch.from_numpy(img)))
+    if not (err["sims"] <= tol_sim and err["levels_max"] <= 1 and err["flatcam"] <= TOL_SIM
+            and err.get("admm_same_inputs", 0.0) <= TOL_CLI2_ADMM
+            and err.get("tikhonov_same_inputs", 0.0) <= TOL_CLI2_TIKHONOV):
+        raise AssertionError(f"cli2: {label} card against CPU {err}")
+    return err
+
+
+def _cli2_pngs(folder, n, rng, shape=CLI2_IMAGE):
+    """``n`` seeded RGB PNGs (smooth scenes with edges) in ``folder``."""
+    import cv2
+
+    os.makedirs(folder)
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]] / np.array(shape)[:, None, None]
+    for i in range(n):
+        f = rng.rand(3, 3) * 8 + 1
+        img = np.stack([0.5 + 0.5 * np.sin(f[c, 0] * xx + f[c, 1] * yy + f[c, 2])
+                        for c in range(3)], axis=-1)
+        img[(xx - rng.rand()) ** 2 + (yy - rng.rand()) ** 2 < 0.03] *= 0.3
+        if not cv2.imwrite(os.path.join(folder, f"im{i}.png"), (img * 255).astype(np.uint8)):
+            raise AssertionError("cli2: could not write an image")
+    return folder
+
+
+def cli2_phase(smi="", device="cuda"):
+    """The phase ``cli2``: the simulation, hub-model and measurement apps
+    through their ``main``, each on the card (``LPT_PLATFORM`` unset) and on
+    the CPU in this process, each side with its host seconds and peak
+    memory, every launch count 0 over the phase (no kernel lies on their
+    path):
+
+    * ``sim.mask_single_file`` at configs/sim_mask_single.yaml's RPi HQ
+      sensor at downsample 16 (190 x 253): MLS with the FlatCam model and
+      Tikhonov, MURA, FZA and PhaseContour (``phase_mask_iter=10``) with
+      the far field and ADMM (n = 18); ``sim.mask_dataset`` over 8 seeded
+      PNGs (MLS FlatCam Tikhonov, MURA ADMM in one batch of 8);
+    * ``sim.digicam_psf`` at downsample 8 (380 x 507) on a seeded (3, 128,
+      160) pattern with ``save=true``; ``sim.dataset`` at downsample 8 over
+      8 PNGs and phase ``cli``'s 12 MP synthetic PSF; ``sim.torch_dataset``
+      over 16 PNGs in batches of 4;
+    * ``measure.digicam_example`` from a file at ``down=8``, n = 100;
+    * the hub's apps on stand-in ``datasets`` / ``huggingface_hub`` modules:
+      ``recon.diffusercam_mirflickr`` on a local DiffuserCam folder at
+      downsample 2 with ADMM (n = 100) and phase ``cli``'s seeded zoo
+      checkpoint; ``recon.multilens_ambient`` with ADMM and a seeded
+      checkpoint whose background network subtracts the ambient light of
+      local measurement and background files; and
+      ``recon.digicam_mirflickr_psf_err`` over 4 rows of a
+      ``digicam_mirflickr_multi``-like split at 380 x 507, all six shares
+      of wrong pixels, ADMM n = 100 (the CPU's sweep: row 0 at the first
+      two shares, the same draws).
+
+    The gates: the returned arrays (ADMM on the same inputs within
+    TOL_CLI2_ADMM of the max, an ``AdafruitLCD`` PSF within TOL_CLI2_PSF, a
+    learned model within TOL_LEARNED, what ADMM made of a quantized
+    simulated plane within TOL_CLI2_SIMULATED), the printed or
+    saved metrics (PSNR within TOL_CLI_DB, the rest within TOL_METRIC
+    relative), and the records of ``_cli2_same_records``.  ``device="cpu"``
+    rehearses it (both sides on the CPU).  Returns the phase's record."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import cv2
+
+    from lenslesspicam_tpu_torch.data.datasets import available_datasets
+    from lenslesspicam_tpu_torch.models.trainable_recon import TrainableRecon
+    from lenslesspicam_tpu_torch.models.unet import UNetRes
+    from lenslesspicam_tpu_torch.models.unrolled import UnrolledADMM
+    from lenslesspicam_tpu_torch.scripts.measure import digicam_example as app_example
+    from lenslesspicam_tpu_torch.scripts.recon import diffusercam_mirflickr as app_dcm
+    from lenslesspicam_tpu_torch.scripts.recon import digicam_mirflickr_psf_err as app_psf_err
+    from lenslesspicam_tpu_torch.scripts.recon import multilens_ambient as app_multilens
+    from lenslesspicam_tpu_torch.scripts.sim import dataset as app_sim_dataset
+    from lenslesspicam_tpu_torch.scripts.sim import digicam_psf as app_digicam_psf
+    from lenslesspicam_tpu_torch.scripts.sim import mask_dataset as app_mask_dataset
+    from lenslesspicam_tpu_torch.scripts.sim import mask_single_file as app_mask_single
+    from lenslesspicam_tpu_torch.scripts.sim import torch_dataset as app_torch_dataset
+    from lenslesspicam_tpu_torch.zoo.model_dict import model_dict
+
+    t0 = time.perf_counter()
+    on_card = device != "cpu"
+    host_s, peak = {}, {}
+    rec = {"phase": "cli2", "seed": CLI2_SEED}
+
+    def run(name, fn, side):
+        """``fn()`` on ``side`` ("card" or "cpu"), its printed lines kept,
+        its host seconds and peak memory recorded."""
+        os.environ.pop("LPT_PLATFORM", None)
+        if side == "cpu" or not on_card:
+            os.environ["LPT_PLATFORM"] = "cpu"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        text = io.StringIO()
+        t1 = time.perf_counter()
+        with _Cli2Records() as records, contextlib.redirect_stdout(text):
+            out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+            if side == "card":
+                peak[name] = torch.cuda.max_memory_allocated()
+        host_s[f"{name}:{side}"] = time.perf_counter() - t1
+        print(f"cli2: {name} on the {side} {host_s[f'{name}:{side}']:.2f} s", file=sys.stderr,
+              flush=True)
+        return out, text.getvalue(), records
+
+    def both(name, args_of, main):
+        """The app on the card and on the CPU, each in its own run folder."""
+        card = run(name, lambda: main([*args_of("card"), f"output_dir={out}/{name}/card"]),
+                   "card")
+        cpu = run(name, lambda: main([*args_of("cpu"), f"output_dir={out}/{name}/cpu"]), "cpu")
+        return card, cpu
+
+    saved_env = os.environ.pop("LPT_PLATFORM", None)
+    saved_mods = {m: sys.modules.get(m) for m in ("datasets", "huggingface_hub")}
+    K.reset_launches()
+    PB.reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as folder:
+            out = os.path.join(folder, "runs")
+            rng = np.random.RandomState(CLI2_SEED)
+            images = _cli2_pngs(os.path.join(folder, "images"), CLI2_FILES, rng)
+            clean = ["simulation.snr_db=null"]
+
+            # sim.mask_single_file: each mask type
+            masks = {}
+            for case, args in CLI2_MASKS.items():
+                (est, text, r), (est_cpu, text_cpu, r_cpu) = both(
+                    f"mask_single_file_{case}", lambda side: [
+                        f"files.original={images}/im0.png", *clean, *args],
+                    app_mask_single.simulate)
+                tol = TOL_CLI2_TIKHONOV if "tikhonov" in case else TOL_CLI2_SIMULATED
+                masks[case] = {
+                    "shape": list(est.shape), "vs_cpu": nerr(torch.from_numpy(est),
+                                                             torch.from_numpy(est_cpu)),
+                    "metrics": _cli2_same_metrics(case, _cli2_metrics(text),
+                                                  _cli2_metrics(text_cpu)),
+                    "records": _cli2_same_records(
+                        case, r, r_cpu, TOL_CLI2_PHASE_CONTOUR if "phase" in case else TOL_SIM)}
+                if not (tuple(est.shape) == (190, 253, 3) and np.isfinite(est).all()
+                        and masks[case]["vs_cpu"] <= tol):
+                    raise AssertionError(f"cli2: mask_single_file {case} {masks[case]}")
+            rec["mask_single_file"] = masks
+
+            # sim.mask_dataset: 8 files, ADMM in one batch of 8
+            mask_ds = {}
+            for case in CLI2_MASK_DATASETS:
+                (_, text, r), (_, text_cpu, r_cpu) = both(
+                    f"mask_dataset_{case}", lambda side: [
+                        f"files.dataset={images}", *clean, "recon.batch_size=8",
+                        *CLI2_MASKS[case]], app_mask_dataset.simulate)
+                mask_ds[case] = {"metrics": _cli2_same_metrics(case, _cli2_metrics(text),
+                                                               _cli2_metrics(text_cpu)),
+                                 "records": _cli2_same_records(case, r, r_cpu)}
+                if "admm" in case and [s[1].shape[0] for s in r.solves] != [CLI2_FILES]:
+                    raise AssertionError(f"cli2: mask_dataset {case} batches "
+                                         f"{[s[1].shape for s in r.solves]}")
+            rec["mask_dataset"] = mask_ds
+
+            # sim.digicam_psf: a seeded pattern at downsample 8, the plots best-effort
+            pattern = os.path.join(folder, "pattern.npy")
+            np.save(pattern, (rng.rand(*CLI2_PATTERN) * 255).astype(np.uint8))
+            (psf, text, _), (psf_cpu, _, _) = both(
+                "digicam_psf", lambda side: [f"files.pattern={pattern}", "save=true"],
+                app_digicam_psf.digicam_psf)
+            rec["digicam_psf"] = {"shape": list(psf.shape), "vs_cpu": nerr(
+                torch.from_numpy(psf), torch.from_numpy(psf_cpu)),
+                "plots": "skipped" if "matplotlib is not installed" in text else "drawn"}
+            files = {f for _, _, fs in os.walk(os.path.join(out, "digicam_psf", "card"))
+                     for f in fs}
+            if not (tuple(psf.shape) == (380, 507, 3)
+                    and rec["digicam_psf"]["vs_cpu"] <= TOL_CLI2_PSF
+                    and np.isfinite(psf).all()
+                    and {"mask_vals.npy", "pattern_SIM_psf.png"} <= files):
+                raise AssertionError(f"cli2: digicam_psf {rec['digicam_psf']}")
+
+            # sim.dataset: 8 files through phase cli's 12 MP PSF at downsample 8
+            pair = _cli_pair(folder, device)
+            (_, text, r), (_, text_cpu, r_cpu) = both(
+                "sim_dataset", lambda side: [f"files.dataset={images}",
+                                             f"files.psf={pair['psf']}", *clean],
+                app_sim_dataset.simulate)
+            rec["sim_dataset"] = {
+                "grid": list(r.solves[0][1].shape) if r.solves else None,
+                "metrics": _cli2_same_metrics("sim_dataset", _cli2_metrics(text),
+                                              _cli2_metrics(text_cpu)),
+                "records": _cli2_same_records("sim_dataset", r, r_cpu)}
+
+            # sim.torch_dataset: 16 files in shuffled batches of 4
+            many = _cli2_pngs(os.path.join(folder, "many"), CLI2_TORCH_FILES, rng)
+            (n_b, _, r), (n_b_cpu, _, r_cpu) = both(
+                "torch_dataset", lambda side: [f"files.dataset={many}", *clean,
+                                               f"files.batch_size={CLI2_TORCH_BATCH}"],
+                app_torch_dataset.simulate)
+            rec["torch_dataset"] = {"batches": n_b, "records": _cli2_same_records(
+                "torch_dataset", r, r_cpu)}
+            if not n_b == n_b_cpu == CLI2_TORCH_FILES // CLI2_TORCH_BATCH or len(
+                    r.sims) != CLI2_TORCH_FILES:
+                raise AssertionError(f"cli2: torch_dataset {n_b}, {n_b_cpu}, {len(r.sims)}")
+
+            # measure.digicam_example from a file at down=8
+            capture = os.path.join(folder, "capture.png")
+            cv2.imwrite(capture, (rng.rand(*CLI2_CAPTURE, 3) * 255).astype(np.uint8))
+            (res, _, r), (res_cpu, _, r_cpu) = both(
+                "digicam_example", lambda side: [f"capture.fp={capture}",
+                                                 f"recon.n_iter={CLI2_N}"],
+                app_example.digicam)
+            rec["digicam_example"] = {
+                "shape": list(res.shape), "vs_cpu": nerr(torch.from_numpy(res),
+                                                         torch.from_numpy(res_cpu)),
+                "psf_vs_cpu": nerr(torch.from_numpy(r.solves[0][0]),
+                                   torch.from_numpy(r_cpu.solves[0][0])),
+                "records": _cli2_same_records("digicam_example", r, r_cpu)}
+            if not (tuple(res.shape) == (1, 380, 507, 3) and np.isfinite(res).all()
+                    and rec["digicam_example"]["vs_cpu"] <= TOL_CLI2_SIMULATED
+                    and rec["digicam_example"]["psf_vs_cpu"] <= TOL_CLI2_PSF):
+                raise AssertionError(f"cli2: digicam_example {rec['digicam_example']}")
+
+            # the hub's apps: stand-in modules, local files, seeded checkpoints
+            hub_dir = os.path.join(folder, "hub")
+            os.makedirs(os.path.join(hub_dir, "masks"))
+            unrolled = {"method": "unrolled_admm", "unrolled_admm": {"n_iter": CLI_ZOO_N},
+                        "pre_process": {"network": None}, "post_process": {"network": None}}
+            snapshots = {}
+            rows = {"split": None}
+
+            def load_dataset(repo, split=None, cache_dir=None, **_):
+                first = re.search(r"\[0:(\d+)\]$", split or "")    # HFDataset's n_files
+                return HubRows(rows["split"].rows[:int(first.group(1))]) if first else \
+                    rows["split"]
+
+            sys.modules["datasets"] = types.SimpleNamespace(load_dataset=load_dataset)
+            sys.modules["huggingface_hub"] = types.SimpleNamespace(
+                hf_hub_download=lambda repo_id, filename, **_: os.path.join(hub_dir, filename),
+                snapshot_download=lambda repo_id, **_: snapshots[repo_id])
+
+            # recon.diffusercam_mirflickr: a local folder at downsample 2
+            dcm = os.path.join(folder, "DiffuserCam")
+            for sub in ("diffuser_images", "ground_truth_lensed"):
+                os.makedirs(os.path.join(dcm, sub))
+                for i in range(3):
+                    np.save(os.path.join(dcm, sub, f"im{i}.npy"),
+                            rng.rand(*CLI_HUB_RAW, 3).astype(np.float32))
+            cv2.imwrite(os.path.join(dcm, "psf.tiff"),
+                        (rng.rand(2 * CLI_HUB_RAW[0], 2 * CLI_HUB_RAW[1], 3) * 200 + 20)
+                        .astype(np.uint8))
+            zoo = _cli_zoo_checkpoint(os.path.join(folder, "zoo"), {"reconstruction": unrolled})
+            dcm_rec = {}
+            for model in ("admm", "zoo"):
+                extra = [] if model == "admm" else [
+                    f"model_name={next(iter(model_dict['diffusercam']['mirflickr']))}",
+                    f"model_path={zoo}"]
+                ((res, ms), _, r), ((res_cpu, _), _, _) = both(
+                    f"diffusercam_mirflickr_{model}", lambda side: [
+                        f"files.dataset={dcm}", f"files.psf={dcm}/psf.tiff",
+                        f"n_iter={CLI2_N}", f"n_trials={2 if side == 'card' else 0}", *extra],
+                    app_dcm.main)
+                tol = TOL_CLI2_ADMM if model == "admm" else TOL_LEARNED
+                dcm_rec[model] = {"shape": list(res.shape), "avg_ms": ms, "vs_cpu": nerr(
+                    torch.from_numpy(res), torch.from_numpy(res_cpu)), "tol": tol}
+                if not (tuple(res.shape) == (1, 1, CLI_HUB_RAW[0] // 2, CLI_HUB_RAW[1] // 2, 3)
+                        and np.isfinite(res).all() and dcm_rec[model]["vs_cpu"] <= tol):
+                    raise AssertionError(f"cli2: diffusercam_mirflickr {model} {dcm_rec}")
+            rec["diffusercam_mirflickr"] = dcm_rec
+
+            # recon.multilens_ambient: measurement and background files, ADMM
+            # and a checkpoint whose background network subtracts the ambient light
+            cv2.imwrite(os.path.join(hub_dir, "psf.png"),
+                        (rng.rand(*CLI_HUB_RAW, 3) * 200 + 20).astype(np.uint8))
+            rows["split"] = HubRows([
+                {"lensless": (rng.rand(*CLI_HUB_RAW, 3) * 255).astype(np.uint8),
+                 "lensed": (rng.rand(*CLI_HUB_RAW, 3) * 255).astype(np.uint8)}
+                for _ in range(2)])
+            raw, bg = os.path.join(folder, "raw.png"), os.path.join(folder, "bg.png")
+            cv2.imwrite(raw, (rng.rand(*CLI_HUB_RAW, 3) * 255).astype(np.uint8))
+            cv2.imwrite(bg, (rng.rand(*CLI_HUB_RAW, 3) * 60).astype(np.uint8))
+            config = {"files": {"dataset": "owner/multilens", "huggingface_psf": "psf.png",
+                                "downsample": 2},
+                      "reconstruction": {**unrolled, "learned_background_subtraction":
+                                         list(CLI2_MULTILENS_NC)}}
+            ml = _cli_zoo_checkpoint(os.path.join(folder, "multilens"), config, TrainableRecon(
+                camera_inversion=UnrolledADMM(n_iter=CLI_ZOO_N, device="cpu"),
+                background_network=UNetRes(in_nc=4, out_nc=3, nc=CLI2_MULTILENS_NC,
+                                           nb=len(CLI2_MULTILENS_NC), device="cpu"),
+                device="cpu"), seed=CLI2_SEED)
+            ml_rec = {}
+            for model in ("admm", "U5+Unet8M_learned_sub"):
+                ((res, ms), _, _), ((res_cpu, _), _, _) = both(
+                    f"multilens_ambient_{model}", lambda side: [
+                        f"model={model}", f"model_path={ml}", f"fn={raw}",
+                        f"background_fn={bg}", f"n_iter={CLI2_N}",
+                        f"n_trials={2 if side == 'card' else 0}"], app_multilens.main)
+                tol = TOL_CLI2_ADMM if model == "admm" else TOL_LEARNED
+                ml_rec[model] = {"shape": list(res.shape), "avg_ms": ms, "vs_cpu": nerr(
+                    torch.from_numpy(res), torch.from_numpy(res_cpu)), "tol": tol}
+                if not (tuple(res.shape) == (1, 1, CLI_HUB_RAW[0] // 2, CLI_HUB_RAW[1] // 2, 3)
+                        and np.isfinite(res).all() and ml_rec[model]["vs_cpu"] <= tol):
+                    raise AssertionError(f"cli2: multilens_ambient {model} {ml_rec}")
+            rec["multilens_ambient"] = ml_rec
+
+            # recon.digicam_mirflickr_psf_err: 4 rows of 4 mask labels, all six shares
+            rows["split"] = HubRows([
+                {"lensless": (rng.rand(*HUB_GRID, 3) * 255).astype(np.uint8),
+                 "lensed": (rng.rand(*HUB_LENSED, 3) * 255).astype(np.uint8),
+                 "mask_label": i} for i in range(CLI2_PSF_ERR_ROWS)])
+            for lab in range(CLI2_PSF_ERR_ROWS):
+                np.save(os.path.join(hub_dir, "masks", f"mask_{lab}.npy"),
+                        rng.rand(*MASK_SHAPE).astype(np.float32))
+            multi = available_datasets[HUB_NAME]
+            entries = model_dict["digicam"]["mirflickr_multi_25k"]
+            snapshots[entries[next(iter(entries))]] = _cli_zoo_checkpoint(
+                os.path.join(folder, "digicam_multi"), {
+                    "files": {"dataset": "owner/digicam_multi", "downsample": 1,
+                              "rotate": multi["rotate"], "image_res": multi["display_res"]},
+                    "alignment": multi["alignment"], "reconstruction": unrolled})
+            percents = [0, 0.5, 1, 2, 5, 10]
+            (metrics, text, _), (metrics_cpu, _, _) = both(
+                "digicam_mirflickr_psf_err", lambda side: [
+                    "model=admm", f"n_iter={CLI2_N}", "save_idx=[]",
+                    "percent_pixels_wrong=" + json.dumps(
+                        percents if side == "card" else percents[:CLI2_PSF_ERR_CPU]),
+                    f"n_files={CLI2_PSF_ERR_ROWS if side == 'card' else 1}"],
+                app_psf_err.main)
+            written = json.load(open(next(
+                os.path.join(d, "metrics.json") for d, _, f in
+                os.walk(os.path.join(out, "digicam_mirflickr_psf_err", "card"))
+                if "metrics.json" in f)))
+            gaps = {}
+            for k in ("PSNR", "SSIM", "psf_err"):
+                a = np.asarray(metrics[k])[:CLI2_PSF_ERR_CPU, :1]
+                b = np.asarray(metrics_cpu[k])
+                if k == "PSNR":
+                    gaps[k] = float(np.abs(a - b).max())
+                else:
+                    gaps[k] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12)).max())
+            shape_ok = np.asarray(metrics["PSNR"]).shape == (len(percents), CLI2_PSF_ERR_ROWS)
+            psf_err = np.asarray(metrics["psf_err"])
+            rec["digicam_mirflickr_psf_err"] = {
+                "psnr_db": metrics["PSNR"], "psf_err": metrics["psf_err"], "vs_cpu": gaps,
+                "plots": "skipped" if "matplotlib is not installed" in text else "drawn"}
+            if not (shape_ok and all(written[k] == metrics[k] for k in gaps)
+                    and gaps["PSNR"] <= TOL_CLI_DB
+                    and gaps["SSIM"] <= TOL_METRIC and gaps["psf_err"] <= TOL_METRIC
+                    and np.isfinite(np.asarray(metrics["PSNR"])).all()
+                    and (psf_err[0] == 0).all() and (psf_err[1:] > 0).all()):
+                raise AssertionError(f"cli2: digicam_mirflickr_psf_err "
+                                     f"{rec['digicam_mirflickr_psf_err']}")
+    finally:
+        for m, mod in saved_mods.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+        os.environ.pop("LPT_PLATFORM", None)
+        if saved_env is not None:
+            os.environ["LPT_PLATFORM"] = saved_env
+    if on_card:
+        torch.cuda.synchronize()
+    counts = all_counts()
+    if counts != zero_counts():
+        raise AssertionError(f"cli2: launches {counts}, want none")
+    rec.update({"launches": counts, "host_s": host_s, "peak_mem_bytes": peak,
+                "tol": {"sim": TOL_SIM, "phase_contour": TOL_CLI2_PHASE_CONTOUR,
+                        "adafruit_psf": TOL_CLI2_PSF, "admm": TOL_CLI2_ADMM,
+                        "tikhonov": TOL_CLI2_TIKHONOV, "simulated": TOL_CLI2_SIMULATED,
+                        "learned": TOL_LEARNED, "metric": TOL_METRIC, "psnr_db": TOL_CLI_DB},
+                "card": smi, "seconds": time.perf_counter() - t0})
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3671,6 +4216,8 @@ def main():
     seconds["hub"] = hub["seconds"]
     cli = cli_phase(smi)
     seconds["cli"] = cli["seconds"]
+    cli2 = cli2_phase(smi)
+    seconds["cli2"] = cli2["seconds"]
     rates["hub_solve_samples_per_s"] = hub["solve_samples_per_s"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
@@ -3702,7 +4249,7 @@ def main():
              "bandwidth": counts_bw, "learned": learned["launches"],
              "spatial": spatial["gray"]["rpallas"]["launches"],
              "spatial_pallas": spatial["gray"]["pallas"]["launches"], "hub": hub["launches"],
-             "cli": cli["launches"]}
+             "cli": cli["launches"], "cli2": cli2["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else

@@ -4,10 +4,15 @@ JAX package's scripts of the same paths, in-process on the CPU
 ``tests/test_scripts.py`` (64 x 96 x 3 PNGs, ``downsample=2``, 5
 iterations); each app's run directory under ``tmp_path``.  This file holds
 the reconstruction apps ``admm``, ``gradient_descent``, ``apgd`` and
-``demo``, the simulation apps and what every app shares; the evaluation
-apps are in ``tests/test_torch_scripts_eval.py``, the trainer's and the
-hub's in ``tests/test_torch_scripts_models.py``, which take their helpers
-and tolerances from here.
+``demo``, the simulation apps ``single_file`` and ``simulate_dataset``
+and what every app shares; the evaluation apps are in
+``tests/test_torch_scripts_eval.py``, the trainer's and the hub's in
+``tests/test_torch_scripts_models.py``, the mask, PSF and dataset
+simulators in ``tests/test_torch_scripts_sim.py``, the measurement apps in
+``tests/test_torch_scripts_measure.py`` and the hub-model apps
+``diffusercam_mirflickr``, ``multilens_ambient`` and
+``digicam_mirflickr_psf_err`` in ``tests/test_torch_scripts_hub.py``,
+which take their helpers and tolerances from here.
 
 Tolerances:
 
@@ -23,9 +28,12 @@ Tolerances:
 - a saved 8-bit PNG: within one level.
 
 Also here: ``python -m`` of the ``admm`` app with the JAX script's
-overrides and printed lines, the YAML or defaults each app reads, an AST
-scan for imports of JAX, and the apps' refusal to run without a card
-unless ``LPT_PLATFORM=cpu``.
+overrides and printed lines, the YAML or defaults each app reads (``APPS``
+names each app's JAX script; ``sim.torch_dataset``'s is
+``scripts/sim/jax_dataset.py``), an AST scan for imports of JAX, the apps'
+refusal to run without a card unless ``LPT_PLATFORM=cpu``, and the
+best-effort plots of ``digicam_mirflickr_psf_err`` and ``digicam_psf``,
+which catch the ``ImportError`` of matplotlib alone.
 """
 
 import ast
@@ -47,28 +55,50 @@ from lenslesspicam_tpu_torch.scripts import _common
 from lenslesspicam_tpu_torch.scripts.eval import benchmark_recon as t_bench
 from lenslesspicam_tpu_torch.scripts.eval import compute_metrics_from_original as t_metrics
 from lenslesspicam_tpu_torch.scripts.eval import quality_baseline as t_qb
+from lenslesspicam_tpu_torch.scripts.measure import analyze_image as t_analyze_image
+from lenslesspicam_tpu_torch.scripts.measure import analyze_measured_dataset as t_analyze_ds
+from lenslesspicam_tpu_torch.scripts.measure import digicam_example as t_digicam_example
 from lenslesspicam_tpu_torch.scripts.recon import admm as t_admm
 from lenslesspicam_tpu_torch.scripts.recon import apgd as t_apgd
 from lenslesspicam_tpu_torch.scripts.recon import dataset_recon as t_dsrecon
 from lenslesspicam_tpu_torch.scripts.recon import demo as t_demo
 from lenslesspicam_tpu_torch.scripts.recon import diffusercam as t_diffusercam
+from lenslesspicam_tpu_torch.scripts.recon import diffusercam_mirflickr as t_dc_mirflickr
 from lenslesspicam_tpu_torch.scripts.recon import digicam as t_digicam
+from lenslesspicam_tpu_torch.scripts.recon import digicam_mirflickr_psf_err as t_psf_err
 from lenslesspicam_tpu_torch.scripts.recon import gradient_descent as t_gd
+from lenslesspicam_tpu_torch.scripts.recon import multilens_ambient as t_multilens
 from lenslesspicam_tpu_torch.scripts.recon import train_learning_based as t_train
+from lenslesspicam_tpu_torch.scripts.sim import dataset as t_sim_dataset
+from lenslesspicam_tpu_torch.scripts.sim import digicam_psf as t_digicam_psf
+from lenslesspicam_tpu_torch.scripts.sim import mask_dataset as t_mask_dataset
+from lenslesspicam_tpu_torch.scripts.sim import mask_single_file as t_mask_single
 from lenslesspicam_tpu_torch.scripts.sim import simulate_dataset as t_simds
 from lenslesspicam_tpu_torch.scripts.sim import single_file as t_single
+from lenslesspicam_tpu_torch.scripts.sim import torch_dataset as t_torch_dataset
 
 from scripts.eval import benchmark_recon as j_bench
 from scripts.eval import compute_metrics_from_original as j_metrics
 from scripts.eval import quality_baseline as j_qb
+from scripts.measure import analyze_image as j_analyze_image
+from scripts.measure import analyze_measured_dataset as j_analyze_ds
+from scripts.measure import digicam_example as j_digicam_example
 from scripts.recon import admm as j_admm
 from scripts.recon import apgd as j_apgd
 from scripts.recon import dataset_recon as j_dsrecon
 from scripts.recon import demo as j_demo
 from scripts.recon import diffusercam as j_diffusercam
+from scripts.recon import diffusercam_mirflickr as j_dc_mirflickr
 from scripts.recon import digicam as j_digicam
+from scripts.recon import digicam_mirflickr_psf_err as j_psf_err
 from scripts.recon import gradient_descent as j_gd
+from scripts.recon import multilens_ambient as j_multilens
 from scripts.recon import train_learning_based as j_train
+from scripts.sim import dataset as j_sim_dataset
+from scripts.sim import digicam_psf as j_digicam_psf
+from scripts.sim import jax_dataset as j_jax_dataset
+from scripts.sim import mask_dataset as j_mask_dataset
+from scripts.sim import mask_single_file as j_mask_single
 from scripts.sim import simulate_dataset as j_simds
 from scripts.sim import single_file as j_single
 
@@ -97,12 +127,36 @@ APPS = {
     "eval.quality_baseline": (t_qb, j_qb, "main"),
     "sim.simulate_dataset": (t_simds, j_simds, "main"),
     "sim.single_file": (t_single, j_single, "simulate"),
+    "recon.diffusercam_mirflickr": (t_dc_mirflickr, j_dc_mirflickr, "main"),
+    "recon.multilens_ambient": (t_multilens, j_multilens, "main"),
+    "recon.digicam_mirflickr_psf_err": (t_psf_err, j_psf_err, "main"),
+    "sim.mask_single_file": (t_mask_single, j_mask_single, "simulate"),
+    "sim.mask_dataset": (t_mask_dataset, j_mask_dataset, "simulate"),
+    "sim.digicam_psf": (t_digicam_psf, j_digicam_psf, "digicam_psf"),
+    "sim.dataset": (t_sim_dataset, j_sim_dataset, "simulate"),
+    "sim.torch_dataset": (t_torch_dataset, j_jax_dataset, "simulate"),   # sim/jax_dataset.py
+    "measure.digicam_example": (t_digicam_example, j_digicam_example, "digicam"),
+    "measure.analyze_image": (t_analyze_image, j_analyze_image, "main"),
+    "measure.analyze_measured_dataset": (t_analyze_ds, j_analyze_ds, "main"),
 }
 
 
 @pytest.fixture(autouse=True)
 def cpu_platform(monkeypatch):
     monkeypatch.setenv("LPT_PLATFORM", "cpu")
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The port's CPU work on one thread for a module of app tests: their
+    grids are small, and PyTorch's thread pool beside pytest's other
+    workers made them ten times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -145,6 +199,16 @@ def _both(tmp_path, name, args):
     ref = _run(getattr(jax_app, entry), args, tmp_path / "jax")
     out = _run(getattr(port, entry), args, tmp_path / "port")
     return out, ref
+
+
+def _both_printed(tmp_path, name, args, capsys):
+    """``_both`` with each side's printed lines: (port's result, JAX's
+    result, port's lines, JAX's lines)."""
+    port, jax_app, entry = APPS[name]
+    ref = _run(getattr(jax_app, entry), args, tmp_path / "jax")
+    jax_out = capsys.readouterr().out
+    out = _run(getattr(port, entry), args, tmp_path / "port")
+    return out, ref, capsys.readouterr().out, jax_out
 
 
 def _shape_of_lines(text, tmp_path):
@@ -246,6 +310,86 @@ def test_demo_app_matches_jax(pngs, tmp_path):
     assert out.shape == (32, 39, 3)
     assert _png_levels(_saved(tmp_path / "port", "reconstructed.png"),
                        _saved(tmp_path / "jax", "reconstructed.png")) <= 1
+
+
+# --- the best-effort plots --------------------------------------------------------------
+
+class _Rows:
+    """A loaded hub split: dict rows and ``column_names``."""
+
+    def __init__(self, rows):
+        self.rows, self.column_names = rows, list(rows[0])
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        return self.rows[int(idx)]
+
+
+def _psf_err_inputs(tmp_path, monkeypatch):
+    """``digicam_mirflickr_psf_err``'s arguments on stand-in ``datasets`` /
+    ``huggingface_hub`` modules: two 48 x 64 rows of two mask labels, 19 x
+    26 patterns, the sibling checkpoint that ``model=admm`` reads its
+    dataset config from."""
+    import types
+
+    import yaml
+
+    rng = np.random.RandomState(11)
+    (tmp_path / "hub" / "masks").mkdir(parents=True)
+    for lab in range(2):
+        np.save(tmp_path / "hub" / "masks" / f"mask_{lab}.npy",
+                rng.rand(19, 26).astype(np.float32))
+    rows = _Rows([{"lensless": (rng.rand(48, 64, 3) * 255).astype(np.uint8),
+                   "lensed": (rng.rand(48, 64, 3) * 255).astype(np.uint8), "mask_label": i}
+                  for i in range(2)])
+    (tmp_path / "ckpt" / ".hydra").mkdir(parents=True)
+    with open(tmp_path / "ckpt" / ".hydra" / "config.yaml", "w") as f:
+        yaml.safe_dump({"files": {"dataset": "owner/multi", "downsample": 1}}, f)
+    monkeypatch.setitem(sys.modules, "datasets", types.SimpleNamespace(
+        load_dataset=lambda repo, split=None, cache_dir=None, **_: rows))
+    monkeypatch.setitem(sys.modules, "huggingface_hub", types.SimpleNamespace(
+        hf_hub_download=lambda repo_id, filename, **_: str(tmp_path / "hub" / filename),
+        snapshot_download=lambda repo_id, **_: str(tmp_path / "ckpt")))
+    return (["model=admm", "n_iter=3", "percent_pixels_wrong=[0,10]", "save_idx=[]"],
+            "metrics.json", "_vs_psf_err.png")
+
+
+def _digicam_psf_inputs(tmp_path, monkeypatch):
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    np.save(tmp_path / "pattern.npy",
+            (np.random.RandomState(0).rand(3, 128, 160) * 255).astype(np.uint8))
+    return ([f"files.pattern={tmp_path / 'pattern.npy'}", "digicam.downsample=16"],
+            "pattern_SIM_psf.png", "sim_psf_plot.png")
+
+
+@pytest.mark.parametrize("name,inputs", [
+    ("recon.digicam_mirflickr_psf_err", _psf_err_inputs),
+    ("sim.digicam_psf", _digicam_psf_inputs)])
+def test_best_effort_plots_catch_only_import_error(tmp_path, monkeypatch, capsys, name, inputs):
+    """Without matplotlib (``None`` in ``sys.modules``, as on the card's
+    machine) the app still writes what it computed (the PSF-error sweep's
+    ``metrics.json``, the simulated PSF) and says that it skips the plots;
+    a fault in the plotting itself still raises."""
+    import matplotlib.pyplot as plt
+
+    port, _, entry = APPS[name]
+    args, written, figure = inputs(tmp_path / "in", monkeypatch)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        _run(getattr(port, entry), args, tmp_path / "without")
+    assert _saved(tmp_path / "without", written).is_file()
+    assert not list((tmp_path / "without").rglob("*" + figure))
+    assert "matplotlib is not installed" in capsys.readouterr().out
+
+    def broken(*a, **kw):
+        raise RuntimeError("a plotting fault")
+
+    monkeypatch.setattr(plt, "subplots", broken)
+    with pytest.raises(RuntimeError, match="a plotting fault"):
+        _run(getattr(port, entry), args, tmp_path / "faulty")
+    assert _saved(tmp_path / "faulty", written).is_file()
 
 
 # --- the surface --------------------------------------------------------------------------
