@@ -119,6 +119,13 @@ of each), runs the simulation, hub-model and measurement apps (phase
 the dataset simulators, ``digicam_example``, the DiffuserCam, multi-lens
 and PSF-error apps on stand-in rows, each on the card and on the CPU in
 this process and held together; no kernel on their path, every launch
+count 0), runs the last apps (phase ``cli3``: the end-to-end ``demo`` at
+its defaults, 760 x 1014 x 3 and ADMM n = 100, and the capture apps over a
+stand-in Raspberry Pi whose camera returns a full-size raw mosaic
+simulated from a PSF, through the port's ``on_device_capture``;
+``plot_psf`` on a mask; the Telegram bot on stand-in ``telegram`` modules
+answering five requests; the CelebA ViT where ``transformers`` is
+installed; each solve held to the CPU on the same inputs; every launch
 count 0), checks that each counted run went
 through every kernel of its path, measures the solvers' rates, and prints
 one JSON line per phase.
@@ -3541,6 +3548,42 @@ class _Cli2Records:
         return False
 
 
+class _AppRunner:
+    """Runs an app's ``fn()`` for phase ``phase`` on a side, ``"card"``
+    (``LPT_PLATFORM`` unset) or ``"cpu"``, inside ``records()`` with its
+    printed lines kept; ``host_s`` and ``peak`` collect each run's host
+    seconds and, on the card, its peak memory.  With ``on_card`` false
+    both sides run on the CPU (the rehearsal)."""
+
+    def __init__(self, phase, records, on_card):
+        self.phase, self.records, self.on_card = phase, records, on_card
+        self.host_s, self.peak = {}, {}
+
+    def __call__(self, name, fn, side):
+        import contextlib
+        import io
+
+        os.environ.pop("LPT_PLATFORM", None)
+        if side == "cpu" or not self.on_card:
+            os.environ["LPT_PLATFORM"] = "cpu"
+        if self.on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        text = io.StringIO()
+        t1 = time.perf_counter()
+        with self.records() as records, contextlib.redirect_stdout(text):
+            out = fn()
+        if self.on_card:
+            torch.cuda.synchronize()
+            if side == "card":
+                self.peak[name] = torch.cuda.max_memory_allocated()
+        key = f"{name}:{side}"
+        self.host_s[key] = time.perf_counter() - t1
+        print(f"{self.phase}: {name} on the {side} {self.host_s[key]:.2f} s", file=sys.stderr,
+              flush=True)
+        return out, text.getvalue(), records
+
+
 def _cli2_metrics(text):
     """The metric lines an app printed (``NAME value`` or ``NAME (avg)
     value``), by name."""
@@ -3661,8 +3704,6 @@ def cli2_phase(smi="", device="cuda"):
     saved metrics (PSNR within TOL_CLI_DB, the rest within TOL_METRIC
     relative), and the records of ``_cli2_same_records``.  ``device="cpu"``
     rehearses it (both sides on the CPU).  Returns the phase's record."""
-    import contextlib
-    import io
     import re
     import tempfile
 
@@ -3685,30 +3726,9 @@ def cli2_phase(smi="", device="cuda"):
 
     t0 = time.perf_counter()
     on_card = device != "cpu"
-    host_s, peak = {}, {}
+    run = _AppRunner("cli2", _Cli2Records, on_card)
+    host_s, peak = run.host_s, run.peak
     rec = {"phase": "cli2", "seed": CLI2_SEED}
-
-    def run(name, fn, side):
-        """``fn()`` on ``side`` ("card" or "cpu"), its printed lines kept,
-        its host seconds and peak memory recorded."""
-        os.environ.pop("LPT_PLATFORM", None)
-        if side == "cpu" or not on_card:
-            os.environ["LPT_PLATFORM"] = "cpu"
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        text = io.StringIO()
-        t1 = time.perf_counter()
-        with _Cli2Records() as records, contextlib.redirect_stdout(text):
-            out = fn()
-        if on_card:
-            torch.cuda.synchronize()
-            if side == "card":
-                peak[name] = torch.cuda.max_memory_allocated()
-        host_s[f"{name}:{side}"] = time.perf_counter() - t1
-        print(f"cli2: {name} on the {side} {host_s[f'{name}:{side}']:.2f} s", file=sys.stderr,
-              flush=True)
-        return out, text.getvalue(), records
 
     def both(name, args_of, main):
         """The app on the card and on the CPU, each in its own run folder."""
@@ -3975,6 +3995,662 @@ def cli2_phase(smi="", device="cuda"):
     return rec
 
 
+# phase ``cli3``: the last apps of lenslesspicam_tpu_torch/scripts, through
+# their ``main`` with the JAX scripts' dotted overrides: the end-to-end demo
+# and the capture apps over a stand-in Raspberry Pi that runs the port's
+# own ``measure/on_device_capture`` on a simulated camera, ``data/plot_psf``,
+# the Telegram bot on stand-in ``telegram`` modules and, where transformers
+# is installed, the CelebA ViT.  None of them reaches a kernel: the exact
+# ADMM and FISTA (torch.fft), AdafruitLCD, FFTConvolver, cuBLAS
+CLI3_SEED = 28
+CLI3_EXP = 0.04                           # the stand-in raw's exposure: twice the apps' default
+CLI3_LEVEL = 0.8                          # its largest value after the ISP chain, of full scale
+CLI3_DISPLAY = (480, 640)                 # the seeded images shown on the screen
+CLI3_COLLECT_FILES = 3
+CLI3_COLLECT_N = 10                       # collect's on-line ADMM
+CLI3_CHANNELS_N = 10                      # the demo's solve again on all 3 channels
+CLI3_DOWN = 4                             # collect's on-device RGB downsample, the demo's too
+CLI3_MASK = {"shape": [18, 26], "center": [59, 76]}     # a DigiCam sub-pattern and its place
+CLI3_PATTERNS = 2                         # digicam_measure_psfs' full LCD patterns
+CLI3_VIT = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                intermediate_size=64, image_size=224, patch_size=16, num_labels=2)
+CLI3_VIT_IMAGES = 4                       # one epoch, 2 steps of batch 2
+TOL_CLI3_FISTA = TOL_CARD_CPU["solver"]   # FISTA n = 100 on the same inputs, of the max
+TOL_CLI3_VIT = 1e-4                       # the ViT's step losses, relative
+# Each ViT parameter's change over the steps, the worst entry's error in norm
+# relative to the CPU change's norm, the attention's key biases left out
+# (softmax is invariant to them: their gradient is rounding, which Adam's
+# first steps scale to +-lr)
+TOL_CLI3_VIT_STEP = 5e-3
+
+
+def rgb_mosaic(img, level):
+    """An RGB (H, W, 3) image as the RPi HQ sensor's raw 12-bit mosaic that
+    ``data.image.bayer2rgb_cc`` with RED_GAIN and BLUE_GAIN demosaics back
+    (red read at the (odd, odd) sites, blue at the (even, even) ones, as in
+    ``raw_mosaic``), scaled so that the chain's colour matrix puts its
+    largest value near ``level`` of full scale."""
+    from lenslesspicam_tpu_torch.hardware.constants import (RPI_HQ_CAMERA_BLACK_LEVEL,
+                                                            RPI_HQ_CAMERA_CCM_MATRIX)
+
+    v = np.asarray(img, np.float64) / max(float(np.max(img)), 1e-30)
+    v *= level / max(float((v[::4, ::4] @ RPI_HQ_CAMERA_CCM_MATRIX.T).max()), 1e-30)
+    out = v[..., 1].copy()
+    out[1::2, 1::2] = v[1::2, 1::2, 0] / RED_GAIN
+    out[0::2, 0::2] = v[0::2, 0::2, 2] / BLUE_GAIN
+    black = RPI_HQ_CAMERA_BLACK_LEVEL
+    return np.rint(black + np.clip(out, 0, 1) * (2 ** RAW_BITS - 1 - black)).astype(np.uint16)
+
+
+class _StandInPi:
+    """A stand-in Raspberry Pi for the capture apps, while active: a
+    ``paramiko`` module, and ``subprocess.Popen`` / ``run`` that act out
+    the ``ssh`` and ``scp`` commands of ``hardware/remote.py`` (every other
+    command runs as before).  The capture command runs the port's
+    ``measure/on_device_capture`` in ``home`` on stand-in ``picamerax``
+    modules whose camera returns ``raw`` (an RPi HQ 12-bit mosaic at
+    CLI3_EXP) scaled by the exposure it is set to; an ``scp`` from the Pi
+    copies out of ``home``.  ``exposures`` holds each capture's exposure,
+    ``patterns`` each mask pattern sent, ``shown`` each file displayed and
+    ``commands`` every command."""
+
+    def __init__(self, raw, home):
+        self.raw, self.home = raw, home
+        self.exposures, self.patterns, self.shown, self.commands = [], [], [], []
+        self.saved = {}
+
+    def planes(self, exp):
+        """The camera's Bayer array at ``exp`` seconds: each site's value in
+        the plane of its colour (red at (odd, odd), blue at (even, even))."""
+        from lenslesspicam_tpu_torch.hardware.constants import RPI_HQ_CAMERA_BLACK_LEVEL as black
+
+        frame = np.clip(np.rint(black + (self.raw - black) * (exp / CLI3_EXP)), 0,
+                        2 ** RAW_BITS - 1).astype(np.uint16)
+        out = np.zeros((*frame.shape, 3), np.uint16)
+        out[..., 1] = frame
+        for r, ch in ((1, 0), (0, 2)):
+            out[r::2, r::2, ch] = frame[r::2, r::2]
+            out[r::2, r::2, 1] = 0
+        return out
+
+    def __enter__(self):
+        import contextlib
+        import fractions
+        import io
+        import re
+        import shutil
+
+        from lenslesspicam_tpu_torch.scripts.measure import on_device_capture
+
+        pi = self
+        popen, run = subprocess.Popen, subprocess.run
+
+        class SSHClient:
+            def load_system_host_keys(self):
+                pass
+
+            def set_missing_host_key_policy(self, policy):
+                pass
+
+            def connect(self, *args, **kwargs):
+                pass
+
+            def close(self):
+                pass
+
+        class PiCamera:
+            def __init__(self, framerate=None, sensor_mode=0, resolution=None):
+                self.framerate, self.sensor_mode = framerate, sensor_mode
+                self.resolution = resolution or (pi.raw.shape[1], pi.raw.shape[0])
+                self.iso = self.shutter_speed = 0
+                self.awb_gains = tuple(fractions.Fraction(g).limit_denominator(100)
+                                       for g in (RED_GAIN, BLUE_GAIN))
+
+            def capture(self, stream, fmt=None, bayer=False):
+                if not bayer:
+                    raise AssertionError("cli3: the stand-in camera takes raw Bayer frames only")
+                pi.exposures.append(self.shutter_speed / 1e6)
+                stream.array = pi.planes(self.shutter_speed / 1e6)
+
+            def close(self):
+                pass
+
+        class PiBayerArray:
+            def __init__(self, camera):
+                self.array = None
+
+        def on_pi(args, **kwargs):
+            """``ssh <pi> '<python> <capture script> key=value ...'``: the
+            port's on-device app in ``home``, its printed lines the output."""
+            if not (isinstance(args, list) and args[:1] == ["ssh"]):
+                return popen(args, **kwargs)
+            pi.commands.append(args[-1])
+            text, cwd = io.StringIO(), os.getcwd()
+            os.chdir(pi.home)
+            try:
+                with contextlib.redirect_stdout(text):
+                    on_device_capture.main([*args[-1].split()[2:], "output_dir=runs"])
+            finally:
+                os.chdir(cwd)
+            return types.SimpleNamespace(stdout=io.BytesIO(text.getvalue().encode()),
+                                         stderr=io.BytesIO(b""))
+
+        def over_ssh(cmd, **kwargs):
+            if not (isinstance(cmd, str) and cmd.startswith(("scp ", "ssh "))):
+                return run(cmd, **kwargs)
+            pi.commands.append(cmd)
+            fetch = re.fullmatch(r'scp "[^"]+:~/(\S+)" (\S+)', cmd)
+            if fetch:
+                shutil.copyfile(os.path.join(pi.home, fetch.group(1)), fetch.group(2))
+            elif cmd.startswith("scp "):
+                src, dst = cmd.split()[1:3]
+                if dst.endswith(":~/slm_pattern.npy"):
+                    pi.patterns.append(np.load(src))
+                else:
+                    pi.shown.append(src)
+            return subprocess.CompletedProcess(cmd, 0)
+
+        array = types.ModuleType("picamerax.array")
+        array.PiBayerArray = PiBayerArray
+        picamerax = types.ModuleType("picamerax")
+        picamerax.PiCamera, picamerax.array = PiCamera, array
+        self.saved = {"Popen": popen, "run": run,
+                      "modules": {m: sys.modules.get(m)
+                                  for m in ("paramiko", "picamerax", "picamerax.array")}}
+        sys.modules.update({"paramiko": types.SimpleNamespace(SSHClient=SSHClient,
+                                                              WarningPolicy=object),
+                            "picamerax": picamerax, "picamerax.array": array})
+        subprocess.Popen, subprocess.run = on_pi, over_ssh
+        return self
+
+    def __exit__(self, *exc):
+        subprocess.Popen, subprocess.run = self.saved["Popen"], self.saved["run"]
+        for m, mod in self.saved["modules"].items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+        return False
+
+
+class _Cli3Records:
+    """While active, records each solve of the package's ``ADMM`` and
+    ``FISTA`` (the class, its PSF and keywords, the data, ``apply``'s
+    arguments and result), each ``AdafruitLCD`` PSF and each image handed
+    to ``data.io.save_image`` (by path), as host arrays: the apps import
+    them when they run."""
+
+    def __init__(self):
+        self.solves, self.psfs, self.saved = [], [], {}
+        self.restore = []
+
+    def __enter__(self):
+        from lenslesspicam_tpu_torch._device import as_host
+        from lenslesspicam_tpu_torch.data import io as data_io
+        from lenslesspicam_tpu_torch.hardware.trainable_mask import AdafruitLCD
+
+        rec = self
+        self.restore = [(lpt, "ADMM", lpt.ADMM), (lpt, "FISTA", lpt.FISTA),
+                        (AdafruitLCD, "get_psf", AdafruitLCD.get_psf),
+                        (data_io, "save_image", data_io.save_image)]
+
+        def recording(cls):
+            class Recorded(cls):
+                def __init__(self, psf, *args, **kwargs):
+                    super().__init__(psf, *args, **kwargs)
+                    self._record = {"cls": cls, "psf": as_host(psf), "args": args,
+                                    "kwargs": {k: v for k, v in kwargs.items() if k != "device"}}
+
+                def set_data(self, data):
+                    super().set_data(data)
+                    self._record["data"] = as_host(data)
+
+                def apply(self, *args, **kwargs):
+                    out = super().apply(*args, **kwargs)
+                    rec.solves.append({**self._record, "apply": (args, kwargs),
+                                       "out": as_host(out)})
+                    return out
+
+            Recorded.__name__ = Recorded.__qualname__ = cls.__name__
+            return Recorded
+
+        get_psf, save_image = AdafruitLCD.get_psf, data_io.save_image
+
+        def get_psf_(mask, *args, **kwargs):
+            out = get_psf(mask, *args, **kwargs)
+            rec.psfs.append(as_host(out))
+            return out
+
+        def save_image_(img, fp, *args, **kwargs):
+            rec.saved[str(fp)] = as_host(img)
+            return save_image(img, fp, *args, **kwargs)
+
+        lpt.ADMM, lpt.FISTA = recording(lpt.ADMM), recording(lpt.FISTA)
+        AdafruitLCD.get_psf, data_io.save_image = get_psf_, save_image_
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.restore:
+            setattr(obj, name, value)
+        return False
+
+
+def _cli3_cpu_solve(solve, channels=slice(None), device="cpu"):
+    """A recorded solve again on the CPU (or ``device``): the same class,
+    PSF, keywords, data and ``apply`` arguments, on ``channels`` of the PSF
+    and data (the solvers treat each colour channel on its own)."""
+    from lenslesspicam_tpu_torch._device import as_host
+
+    solver = solve["cls"](solve["psf"][..., channels], *solve["args"], device=device,
+                          **solve["kwargs"])
+    solver.set_data(solve["data"][..., channels])
+    args, kwargs = solve["apply"]
+    return as_host(solver.apply(*args, **kwargs))
+
+
+def stand_in_telegram():
+    """Stand-in ``telegram`` / ``telegram.ext`` modules for the Telegram
+    bot (python-telegram-bot is not needed): the application records its
+    handlers as ``(kind, name, callback)`` and ``run_polling`` returns at
+    once.  Returns ``({module name: module}, apps)``, ``apps`` the list
+    that each polled application is appended to."""
+    apps = []
+
+    class App:
+        def __init__(self, token):
+            self.token, self.handlers = token, []
+
+        def add_handler(self, handler):
+            self.handlers.append(handler)
+
+        def run_polling(self):
+            apps.append(self)
+
+    class ApplicationBuilder:
+        def token(self, token):
+            self._token = token
+            return self
+
+        def build(self):
+            return App(self._token)
+
+    telegram = types.ModuleType("telegram")
+    telegram.InlineKeyboardButton = lambda text, callback_data: (text, callback_data)
+    telegram.InlineKeyboardMarkup = lambda rows: ("keyboard", rows)
+    telegram.Update = object
+    ext = types.ModuleType("telegram.ext")
+    ext.ApplicationBuilder = ApplicationBuilder
+    ext.CommandHandler = lambda name, cb: ("command", name, cb)
+    ext.CallbackQueryHandler = lambda cb: ("callback", None, cb)
+    ext.MessageHandler = lambda kind, cb: ("message", kind, cb)
+    ext.filters = types.SimpleNamespace(PHOTO="photo", TEXT="text")
+    telegram.ext = ext
+    return {"telegram": telegram, "telegram.ext": ext}, apps
+
+
+def _cli3_bot(main, argv, photo):
+    """The Telegram bot of ``main`` on ``stand_in_telegram``'s modules,
+    then five requests through its handlers: user 1's photo (solved with
+    ADMM, the default, as ``/admm`` would), ``/fista``, ``/unrolled``, user
+    2's photo and user 1's ``/random_mask`` (its seed drawn from the global
+    ``np.random``, seeded here).  Returns the replies: (user, kind, text or
+    caption with its seconds blanked)."""
+    import asyncio
+    import re
+    import shutil
+    from datetime import datetime, timezone
+
+    replies = []
+    modules, apps = stand_in_telegram()
+    saved = {m: sys.modules.get(m) for m in modules}
+    sys.modules.update(modules)
+    try:
+        main(argv)
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    (app,) = apps
+    handlers = {(kind, name): cb for kind, name, cb in app.handlers}
+
+    class File:
+        async def download_to_drive(self, path):
+            shutil.copyfile(photo, path)
+
+    class PhotoSize:
+        async def get_file(self):
+            return File()
+
+    def update(user, with_photo=False):
+        class Message:
+            async def reply_text(self, text, **kwargs):
+                replies.append((user, "text", text))
+
+            async def reply_photo(self, f, caption=None, **kwargs):
+                f.read()
+                replies.append((user, "photo", re.sub(r"\d+\.\d s", "# s", caption or "")))
+
+        msg = Message()
+        msg.message_id, msg.date = len(replies), datetime.now(timezone.utc)
+        msg.photo = [PhotoSize()] if with_photo else None
+        return types.SimpleNamespace(message=msg, effective_user=types.SimpleNamespace(id=user))
+
+    no_args = types.SimpleNamespace(args=[])
+
+    async def requests():
+        await handlers[("message", "photo")](update(1, True), None)
+        await handlers[("command", "fista")](update(1), no_args)
+        await handlers[("command", "unrolled")](update(1), no_args)
+        await handlers[("message", "photo")](update(2, True), None)
+        np.random.seed(CLI3_SEED)
+        await handlers[("command", "random_mask")](update(1), no_args)
+
+    asyncio.run(requests())
+    return replies
+
+
+def _cli3_vit(folder, run):
+    """The ViT app on the card and on the CPU from one seeded tiny
+    ``ViTForImageClassification`` (CLI3_VIT, saved to ``folder``) over
+    CLI3_VIT_IMAGES seeded 224 x 224 PNGs, one epoch of 2 steps; each
+    step's loss recorded at ``torch.nn.functional.cross_entropy``.
+    Returns the record; raises unless the step losses agree within
+    TOL_CLI3_VIT relative, each parameter's change within
+    TOL_CLI3_VIT_STEP, and the steps moved the head."""
+    import cv2
+    import torch.nn.functional as F
+    from transformers import ViTConfig, ViTForImageClassification
+
+    from lenslesspicam_tpu_torch.scripts.classify import train_celeba_vit as app_vit
+
+    data = os.path.join(folder, "celeba")
+    os.makedirs(data)
+    rng = np.random.RandomState(CLI3_SEED)
+    for k in range(CLI3_VIT_IMAGES):
+        if not cv2.imwrite(os.path.join(data, f"{k:03d}.png"),
+                           (rng.rand(224, 224, 3) * 255).astype(np.uint8)):
+            raise AssertionError("cli3: could not write an image")
+    np.save(os.path.join(data, "labels.npy"), np.arange(CLI3_VIT_IMAGES) % 2)
+    torch.manual_seed(CLI3_SEED)
+    model_dir = os.path.join(folder, "vit")
+    start = ViTForImageClassification(ViTConfig(**CLI3_VIT))
+    start.save_pretrained(model_dir)
+    initial = {k: v.numpy() for k, v in start.state_dict().items()}
+    losses, weights = {}, {}
+    cross_entropy = F.cross_entropy
+    for side in ("card", "cpu"):
+        losses[side] = []
+
+        def recorded(*args, _losses=losses[side], **kwargs):
+            loss = cross_entropy(*args, **kwargs)
+            _losses.append(float(loss.detach()))
+            return loss
+
+        F.cross_entropy = recorded
+        try:
+            weights[side], text, _ = run("train_celeba_vit", lambda: app_vit.main([
+                f"data_dir={data}", f"model_name={model_dir}", "epochs=1", "batch_size=2",
+                "lr=1e-3", f"output_dir={folder}/runs/vit/{side}"]), side)
+        finally:
+            F.cross_entropy = cross_entropy
+        if "epoch 0: loss" not in text:
+            raise AssertionError(f"cli3: train_celeba_vit printed {text!r}")
+    gaps = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses["card"], losses["cpu"])]
+    moved = {k: {side: weights[side][k] - v for side in weights} for k, v in initial.items()
+             if not k.endswith("attention.key.bias")}
+    rec = {"losses": losses, "gaps": gaps, "step_gap": max(
+        float(np.linalg.norm(d["card"] - d["cpu"]) / np.linalg.norm(d["cpu"]))
+        for d in moved.values()), "head_moved": float(
+        np.abs(moved["classifier.weight"]["card"]).max())}
+    if not (len(losses["card"]) == len(losses["cpu"]) == CLI3_VIT_IMAGES // 2
+            and max(gaps) <= TOL_CLI3_VIT and rec["step_gap"] <= TOL_CLI3_VIT_STEP
+            and rec["head_moved"] > 0
+            and all(np.isfinite(v).all() for v in weights["card"].values())):
+        raise AssertionError(f"cli3: train_celeba_vit {rec}")
+    return rec
+
+
+def cli3_phase(smi="", device="cuda"):
+    """The phase ``cli3``: the last apps through their ``main``, each with
+    its host seconds and peak memory, every launch count 0 over the phase
+    (no kernel lies on their path):
+
+    * ``demo`` at its defaults (ADMM n = 100 in chunks of 20, the RPi HQ
+      sensor at downsample 4) on phase ``cli``'s 12 MP PSF: the stand-in
+      Pi's capture is that pair's measurement as a full-size raw 12-bit
+      mosaic (``rgb_mosaic``), demosaiced on the host; its solve's red
+      channel against the CPU's solve of that channel on the same inputs,
+      and the same solve at n = CLI3_CHANNELS_N on all three channels, on
+      the card against the CPU;
+    * ``measure.collect_dataset_on_device`` over 3 seeded images: a seeded
+      pool of 2 DigiCam patterns set in turn, the on-device RGB conversion
+      at downsample 4, the adaptive exposure (the first capture at the
+      default 0.02 s too dark, then in the band at 0.04 s), the on-line ADMM (n = 10) of each capture, its
+      first solve against the CPU;
+    * ``hardware.config_digicam`` (a seeded pattern) and
+      ``hardware.digicam_measure_psfs`` (2 seeded full patterns) over the
+      stand-in Pi;
+    * ``data.plot_psf`` on a mask ``.npy`` (``AdafruitLCD`` at
+      downsample 8) on the card and on the CPU;
+    * ``demo_apps.telegram_bot`` with ``dummy: true``, ``downsample: 4``
+      and a ``mask`` config (its PSFs at downsample 8) on stand-in
+      ``telegram`` modules, five requests (``_cli3_bot``) on the card and
+      on the CPU: the same replies, each user's ``AdafruitLCD`` PSF within
+      TOL_CLI2_PSF, each request solved with its own user's PSF, each card
+      solve against the CPU on the same inputs;
+    * ``classify.train_celeba_vit`` where ``transformers`` is installed
+      (``_cli3_vit``; else the record says ``"no transformers"``).
+
+    ADMM solves are held to the CPU within TOL_CLI2_ADMM, FISTA within
+    TOL_CLI3_FISTA, their 8-bit PNGs within one level.  ``device="cpu"``
+    rehearses it (both sides on the CPU).  Returns the phase's record."""
+    import importlib.util
+    import re
+    import tempfile
+
+    import cv2
+
+    from lenslesspicam_tpu_torch.data.io import load_psf
+    from lenslesspicam_tpu_torch.hardware.slm import adafruit_sub2full
+    from lenslesspicam_tpu_torch.scripts import demo as app_demo
+    from lenslesspicam_tpu_torch.scripts.data import plot_psf as app_plot_psf
+    from lenslesspicam_tpu_torch.scripts.demo_apps import telegram_bot as app_bot
+    from lenslesspicam_tpu_torch.scripts.hardware import config_digicam as app_config
+    from lenslesspicam_tpu_torch.scripts.hardware import digicam_measure_psfs as app_psfs
+    from lenslesspicam_tpu_torch.scripts.measure import collect_dataset_on_device as app_collect
+
+    t0 = time.perf_counter()
+    on_card = device != "cpu"
+    run = _AppRunner("cli3", _Cli3Records, on_card)
+    host_s, peak = run.host_s, run.peak
+    rec = {"phase": "cli3", "seed": CLI3_SEED}
+
+    def against_cpu(name, solve, channels=slice(None)):
+        """A recorded solve against the CPU on the same inputs (``channels``
+        of them): the error of the max and the 8-bit levels apart."""
+        t1 = time.perf_counter()
+        ref = _cli3_cpu_solve(solve, channels)
+        host_s[f"{name}:cpu_reference"] = host_s.get(f"{name}:cpu_reference", 0.0) + (
+            time.perf_counter() - t1)
+        out = np.ascontiguousarray(solve["out"][..., channels])
+        levels = np.abs(png_pixels(out[0]).astype(int) - png_pixels(ref[0]).astype(int))
+        err = {"solver": solve["cls"].__name__, "vs_cpu": nerr(torch.from_numpy(out),
+                                                               torch.from_numpy(ref)),
+               "levels_max": int(levels.max())}
+        tol = TOL_CLI3_FISTA if err["solver"] == "FISTA" else TOL_CLI2_ADMM
+        if not (np.isfinite(solve["out"]).all() and err["vs_cpu"] <= tol
+                and err["levels_max"] <= 1):
+            raise AssertionError(f"cli3: {name} card against CPU {err}")
+        return err
+
+    saved_env = os.environ.pop("LPT_PLATFORM", None)
+    K.reset_launches()
+    PB.reset_launches()
+    try:
+        with tempfile.TemporaryDirectory() as folder:
+            out = os.path.join(folder, "runs")
+            rng = np.random.RandomState(CLI3_SEED)
+            shown = _cli2_pngs(os.path.join(folder, "shown"), CLI3_COLLECT_FILES, rng,
+                               CLI3_DISPLAY)
+            pair = _cli_pair(folder, device)
+            meas = cv2.imread(pair["data"], cv2.IMREAD_UNCHANGED)[..., ::-1] / 65535.0
+            raw = rgb_mosaic(meas, CLI3_LEVEL)
+            del meas
+            home = os.path.join(folder, "pi")
+            os.makedirs(home)
+            pi_args = ["rpi.username=pi", "rpi.hostname=stand-in", "capture.config_pause=0"]
+            grid = tuple(int(s / CLI3_DOWN) for s in SENSOR)
+
+            # demo: display, capture, ADMM n = 100 at downsample 4, save
+            with _StandInPi(raw, home) as pi:
+                run_dir, text, r = run("demo", lambda: app_demo.main([
+                    *pi_args, f"fp={shown}/im0.png", f"camera.psf={pair['psf']}", "plot=False",
+                    "capture.delay=0", "display.wait=0", f"output_dir={out}/demo"]), "card")
+            final = r.saved.get(os.path.join(run_dir, "reconstructed.png"))
+            rec["demo"] = {"grid": list(grid), "solves": len(r.solves),
+                           "apply": repr(r.solves[0]["apply"]) if r.solves else None,
+                           "shown": len(pi.shown), "exposures": pi.exposures,
+                           "plots": "skipped" if "matplotlib is not installed" in text
+                           else "drawn"}
+            if not (len(r.solves) == 1 and final is not None and final.shape == (*grid, 3)
+                    and pi.shown == [f"{shown}/im0.png"] and pi.exposures == [CLI3_EXP / 2]
+                    and not os.path.exists(os.path.join(run_dir, "raw_data.png"))):
+                raise AssertionError(f"cli3: demo {rec['demo']}")
+            # its CPU reference on the red channel: all three took 58 s on the H100 machine's host
+            rec["demo"].update(against_cpu("demo", r.solves[0], slice(0, 1)))
+            # the channel layout: the same solve, shorter, on all three channels
+            args, kwargs = r.solves[0]["apply"]
+            short = {**r.solves[0], "apply": (args, {**kwargs, "n_iter": CLI3_CHANNELS_N})}
+            short["out"] = _cli3_cpu_solve(short, device=device)
+            rec["demo"]["channels"] = against_cpu("demo:channels", short)
+
+            # collect_dataset_on_device: masks, on-device RGB, adaptive exposure, ADMM n = 10
+            measured = os.path.join(folder, "measured")
+            mask_cfg = (f"{{n: 2, shape: {CLI3_MASK['shape']}, seed: {CLI3_SEED}, "
+                        f"center: {CLI3_MASK['center']}}}")
+            with _StandInPi(raw, home) as pi:
+                _, text, r = run("collect_dataset_on_device", lambda: app_collect.main([
+                    *pi_args, f"input_dir={shown}", "capture.rgb=True", f"capture.down={CLI3_DOWN}", "capture.nbits_out=8",
+                    "display.delay=0", f"masks={mask_cfg}",
+                    f"recon={{psf: {pair['psf']}, n_iter: {CLI3_COLLECT_N}}}",
+                    f"measured_dir={measured}", f"output_dir={out}/collect"]), "card")
+            levels = [int(m) for m in re.findall(r"range: \d+ - (\d+), exp", text)]
+            pool = [np.load(os.path.join(measured, "masks", f"mask_{i}.npy")) for i in range(2)]
+            files = sorted(os.path.relpath(os.path.join(d, f), measured)
+                           for d, _, fs in os.walk(measured) for f in fs)
+            rec["collect_dataset_on_device"] = {
+                "files": len(files), "exposures": pi.exposures, "levels": levels,
+                "solves": len(r.solves),
+                "n_iter": r.solves[0]["kwargs"].get("n_iter") if r.solves else None}
+            want = {f"im{i}.png" for i in range(CLI3_COLLECT_FILES)}
+            if not (want | {f"recon/{f}" for f in want} <= set(files)
+                    and len(r.solves) == CLI3_COLLECT_FILES
+                    and "increasing exposure" in text and levels[0] < 170
+                    and all(170 <= lv <= 254 for lv in levels[1:])
+                    and len(pi.patterns) == CLI3_COLLECT_FILES
+                    and all(np.array_equal(p, adafruit_sub2full(
+                        pool[i % 2], center=tuple(CLI3_MASK["center"])))
+                        for i, p in enumerate(pi.patterns))
+                    and r.solves[0]["data"].shape[-3:-1] == grid):
+                raise AssertionError(f"cli3: collect_dataset_on_device "
+                                     f"{rec['collect_dataset_on_device']}, {files}")
+            rec["collect_dataset_on_device"].update(
+                against_cpu("collect_dataset_on_device", r.solves[0]))
+
+            # config_digicam and digicam_measure_psfs over the stand-in Pi
+            with _StandInPi(raw, home) as pi:
+                run("config_digicam", lambda: app_config.main([
+                    *pi_args, f"seed={CLI3_SEED}", f"output_dir={out}/config_digicam"]), "card")
+            (pattern,) = [np.load(os.path.join(d, "pattern.npy"))
+                          for d, _, fs in os.walk(f"{out}/config_digicam") if "pattern.npy" in fs]
+            if not (len(pi.patterns) == 1 and np.array_equal(pi.patterns[0], pattern)):
+                raise AssertionError("cli3: config_digicam sent another pattern")
+            patterns_fp = os.path.join(folder, "patterns.npy")
+            patterns = (rng.rand(CLI3_PATTERNS, *CLI2_PATTERN) * 255).astype(np.uint8)
+            np.save(patterns_fp, patterns)
+            with _StandInPi(raw, home) as pi:
+                _, text, _ = run("digicam_measure_psfs", lambda: app_psfs.main([
+                    *pi_args, f"masks={patterns_fp}",
+                    f"output_dir={out}/digicam_measure_psfs"]), "card")
+            lines = text.splitlines()
+            if not (len(pi.patterns) == CLI3_PATTERNS
+                    and all(np.array_equal(a, b) for a, b in zip(pi.patterns, patterns))
+                    and [ln.split()[0] for ln in lines] == [f"[{i}]" for i in range(CLI3_PATTERNS)]
+                    and all(os.path.isfile(ln.split()[1]) for ln in lines)):
+                raise AssertionError(f"cli3: digicam_measure_psfs {lines}")
+            rec["digicam_measure_psfs"] = {"patterns": CLI3_PATTERNS, "exposures": pi.exposures}
+
+            # plot_psf: a mask .npy through AdafruitLCD at downsample 8
+            mask_fp = os.path.join(folder, "mask.npy")
+            np.save(mask_fp, rng.rand(*CLI3_MASK["shape"]).astype(np.float32))
+            sides = {side: run("plot_psf", lambda: app_plot_psf.main([
+                f"psf={mask_fp}", f"output_dir={out}/plot_psf/{side}"]), side)
+                for side in ("card", "cpu")}
+            (fp, _, r), (fp_cpu, _, r_cpu) = sides["card"], sides["cpu"]
+            levels = np.abs(png_pixels(r.saved[fp]).astype(int)
+                            - png_pixels(r_cpu.saved[fp_cpu]).astype(int))
+            rec["plot_psf"] = {"shape": list(r.psfs[0].shape), "vs_cpu": nerr(
+                torch.from_numpy(r.psfs[0]), torch.from_numpy(r_cpu.psfs[0])),
+                "levels_max": int(levels.max())}
+            if not (len(r.psfs) == len(r_cpu.psfs) == 1 and os.path.isfile(fp)
+                    and rec["plot_psf"]["vs_cpu"] <= TOL_CLI2_PSF
+                    and rec["plot_psf"]["levels_max"] <= 1):
+                raise AssertionError(f"cli3: plot_psf {rec['plot_psf']}")
+
+            # the Telegram bot: dummy rig, a DigiCam mask, five requests
+            photo = os.path.join(folder, "portrait.jpg")
+            if not cv2.imwrite(photo, cv2.imread(f"{shown}/im0.png").transpose(1, 0, 2)):
+                raise AssertionError("cli3: could not write the photo")
+            mask_arg = f"mask={{shape: {CLI3_MASK['shape']}, center: {CLI3_MASK['center']}}}"
+            bots = {side: run("telegram_bot", lambda: _cli3_bot(app_bot._bot_main, [
+                "token=stand-in", f"psf={pair['psf']}", "dummy=True", "downsample=4", mask_arg,
+                f"output_dir={out}/bot/{side}"], photo), side) for side in ("card", "cpu")}
+            (replies, text, r), (replies_cpu, _, r_cpu) = bots["card"], bots["cpu"]
+            user_psfs = [load_psf(f"{out}/bot/card/{u}/{n}.png", downsample=4)
+                         for u, n in ((1, "psf"), (2, "psf"), (1, "psf_bad"))]
+            own = [0, 0, 0, 1, 2]       # each request's user PSF
+            captions = [t for _, kind, t in replies if kind == "photo"]
+            rec["telegram_bot"] = {
+                "replies": len(replies), "solvers": [s["cls"].__name__ for s in r.solves],
+                "psfs_vs_cpu": max(nerr(torch.from_numpy(a), torch.from_numpy(b))
+                                   for a, b in zip(r.psfs, r_cpu.psfs)),
+                "fallback": text.count("unrolled: no weights")}
+            if not (replies == replies_cpu and len(r.psfs) == len(r_cpu.psfs) == 3
+                    and rec["telegram_bot"]["psfs_vs_cpu"] <= TOL_CLI2_PSF
+                    and rec["telegram_bot"]["solvers"] == ["ADMM", "FISTA", "ADMM", "ADMM", "ADMM"]
+                    and rec["telegram_bot"]["fallback"] == 1
+                    and all(np.array_equal(s["psf"], user_psfs[k])
+                            for s, k in zip(r.solves, own))
+                    and nerr(torch.from_numpy(user_psfs[1]), torch.from_numpy(user_psfs[0])) > 1e-2
+                    and nerr(torch.from_numpy(user_psfs[2]), torch.from_numpy(user_psfs[0])) > 1e-2
+                    and captions[:5] == [f"Reconstruction ({a}), # s" for a in
+                                         ("admm", "fista", "unrolled", "admm", "admm")]):
+                raise AssertionError(f"cli3: telegram_bot {rec['telegram_bot']}, {replies}")
+            rec["telegram_bot"]["requests"] = [against_cpu("telegram_bot", s) for s in r.solves]
+
+            # the ViT classifier, where transformers is installed
+            rec["vit"] = ("no transformers" if importlib.util.find_spec("transformers") is None
+                          else _cli3_vit(folder, run))
+    finally:
+        os.environ.pop("LPT_PLATFORM", None)
+        if saved_env is not None:
+            os.environ["LPT_PLATFORM"] = saved_env
+    if on_card:
+        torch.cuda.synchronize()
+    counts = all_counts()
+    if counts != zero_counts():
+        raise AssertionError(f"cli3: launches {counts}, want none")
+    rec.update({"launches": counts, "host_s": host_s, "peak_mem_bytes": peak,
+                "tol": {"admm": TOL_CLI2_ADMM, "fista": TOL_CLI3_FISTA,
+                        "adafruit_psf": TOL_CLI2_PSF, "png_levels": 1, "vit_loss": TOL_CLI3_VIT,
+                        "vit_step": TOL_CLI3_VIT_STEP},
+                "card": smi, "seconds": time.perf_counter() - t0})
+    emit(rec)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4218,6 +4894,8 @@ def main():
     seconds["cli"] = cli["seconds"]
     cli2 = cli2_phase(smi)
     seconds["cli2"] = cli2["seconds"]
+    cli3 = cli3_phase(smi)
+    seconds["cli3"] = cli3["seconds"]
     rates["hub_solve_samples_per_s"] = hub["solve_samples_per_s"]
     rates.update({f"classical_{name}_it_per_s": rec["it_per_s"]
                   for name, rec in classical["solvers"].items()})
@@ -4249,7 +4927,7 @@ def main():
              "bandwidth": counts_bw, "learned": learned["launches"],
              "spatial": spatial["gray"]["rpallas"]["launches"],
              "spatial_pallas": spatial["gray"]["pallas"]["launches"], "hub": hub["launches"],
-             "cli": cli["launches"], "cli2": cli2["launches"]}
+             "cli": cli["launches"], "cli2": cli2["launches"], "cli3": cli3["launches"]}
     keys = ("max_abs_err", "max_rel_err", "max_lsb_err", "max_flip_share", "ms", "ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "flops")
     path = {name: ("round_trip" if name == "irfft_w" else

@@ -43,6 +43,10 @@ from lenslesspicam_tpu_torch.recon import apgd as tapgd
 from lenslesspicam_tpu_torch.recon import gd as tgd
 from lenslesspicam_tpu_torch.recon import mirflickr as tmir
 
+from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 CPU = "cpu"
 TOL_SOLVER = 1e-4
 TOL_EXACT = 1e-5

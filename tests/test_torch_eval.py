@@ -45,6 +45,10 @@ from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver as TConv
 from lenslesspicam_tpu_torch.recon.base import ADMM as TADMM
 from lenslesspicam_tpu_torch.utils import plot as tplot
 
+from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 CPU = "cpu"
 TOL_EXACT = 1e-5
 TOL_ROTATE = 1e-4

@@ -44,6 +44,10 @@ from lenslesspicam_tpu_torch.ops.padding import padded_size
 from lenslesspicam_tpu_torch.recon import admm as tadmm
 from lenslesspicam_tpu_torch.recon import admm_split as tsplit
 
+from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL_SOLVER = 1e-5          # v3 against JAX, normalized (tests/test_torch_admm.py)
 TOL_F32_LOOP = 1e-5        # full width against JAX, normalized (tests/test_torch_split.py)
 TOL_LOOP_HEADLINE = 2e-2   # the 2-byte loop, normalized (chip_smoke.TOL_LOOP_HEADLINE)

@@ -48,6 +48,10 @@ from lenslesspicam_tpu_torch.ops import fft_conv as tfft
 from lenslesspicam_tpu_torch.recon import admm as tadmm
 from lenslesspicam_tpu_torch.zoo import model_dict as tzoo
 
+from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 CPU = "cpu"
 TOL_SOLVER = 1e-5
 TOL_RECON = 1e-4

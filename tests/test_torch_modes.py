@@ -33,9 +33,12 @@ from lenslesspicam_tpu.recon import admm_split as jsplit
 
 from lenslesspicam_tpu_torch import convert
 from lenslesspicam_tpu_torch.ops import kernels as K
-from lenslesspicam_tpu_torch.ops.fft_conv import FFTConvolver
 from lenslesspicam_tpu_torch.recon import admm as tadmm
 from lenslesspicam_tpu_torch.recon import admm_split as tsplit
+
+from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "i16": jnp.int16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16, "i16": torch.int16}
@@ -45,7 +48,6 @@ TOL_FLOOR = 1e-5           # times the plane's max |value|
 TOL_SAT = 1e-5
 TOL_FLIP_SHARE = 1e-2      # bf16/int16 elements not bit-equal to the reference
 TOL_LOOP = 5e-2            # normalized, tests/test_pallas_fft.py:249
-TOL_PSNR_DB = 0.2          # tests/test_pallas_fft.py:358, 415
 
 # (io, carry_tv, carry_v): each knob alone, bf16 carries, and the JAX
 # bench's headline mode (bench.py:844-847)
@@ -260,49 +262,6 @@ def test_out_of_contract_data_saturates(tv, v):
     pre = tsplit.precompute_rsplit(psf, 100.0 * data, device="cpu")
     _, sat = tsplit.run_rsplit(pre, P, 20, return_sat=True, io="bf16", carry_tv=tv, carry_v=v)
     assert sat >= 1.0
-
-
-def _gate_scene(seed, rects):
-    """The structured scenes and sparse PSFs of tests/test_pallas_fft.py:
-    314-415 at 96 x 128, measured with the port's own convolver."""
-    h, w = 96, 128
-    rng = np.random.RandomState(seed)
-    scene = np.zeros((h, w), np.float32)
-    for (y0, y1, x0, x1, val) in rects:
-        scene[y0:y1, x0:x1] = val
-    psf = np.zeros((h, w), np.float32)
-    ys, xs = rng.randint(0, h, 200), rng.randint(0, w, 200)
-    psf[ys, xs] = rng.rand(200)
-    psf /= np.linalg.norm(psf)
-    fwd = FFTConvolver.from_psf(psf[None, :, :, None], pad=True, norm="backward",
-                                device="cpu")
-    meas = fwd.convolve(torch.from_numpy(scene)[None, None, :, :, None])[0, 0, :, :, 0]
-    return scene, psf, (meas / meas.max()).numpy().astype(np.float32)
-
-
-SCENES = {"tv": (1, [(20, 40, 30, 60, 1.0), (50, 80, 70, 110, 0.6)]),
-          "v": (2, [(25, 45, 20, 70, 0.9), (55, 75, 60, 120, 0.4)])}
-
-
-@pytest.mark.parametrize("scene_key,io,tv,v", [("tv", "f32", "i16", "f32"),
-                                               ("v", "f32", "f32", "i16"),
-                                               ("tv", "bf16", "i16", "i16"),
-                                               ("v", "bf16", "i16", "i16")])
-def test_quality_gate_n300(scene_key, io, tv, v):
-    """The fused solver in a storage mode (plain versions) within 0.2 dB
-    PSNR of the port's exact solver at n = 300 (no JAX in this test)."""
-    scene, psf, meas = _gate_scene(*SCENES[scene_key])
-
-    def psnr_of(x):
-        xn = x / max(float(x.max()), 1e-9)
-        return -10 * np.log10(np.mean((xn - scene / scene.max()) ** 2) + 1e-12)
-
-    conv = tadmm.make_convolver(psf[None, :, :, None], device="cpu")
-    ref = tadmm.run(conv, meas[None, None, :, :, None], n_iter=300)[0, 0, :, :, 0].numpy()
-    pre = tsplit.precompute_rsplit(psf, meas, device="cpu")
-    out, sat = tsplit.run_rsplit(pre, P, 300, return_sat=True, io=io, carry_tv=tv, carry_v=v)
-    assert sat < 1.0
-    assert abs(psnr_of(ref) - psnr_of(out.numpy())) < TOL_PSNR_DB
 
 
 @pytest.mark.parametrize("io", ["f32", "bf16"])

@@ -39,6 +39,11 @@ import torch
 
 from lenslesspicam_tpu_torch.parallel import distributed as tdist
 
+if __name__ != "__main__":      # a rank (python -m tests.test_torch_parallel) needs no test helpers
+    from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 N_ITER = 5
 TOL_XLA = 1e-5
 TOL_KERNEL = 1e-4

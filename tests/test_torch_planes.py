@@ -24,6 +24,10 @@ from lenslesspicam_tpu_torch.recon import admm as tadmm
 from lenslesspicam_tpu_torch.recon import admm_split as tsplit
 from test_torch_modes import TDT, TOL_LOOP, _nerr, jax_modes  # noqa: F401
 
+from test_torch_scripts import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 P = tsplit.ADMMParams()
 TOL_SOLVER = 1e-5          # normalized, tests/test_torch_admm.py:24
 N_PLANES, N_CONST = 6, 3

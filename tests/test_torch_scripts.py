@@ -11,8 +11,12 @@ and what every app shares; the evaluation apps are in
 simulators in ``tests/test_torch_scripts_sim.py``, the measurement apps in
 ``tests/test_torch_scripts_measure.py`` and the hub-model apps
 ``diffusercam_mirflickr``, ``multilens_ambient`` and
-``digicam_mirflickr_psf_err`` in ``tests/test_torch_scripts_hub.py``,
-which take their helpers and tolerances from here.
+``digicam_mirflickr_psf_err`` in ``tests/test_torch_scripts_hub.py``, the
+capture apps of ``measure`` and ``hardware`` in
+``tests/test_torch_scripts_capture.py``, ``data``, the end-to-end
+``demo`` and the ViT classifier in ``tests/test_torch_scripts_apps.py``
+and the Telegram bot in ``tests/test_torch_telegram_bot.py``, which take
+their helpers and tolerances from here.
 
 Tolerances:
 
@@ -52,12 +56,28 @@ import torch
 
 from lenslesspicam_tpu_torch.ops import noise as tnoise
 from lenslesspicam_tpu_torch.scripts import _common
+from lenslesspicam_tpu_torch.scripts import demo as t_demo_top
+from lenslesspicam_tpu_torch.scripts.classify import train_celeba_vit as t_vit
+from lenslesspicam_tpu_torch.scripts.data import convert_3d as t_convert_3d
+from lenslesspicam_tpu_torch.scripts.data import plot_psf as t_plot_psf
+from lenslesspicam_tpu_torch.scripts.data import prepare_mirflickr_subset as t_subset
+from lenslesspicam_tpu_torch.scripts.data import rename_mirflickr25k as t_rename
+from lenslesspicam_tpu_torch.scripts.data import upload_dataset_hf as t_upload
+from lenslesspicam_tpu_torch.scripts.demo_apps import telegram_bot as t_bot
 from lenslesspicam_tpu_torch.scripts.eval import benchmark_recon as t_bench
 from lenslesspicam_tpu_torch.scripts.eval import compute_metrics_from_original as t_metrics
 from lenslesspicam_tpu_torch.scripts.eval import quality_baseline as t_qb
+from lenslesspicam_tpu_torch.scripts.hardware import config_digicam as t_config_digicam
+from lenslesspicam_tpu_torch.scripts.hardware import digicam_measure_psfs as t_measure_psfs
+from lenslesspicam_tpu_torch.scripts.hardware import set_digicam_mask_distance as t_distance
 from lenslesspicam_tpu_torch.scripts.measure import analyze_image as t_analyze_image
 from lenslesspicam_tpu_torch.scripts.measure import analyze_measured_dataset as t_analyze_ds
+from lenslesspicam_tpu_torch.scripts.measure import collect_dataset_on_device as t_collect
 from lenslesspicam_tpu_torch.scripts.measure import digicam_example as t_digicam_example
+from lenslesspicam_tpu_torch.scripts.measure import on_device_capture as t_on_device
+from lenslesspicam_tpu_torch.scripts.measure import prep_display_image as t_prep_display
+from lenslesspicam_tpu_torch.scripts.measure import remote_capture as t_remote_capture
+from lenslesspicam_tpu_torch.scripts.measure import remote_display as t_remote_display
 from lenslesspicam_tpu_torch.scripts.recon import admm as t_admm
 from lenslesspicam_tpu_torch.scripts.recon import apgd as t_apgd
 from lenslesspicam_tpu_torch.scripts.recon import dataset_recon as t_dsrecon
@@ -77,12 +97,28 @@ from lenslesspicam_tpu_torch.scripts.sim import simulate_dataset as t_simds
 from lenslesspicam_tpu_torch.scripts.sim import single_file as t_single
 from lenslesspicam_tpu_torch.scripts.sim import torch_dataset as t_torch_dataset
 
+from scripts import demo as j_demo_top
+from scripts.classify import train_celeba_vit as j_vit
+from scripts.data import convert_3d as j_convert_3d
+from scripts.data import plot_psf as j_plot_psf
+from scripts.data import prepare_mirflickr_subset as j_subset
+from scripts.data import rename_mirflickr25k as j_rename
+from scripts.data import upload_dataset_hf as j_upload
+from scripts.demo_apps import telegram_bot as j_bot
 from scripts.eval import benchmark_recon as j_bench
 from scripts.eval import compute_metrics_from_original as j_metrics
 from scripts.eval import quality_baseline as j_qb
+from scripts.hardware import config_digicam as j_config_digicam
+from scripts.hardware import digicam_measure_psfs as j_measure_psfs
+from scripts.hardware import set_digicam_mask_distance as j_distance
 from scripts.measure import analyze_image as j_analyze_image
 from scripts.measure import analyze_measured_dataset as j_analyze_ds
+from scripts.measure import collect_dataset_on_device as j_collect
 from scripts.measure import digicam_example as j_digicam_example
+from scripts.measure import on_device_capture as j_on_device
+from scripts.measure import prep_display_image as j_prep_display
+from scripts.measure import remote_capture as j_remote_capture
+from scripts.measure import remote_display as j_remote_display
 from scripts.recon import admm as j_admm
 from scripts.recon import apgd as j_apgd
 from scripts.recon import dataset_recon as j_dsrecon
@@ -138,7 +174,27 @@ APPS = {
     "measure.digicam_example": (t_digicam_example, j_digicam_example, "digicam"),
     "measure.analyze_image": (t_analyze_image, j_analyze_image, "main"),
     "measure.analyze_measured_dataset": (t_analyze_ds, j_analyze_ds, "main"),
+    "measure.remote_display": (t_remote_display, j_remote_display, "main"),
+    "measure.remote_capture": (t_remote_capture, j_remote_capture, "main"),
+    "measure.prep_display_image": (t_prep_display, j_prep_display, "main"),
+    "hardware.set_digicam_mask_distance": (t_distance, j_distance, "main"),
+    "hardware.config_digicam": (t_config_digicam, j_config_digicam, "main"),
+    "hardware.digicam_measure_psfs": (t_measure_psfs, j_measure_psfs, "main"),
+    "measure.on_device_capture": (t_on_device, j_on_device, "main"),
+    "measure.collect_dataset_on_device": (t_collect, j_collect, "main"),
+    "data.rename_mirflickr25k": (t_rename, j_rename, "main"),
+    "data.prepare_mirflickr_subset": (t_subset, j_subset, "subset_mirflickr"),
+    "data.convert_3d": (t_convert_3d, j_convert_3d, "main"),
+    "data.plot_psf": (t_plot_psf, j_plot_psf, "main"),
+    "data.upload_dataset_hf": (t_upload, j_upload, "main"),
+    "demo": (t_demo_top, j_demo_top, "main"),                              # scripts/demo.py
+    "demo_apps.telegram_bot": (t_bot, j_bot, "_bot_main"),
+    "classify.train_celeba_vit": (t_vit, j_vit, "main"),
 }
+
+# the apps that resolve no device, with the reason
+NO_DEVICE = {"measure.on_device_capture": "runs on the Raspberry Pi, where no card can be, "
+                                          "and builds no tensor"}
 
 
 @pytest.fixture(autouse=True)
@@ -442,10 +498,12 @@ def test_app_device_follows_lpt_platform(monkeypatch):
         _common.app_device()
 
 
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", [n for n in APPS if n not in NO_DEVICE])
 def test_app_raises_without_a_card(name, tmp_path, monkeypatch):
     """Without ``LPT_PLATFORM=cpu`` and without a CUDA card an app raises
-    before it reads its config: no run directory is made."""
+    before it reads its config: no run directory is made.  The apps of
+    ``NO_DEVICE`` resolve no device (``measure.on_device_capture``: see
+    ``tests/test_torch_scripts_capture.py``)."""
     port, _, entry = APPS[name]
     monkeypatch.delenv("LPT_PLATFORM")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

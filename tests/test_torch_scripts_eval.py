@@ -25,10 +25,12 @@ from lenslesspicam_tpu_torch.scripts.eval import compute_metrics_from_original a
 from lenslesspicam_tpu_torch.scripts.eval import quality_baseline as t_qb
 
 from test_torch_scripts import (CPU, TOL_ADMM, TOL_GD, TOL_METRIC, TOL_PSNR_DB, _both, _nerr,
-                                _rel, _run, _saved, jax_noise, pngs)  # noqa: F401
+                                _rel, _run, _saved, jax_noise, one_thread, pngs)  # noqa: F401
 from scripts.eval import benchmark_recon as j_bench
 from scripts.eval import compute_metrics_from_original as j_metrics
 from scripts.eval import quality_baseline as j_qb
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(autouse=True)

@@ -108,7 +108,7 @@ class _Pi:
     """A stand-in ``paramiko`` and recorders of ``subprocess``: the SSH
     capture reports a legacy Raspberry Pi with its gains, and the ``scp``
     of the capture writes a seeded 12-bit raw Bayer PNG where it is
-    fetched to."""
+    fetched to; a mask pattern sent is not written."""
 
     REPORT = ["RPi distribution : buster\n", "Red gain : 1.9\n", "Blue gain : 1.6\n"]
 
@@ -143,10 +143,19 @@ class _Pi:
             if m:
                 assert cv2.imwrite(m.group(1), raw)
 
+        real_save = np.save
+
+        def save(fp, arr, *args, **kw):
+            # the pattern is not written: the stand-in scp never reads it, and
+            # the JAX package would write it at the fixed path /tmp/slm_pattern.npy
+            if not str(fp).endswith("slm_pattern.npy"):
+                return real_save(fp, arr, *args, **kw)
+
         monkeypatch.setitem(sys.modules, "paramiko", types.SimpleNamespace(
             SSHClient=SSHClient, WarningPolicy=type("WarningPolicy", (), {})))
         monkeypatch.setattr(subprocess, "Popen", Popen)
         monkeypatch.setattr(subprocess, "run", run)
+        monkeypatch.setattr(np, "save", save)
 
 
 def test_digicam_example_app_captures_over_ssh(tmp_path, capsys, monkeypatch):

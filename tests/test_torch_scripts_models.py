@@ -41,12 +41,14 @@ from lenslesspicam_tpu_torch.scripts.recon import diffusercam as t_diffusercam
 from lenslesspicam_tpu_torch.scripts.recon import train_learning_based as t_train
 
 from test_torch_scripts import (REPO, CPU, TOL_ADMM, TOL_LEARNED, TOL_METRIC, _both, _nerr,
-                                _png_levels, _rel, _run, _saved)
+                                _png_levels, _rel, _run, _saved, one_thread)  # noqa: F401
 from scripts.recon import dataset_recon as j_dsrecon
 from scripts.recon import train_learning_based as j_train
 
 sys.path.insert(0, str(REPO / "scripts" / "recon"))     # the JAX digicam's `_pretrained`
 import _pretrained as j_pre  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(autouse=True)
